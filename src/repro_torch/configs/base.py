@@ -1,0 +1,71 @@
+"""Model config dataclass for the PyTorch port.
+
+The port's own copy of the dense-decoder part of the JAX package's
+``ModelConfig``: the fields a dense GQA decoder with a (Swi)GLU FFN reads,
+the padded-vocab rule, and ``reduced()`` for the smoke-sized sibling. The
+MoE, MLA, SSM, hybrid, encoder-decoder and frontend sub-configs wait for
+the slices that port those families.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 → d_model // num_heads
+    max_seq_len: int = 524_288
+    # FFN activation: "swiglu" | "geglu" | "gelu"
+    ffn_activation: str = "swiglu"
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    residual_scale: float = 1.0
+    embedding_scale: float = 1.0
+    logit_scale: float = 1.0
+    logit_soft_cap: float = 0.0
+    subquadratic: bool = False
+    # embedding tables are allocated padded to this multiple; the padded
+    # logit columns are masked
+    vocab_pad_multiple: int = 256
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return (self.vocab_size + m - 1) // m * m
+
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    def reduced(self, **overrides) -> "ModelConfig":
+        """A smoke-test-sized sibling of this config (same family/topology)."""
+        small = dict(
+            num_layers=min(self.num_layers, 2),
+            d_model=128,
+            num_heads=4,
+            num_kv_heads=min(self.num_kv_heads, 4) if self.num_kv_heads else 0,
+            d_ff=256,
+            vocab_size=512,
+            head_dim=32,
+            max_seq_len=1024,
+        )
+        small.update(overrides)
+        return dataclasses.replace(self, name=self.name + "-smoke", **small)

@@ -1,0 +1,173 @@
+"""Per-family cache descriptors: ONE frozen spec of a model family's cache
+layout that drives the pooled mirror-free serving path end to end.
+
+The port's copy of the JAX package's descriptors. A
+:class:`CacheDescriptor` makes the layout data, not code:
+
+* **paged planes** — per-token arrays that live in the device page pool as
+  ``(L, P, page_tokens, *shape)``; each plane carries its own dtype and
+  its name matches the model's prefill cache key (``k``/``v``).
+* **seq planes** — per-sequence state rows (SSM state) that ride alongside
+  the page tables.
+
+Plane dtypes are kept as NAMES (``"float32"``, ``"bfloat16"``, ...):
+numpy has no bfloat16, so :data:`_DTYPES` maps each name to its torch
+dtype and itemsize, and the byte math (hence every byte counter) is the
+same in both packages. Only the dense family is ported; the int8, MLA and
+SSM families raise until their slices land.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+
+#: plane dtype name → (torch dtype, itemsize in bytes)
+_DTYPES = {
+    "float32": (torch.float32, 4),
+    "bfloat16": (torch.bfloat16, 2),
+    "float16": (torch.float16, 2),
+    "int8": (torch.int8, 1),
+}
+
+#: the plane-name universe across every family — the uniform key set behind
+#: the per-plane ``pool_d2h_bytes_<plane>`` / ``pool_h2d_bytes_<plane>``
+#: counters (zeroed for planes a pool does not hold)
+PLANE_STAT_NAMES: tuple = ("k", "v", "k_scale", "v_scale", "c", "kr",
+                           "conv", "ssm")
+
+
+def dtype_name(dtype) -> str:
+    """The plane dtype name of a torch dtype (``torch.bfloat16`` →
+    ``"bfloat16"``); names pass through after validation."""
+    name = dtype if isinstance(dtype, str) else str(dtype).split(".")[-1]
+    if name not in _DTYPES:
+        raise ValueError(f"unsupported plane dtype {dtype!r}; known: "
+                         f"{sorted(_DTYPES)}")
+    return name
+
+
+@dataclass(frozen=True)
+class PlaneSpec:
+    """One named cache plane.
+
+    For paged planes ``shape`` is the per-token trailing shape (a page is
+    ``(page_tokens, *shape)`` per layer); for seq planes it is the whole
+    per-layer per-sequence state shape.
+    """
+    name: str
+    shape: tuple
+    dtype: str
+    kind: str = "kv"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype][0]
+
+    @property
+    def itemsize(self) -> int:
+        return _DTYPES[self.dtype][1]
+
+    @property
+    def entry_bytes(self) -> int:
+        """Bytes of one entry: per token (paged) or per seq-layer (state)."""
+        return int(math.prod(self.shape)) * self.itemsize
+
+
+@dataclass(frozen=True)
+class CacheDescriptor:
+    """Frozen layout spec for one model family's decode cache."""
+    family: str                 # cache-layout family: dense | mla | int8 | ssm
+    num_layers: int
+    page_tokens: int
+    paged_planes: tuple = ()
+    seq_planes: tuple = ()
+    kernel: str = "dense"       # ragged kernel entry: dense | int8 | mla | none
+
+    @property
+    def token_group_bytes(self) -> int:
+        """Bytes one pooled token occupies across ALL layers and planes."""
+        return self.num_layers * sum(p.entry_bytes for p in self.paged_planes)
+
+    @property
+    def page_group_bytes(self) -> int:
+        """Bytes one page GROUP occupies: the unit every spill/fault moves
+        and every ``pool_d2h_bytes``/``pool_h2d_bytes`` counter charges."""
+        return self.token_group_bytes * self.page_tokens
+
+    def plane_page_bytes(self, plane: PlaneSpec) -> int:
+        """One plane's share of a page group (all layers)."""
+        return self.num_layers * self.page_tokens * plane.entry_bytes
+
+    @property
+    def has_pages(self) -> bool:
+        return bool(self.paged_planes)
+
+    def with_kv_dtype(self, dtype) -> "CacheDescriptor":
+        """Descriptor with ``kind == 'kv'`` planes re-typed (the
+        ``init_pool(dtype=...)`` override; scale/state planes keep theirs)."""
+        dt = dtype_name(dtype)
+        planes = tuple(
+            PlaneSpec(p.name, p.shape, dt, p.kind) if p.kind == "kv" else p
+            for p in self.paged_planes)
+        return CacheDescriptor(self.family, self.num_layers, self.page_tokens,
+                               planes, self.seq_planes, self.kernel)
+
+
+# ---------------------------------------------------------------------------
+# Family registry: (name, predicate, build function) walked in order; first
+# match wins. A build function returns (paged_planes, seq_planes, kernel).
+# ---------------------------------------------------------------------------
+def _dense_planes(cfg, kv_cache_dtype, compute_dtype):
+    dt = dtype_name(compute_dtype)
+    K, D = cfg.num_kv_heads, cfg.head_dim
+    return ((PlaneSpec("k", (K, D), dt), PlaneSpec("v", (K, D), dt)),
+            (), "dense")
+
+
+def _not_ported(family: str, item: str):
+    def build(cfg, kv_cache_dtype, compute_dtype):
+        raise NotImplementedError(
+            f"the {family} cache family is not ported yet (ROADMAP.md, "
+            f"modules to port, item {item})")
+    return build
+
+
+_FAMILY_BUILDERS: tuple = (
+    ("mla", lambda cfg, kd: getattr(cfg, "mla", None) is not None,
+     _not_ported("MLA", "10")),
+    ("int8", lambda cfg, kd: kd == "int8", _not_ported("int8", "10")),
+    ("dense", lambda cfg, kd: cfg.family in ("attn_dense", "vlm", "moe"),
+     _dense_planes),
+    ("ssm", lambda cfg, kd: cfg.family == "ssm", _not_ported("SSM", "10")),
+    # hybrid and encdec have no pooled layout: no entry → None
+)
+
+
+def descriptor_for(cfg, kv_cache_dtype: str = "native",
+                   compute_dtype="float32",
+                   page_tokens: int = 16) -> Optional[CacheDescriptor]:
+    """Build the cache descriptor for a model config, or None when the
+    family has no pooled layout (mirror-only)."""
+    for fam, pred, build in _FAMILY_BUILDERS:
+        if pred(cfg, kv_cache_dtype):
+            paged, seq, kernel = build(cfg, kv_cache_dtype, compute_dtype)
+            return CacheDescriptor(
+                family=fam, num_layers=cfg.num_layers,
+                page_tokens=page_tokens, paged_planes=paged,
+                seq_planes=seq, kernel=kernel)
+    return None
+
+
+def dense_descriptor(num_layers: int, kv_heads: int, head_dim: int,
+                     page_tokens: int, dtype="float16") -> CacheDescriptor:
+    """The dense ``(k, v)`` layout as a descriptor (``KVSpec`` without an
+    explicit descriptor resolves to this)."""
+    dt = dtype_name(dtype)
+    return CacheDescriptor(
+        family="dense", num_layers=num_layers, page_tokens=page_tokens,
+        paged_planes=(PlaneSpec("k", (kv_heads, head_dim), dt),
+                      PlaneSpec("v", (kv_heads, head_dim), dt)),
+        kernel="dense")

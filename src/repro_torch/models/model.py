@@ -1,0 +1,185 @@
+"""Decoder-only LM for the dense GQA family, as an ``nn.Module``.
+
+The counterpart of the JAX package's ``LM`` for ``family="attn_dense"``:
+
+* ``init(generator)`` — random weights with the reference's distributions;
+* ``prefill(tokens, max_len) -> (logits, cache)`` — dense padded cache;
+* ``decode_step`` — one token over the dense cache (the sequential
+  reference's step);
+* ``decode_step_paged`` / ``step_paged_ragged`` — one token / one ragged
+  mixed batch over the KV engine's device page pool, through the
+  hand-written paged-attention kernel.
+
+Parameters are stored once in the compute dtype (the JAX package casts
+every weight on every call, which is free inside ``jit`` but would copy
+all weights every tick in eager torch). The layer stack is a Python loop
+over an ``nn.ModuleList``; where the JAX ``scan`` returns new pools, the
+paged steps scatter in place into per-layer views of the engine's
+``(L, P, T, K, D)`` planes and return those same tensors.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+from repro_torch.core.engines.desc import descriptor_for
+from repro_torch.models import blocks as B
+from repro_torch.models.layers import (embed, lm_logits, rmsnorm,
+                                       truncated_normal_)
+
+
+class LM(nn.Module):
+    def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
+                 chunk_size: int = 512):
+        super().__init__()
+        if cfg.family != "attn_dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
+                f"modules to port)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self.chunk_size = chunk_size
+        V, d = cfg.padded_vocab, cfg.d_model
+        self.embed = B.frozen_param((V, d), dtype, self.device)
+        self.head = (None if cfg.tie_embeddings
+                     else B.frozen_param((V, d), dtype, self.device))
+        self.final_ln = B.frozen_param((d,), dtype, self.device, 1.0)
+        self.blocks = nn.ModuleList(
+            B.DecoderBlock(cfg, dtype, self.device)
+            for _ in range(cfg.num_layers))
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator) -> "LM":
+        """Draw random weights in place from ``generator`` (on the model's
+        device): the reference's truncated normals, ``std = 1/sqrt(fan_in)``
+        with fan_in the first axis (the vocab, for the embedding tables)."""
+        truncated_normal_(self.embed, 1.0, generator)
+        if self.head is not None:
+            truncated_normal_(self.head, 1.0, generator)
+        self.final_ln.data.fill_(1.0)
+        for blk in self.blocks:
+            blk.init_weights(generator)
+        return self
+
+    # ------------------------------------------------------------- helpers
+    def _embed_tokens(self, tokens):
+        h = embed(self.embed, tokens.to(self.device, torch.long),
+                  self.cfg.embedding_scale)
+        return h.to(self.dtype)
+
+    def _logits(self, h):
+        cfg = self.cfg
+        h = rmsnorm(self.final_ln, h, cfg.norm_eps)
+        table = self.embed if cfg.tie_embeddings else self.head
+        return lm_logits(table, h, cfg.logit_scale, cfg.logit_soft_cap,
+                         vocab_size=cfg.vocab_size)
+
+    def cache_descriptor(self, page_tokens: int = 16):
+        """This model's dense ``(k, v)`` cache descriptor in the compute
+        dtype — the plane layout the pooled serving path allocates."""
+        return descriptor_for(self.cfg, "native", self.dtype, page_tokens)
+
+    def supports_ragged_step(self) -> bool:
+        return self.cache_descriptor() is not None
+
+    # -------------------------------------------------------------- prefill
+    @torch.no_grad()
+    def prefill(self, tokens, max_len: int):
+        """Run the prompt ``tokens`` (B, S); return the last position's
+        logits (B, 1, V) fp32 and the decode cache: ``pos`` (B,) int32 and
+        ``k``/``v`` (L, B, max(max_len, S), K, D), zero past S."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(tokens, device=self.device)
+        Bz, S = tokens.shape
+        h = self._embed_tokens(tokens)
+        positions = torch.arange(S, device=self.device).expand(Bz, S)
+        ks, vs = [], []
+        for blk in self.blocks:
+            h, (k, v) = B.apply_decoder_block(blk, cfg, h, positions,
+                                              chunk_size=self.chunk_size)
+            ks.append(k)
+            vs.append(v)
+        T = max(max_len, S)
+        cache = {"pos": torch.full((Bz,), S, dtype=torch.int32,
+                                   device=self.device)}
+        for name, parts in (("k", ks), ("v", vs)):
+            kv = torch.zeros((cfg.num_layers, Bz, T) + parts[0].shape[2:],
+                             dtype=parts[0].dtype, device=self.device)
+            kv[:, :, :S] = torch.stack(parts)
+            cache[name] = kv
+        return self._logits(h[:, -1:]), cache
+
+    # --------------------------------------------------------- decode steps
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, positions):
+        """One token per row over the dense cache (written in place).
+        tokens: (B, 1); positions: (B,) write/query index."""
+        h = self._embed_tokens(tokens)
+        positions = positions.to(self.device, torch.long)
+        for i, blk in enumerate(self.blocks):
+            h, _ = B.decode_decoder_block(
+                blk, self.cfg, h, (cache["k"][i], cache["v"][i]), positions)
+        new_cache = dict(cache)
+        new_cache["pos"] = (positions + 1).to(torch.int32)
+        return self._logits(h), new_cache
+
+    def _paged_layers(self, cache, h, step):
+        pools = (cache["pool_k"], cache["pool_v"])
+        for i, blk in enumerate(self.blocks):
+            h, _ = step(blk, h, (pools[0][i], pools[1][i]))
+        return h, pools
+
+    @torch.no_grad()
+    def decode_step_paged(self, cache, tokens, positions):
+        """One token per row over the device page pool. cache: ``pos``,
+        ``pool_k``/``pool_v`` (L, P, T, K, D) and ``block_table``
+        (B, MP) int32. Returns logits (B, 1, V) and the cache with
+        ``pos + 1`` and the same (updated in place) pool tensors."""
+        cfg, table = self.cfg, cache["block_table"]
+        positions = positions.to(self.device, torch.long)
+        h, pools = self._paged_layers(
+            cache, self._embed_tokens(tokens),
+            lambda blk, hh, planes: B.decode_paged_block(
+                blk, cfg, hh, planes, table, positions))
+        new_cache = {"pos": (positions + 1).to(torch.int32),
+                     "block_table": table,
+                     "pool_k": pools[0], "pool_v": pools[1]}
+        return self._logits(h), new_cache
+
+    @torch.no_grad()
+    def step_paged_ragged(self, cache, tokens, ctx_lens, q_lens):
+        """One fused mixed-batch step over the device page pool. tokens:
+        (B, Qmax) — row ``b``'s ``q_lens[b]`` new tokens (0 marks padding
+        rows); ctx_lens: (B,) tokens already pooled. Returns logits for
+        every slot (B, Qmax, V) — callers read slot ``q_lens[b] - 1`` —
+        and the cache with ``pos = ctx_lens + q_lens``."""
+        cfg, table = self.cfg, cache["block_table"]
+        ctx_lens = ctx_lens.to(self.device, torch.long)
+        q_lens = q_lens.to(self.device, torch.long)
+        h, pools = self._paged_layers(
+            cache, self._embed_tokens(tokens),
+            lambda blk, hh, planes: B.step_paged_ragged_block(
+                blk, cfg, hh, planes, table, ctx_lens, q_lens))
+        new_cache = {"pos": (ctx_lens + q_lens).to(torch.int32),
+                     "block_table": table,
+                     "pool_k": pools[0], "pool_v": pools[1]}
+        return self._logits(h), new_cache
+
+
+def params_from_jax(np_params: dict, cfg) -> dict:
+    """A state dict for :class:`LM` from the JAX package's ``LM.init``
+    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``). The
+    stacked ``params["blocks"]`` (leading L axis) splits into the
+    ``ModuleList``; matrices keep the ``(d_in, d_out)`` layout."""
+    sd = {"embed": np_params["embed"]["table"],
+          "final_ln": np_params["final_ln"]["scale"]}
+    if not cfg.tie_embeddings:
+        sd["head"] = np_params["head"]["table"]
+    for i in range(cfg.num_layers):
+        for name, arr in B.jax_block_arrays(np_params["blocks"], i).items():
+            sd[f"blocks.{i}.{name}"] = arr
+    return {k: torch.from_numpy(np.array(v, copy=True))
+            for k, v in sd.items()}

@@ -14,6 +14,10 @@ def pytest_configure(config):
         "markers",
         "slow: heavyweight serving/property tests (deselect with "
         "-m \"not slow\")")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU (the port's hand-written kernels); skips "
+        "without one")
 
 try:        # hypothesis is optional: property tests skip when it is absent
     from hypothesis import HealthCheck, settings

@@ -1,0 +1,139 @@
+"""The port's paged-attention entries against the JAX package's.
+
+The plain PyTorch versions (what a CPU tensor runs) are held against the
+JAX Pallas kernels run in interpret mode, on the shape/dtype cases of
+``tests/test_kernels.py`` with its tolerances; the contract edges and the
+bitwise pins are checked on the port alone. The CUDA kernel itself is
+held against the plain version on the card in ``test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import paged_attention as jax_paged_attention
+from repro.kernels import paged_attention_ragged as jax_paged_attention_ragged
+from repro_torch.kernels.paged_attention import ops
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ragged_ref, paged_attention_ref)
+from test_torch_cuda import _edge_inputs, _poison_dead
+
+# tests/test_kernels.py: atol 5·_RTOL, rtol 2·_RTOL
+_TOL = {"float32": (1e-4, 4e-5), "bfloat16": (1e-1, 4e-2)}
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+PAGED_CASES = [
+    # (B, H, K, D, page_tokens, pool_pages, max_pages)
+    (3, 8, 4, 64, 16, 24, 6),
+    (1, 4, 4, 128, 8, 8, 4),
+    (2, 16, 2, 64, 32, 10, 4),
+    (4, 8, 8, 256, 16, 40, 8),
+]
+RAGGED_CASES = [
+    # (B, Qmax, H, K, D, page_tokens, pool_pages, max_pages)
+    (3, 4, 8, 4, 64, 16, 24, 6),
+    (1, 8, 4, 4, 128, 8, 8, 4),
+    (2, 2, 16, 2, 64, 32, 10, 4),
+    (4, 1, 8, 8, 256, 16, 40, 4),
+]
+
+
+def _both(arr, dtype):
+    """One numpy array as (jax array, torch tensor) of the same dtype."""
+    t = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+    return jnp.asarray(arr, _JNP[dtype]), t.to(_TORCH[dtype])
+
+
+def _close(out_t, out_j, dtype):
+    atol, rtol = _TOL[dtype]
+    np.testing.assert_allclose(out_t.float().numpy(),
+                               np.asarray(out_j, np.float32),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_decode_matches_jax_kernel(case, dtype):
+    B, H, K, D, T, P, MP = case
+    rng = np.random.default_rng(1)
+    qj, qt = _both(rng.standard_normal((B, H, D)), dtype)
+    kj, kt = _both(rng.standard_normal((P, T, K, D)), dtype)
+    vj, vt = _both(rng.standard_normal((P, T, K, D)), dtype)
+    tbl = (rng.permutation(P)[:B * MP].reshape(B, MP) if P >= B * MP
+           else rng.integers(0, P, (B, MP))).astype(np.int32)
+    lens = rng.integers(1, T * MP, B).astype(np.int32)
+    out_j = jax_paged_attention(qj, kj, vj, jnp.asarray(tbl),
+                                jnp.asarray(lens), force_pallas=True)
+    out_t = paged_attention_ref(qt, kt, vt, torch.from_numpy(tbl),
+                                torch.from_numpy(lens))
+    _close(out_t, out_j, dtype)
+
+
+def _ragged_inputs(case, dtype, seed=12):
+    B, Qm, H, K, D, T, P, MP = case
+    rng = np.random.default_rng(seed)
+    q = _both(rng.standard_normal((B, Qm, H, D)), dtype)
+    pk = _both(rng.standard_normal((P, T, K, D)), dtype)
+    pv = _both(rng.standard_normal((P, T, K, D)), dtype)
+    tbl = rng.integers(0, P, (B, MP)).astype(np.int32)
+    qls = rng.integers(1, Qm + 1, B).astype(np.int32)
+    lens = (rng.integers(0, T * MP - Qm, B) + qls).astype(np.int32)
+    return q, pk, pv, tbl, lens, qls
+
+
+@pytest.mark.parametrize("case", RAGGED_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_ragged_matches_jax_kernel(case, dtype):
+    (qj, qt), (kj, kt), (vj, vt), tbl, lens, qls = _ragged_inputs(case, dtype)
+    out_j = jax_paged_attention_ragged(
+        qj, kj, vj, jnp.asarray(tbl), jnp.asarray(lens), jnp.asarray(qls),
+        force_pallas=True)
+    out_t = paged_attention_ragged_ref(qt, kt, vt, torch.from_numpy(tbl),
+                                       torch.from_numpy(lens),
+                                       torch.from_numpy(qls))
+    _close(out_t, out_j, dtype)
+
+
+def test_plain_ragged_contract_edges():
+    """q_len == 0 rows and padding slots are exactly zero; dead pages and
+    stale table tails change nothing; agreement with the JAX oracle."""
+    q, pk, pv, tbl, lens, qls = _edge_inputs()
+    out = paged_attention_ragged_ref(q, pk, pv, tbl, lens, qls)
+    ref = jax_paged_attention_ragged(
+        jnp.asarray(q.numpy()), jnp.asarray(pk.numpy()),
+        jnp.asarray(pv.numpy()), jnp.asarray(tbl.numpy()),
+        jnp.asarray(lens.numpy()), jnp.asarray(qls.numpy()),
+        force_pallas=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=2e-5)
+    for b in range(q.shape[0]):
+        assert torch.all(out[b, int(qls[b]):] == 0.0), b
+    pk2, pv2, tbl2 = _poison_dead(pk, pv, tbl, lens, pk.shape[1])
+    out2 = paged_attention_ragged_ref(q, pk2, pv2, tbl2, lens, qls)
+    np.testing.assert_allclose(out2.numpy(), out.numpy(), atol=1e-5)
+
+
+def test_plain_ragged_qlen1_is_bitwise_plain_decode():
+    q, pk, pv, tbl, _, _ = _edge_inputs(seed=13)
+    T = pk.shape[1]
+    lens = torch.tensor([1, 7, T, T * tbl.shape[1] - 2], dtype=torch.int32)
+    ones = torch.ones(q.shape[0], dtype=torch.int32)
+    r1 = paged_attention_ragged_ref(q[:, :1], pk, pv, tbl, lens, ones)
+    d1 = paged_attention_ref(q[:, 0], pk, pv, tbl, lens)
+    assert torch.equal(r1[:, 0], d1)
+    zero = paged_attention_ref(q[:, 0], pk, pv, tbl,
+                               torch.tensor([0, 1, 2, 3], dtype=torch.int32))
+    assert torch.all(zero[0] == 0.0)
+
+
+def test_cpu_tensor_takes_plain_version_without_launching():
+    q, pk, pv, tbl, lens, qls = _edge_inputs()
+    before = (ops.paged_attention_ragged.launches, ops.paged_attention.launches)
+    out = ops.paged_attention_ragged(q, pk, pv, tbl, lens, qls)
+    assert torch.equal(out, paged_attention_ragged_ref(q, pk, pv, tbl, lens,
+                                                       qls))
+    dec = ops.paged_attention(q[:, 0], pk, pv, tbl, lens)
+    assert torch.equal(dec, paged_attention_ref(q[:, 0], pk, pv, tbl, lens))
+    assert (ops.paged_attention_ragged.launches,
+            ops.paged_attention.launches) == before
