@@ -7,26 +7,44 @@ Needs one CUDA card and the CUDA toolkit (``nvcc``); exits non-zero, with
 no result line, without them or outside a checkout of the repo. Phases —
 each raises on failure, and any failure ends the run with a traceback:
 
-1. env     — torch/CUDA/nvcc versions and the card; builds every kernel
-             source (one ``nvcc`` per source, all started together).
-2. kernels — each kernel at the main path's shapes (B=8, H=16, K=8, D=128,
-             T=16, MP=64, Qmax 128 and 1; mixed lengths, a q_len=0 row,
-             garbage past every row's live pages) in fp32 and bf16: held
-             against its plain PyTorch version (bf16 also against the
-             plain fp32 version on the same bf16 inputs, to one bf16 ulp),
-             the bitwise pins, and CUDA-event times beside the bound and a
-             library call.
-3. serve   — full-width InternLM2-1.8B (random weights from --seed) in bf16
-             through ``ServingEngine.generate()``, pooled and fused: 8
-             requests, prompts of 64–512 tokens, 32 new tokens each.
-4. parity  — full width in fp32: ``generate()`` against the dense
-             ``generate_sequential()``; then a 4-layer tight-pool run that
-             must preempt and stay token-identical.
-5. unfused — the 4-layer run with ``fuse_ticks=False``: prompt chunks go
-             token by token through the decode kernel.
+1. env        — torch/CUDA/nvcc versions and the card; builds every
+                kernel source (one ``nvcc`` per source, all started
+                together).
+2. kernels    — each kernel at the main paths' shapes in its working
+                dtypes, held against its plain PyTorch version (a bf16
+                output also against the plain fp32 version on the same
+                inputs, to half a bf16 ulp), the bitwise pins (padding
+                slots and q_len=0 rows are 0, dead slots change nothing,
+                ragged at q_len=1 is the decode entry), and CUDA-event
+                times beside the bound and a library call. Dense and int8:
+                B=8, H=16, K=8, D=128, T=16, MP=64, Qmax 128 and 1; MLA:
+                B=8, H=128, dc=512, dr=64, T=16, MP=64, Qmax 128 (the MLA
+                serve phase's prefill chunk) and 1.
+3. serve      — full-width InternLM2-1.8B (random weights from --seed) in
+                bf16 through ``ServingEngine.generate()``, pooled and
+                fused: 8 requests, prompts of 64–512 tokens, 32 new tokens
+                each, 1 GiB pool.
+4. parity     — full width in fp32: ``generate()`` against the dense
+                ``generate_sequential()``; then a 4-layer tight-pool run
+                that must preempt and stay token-identical.
+5. unfused    — the 4-layer run with ``fuse_ticks=False``: prompt chunks
+                go token by token through the decode kernel.
+6. serve-int8 — phase 3 with an int8 KV pool (int8 K/V, bf16 scales) at
+                the same 1 GiB: about twice the pages.
+7. parity-int8 — phases 4 and 5 with the int8 pool, against the int8
+                sequential reference with the pooled path's prompt split
+                (first chunk prefilled, the rest through the decode step):
+                a chunked int8 prompt attends over quantized K/V of its
+                earlier chunks, which one-shot prefill does not.
+8. serve-mla  — DeepSeek-V2 without experts (MLA, d_ff 12288 FFN in every
+                layer) at full width and depth (60 layers) in bf16,
+                phase 3's requests.
+9. parity-mla — 4 layers of it at full width in fp32: fused and unfused
+                runs token-identical to ``generate_sequential()``.
 
-The last lines are the card's name and power limit, a ``{"kernels": ...}``
-JSON line, and ``{"ok": true, "device": {...}}``.
+Each serving path is driven with the launch counts set to 0 just before
+it and read just after. The last lines are the card's name and power
+limit, a ``{"kernels": ...}`` JSON line, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
@@ -46,15 +64,25 @@ HBM_BYTES_PER_S = 3.35e12
 FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 # kernel vs its plain version on the same inputs (tests/test_kernels.py)
 TOL = {"float32": (1e-4, 4e-5), "bfloat16": (1e-1, 4e-2)}
-# bf16 kernel vs the plain fp32 version on the same bf16 values: the
+# bf16 kernel output vs the plain fp32 version on the same values: the
 # kernel's math is fp32, so only the output's rounding to bf16 (at most
 # half an ulp, 2^-8 relative) may differ. Accumulating in bf16, or
 # dropping part of a row, fails this.
 TOL_BF16_VS_FP32 = (1e-5, 2 ** -8)
+KERNEL_PY = "src/repro/kernels/paged_attention/kernel.py"
+CSRC = "src/repro_torch/kernels/paged_attention/csrc/"
+# row name → (TPU kernel's pallas_call line, CUDA source)
 KERNELS = {
-    "paged_attention_ragged": "src/repro/kernels/paged_attention/kernel.py:284",
-    "paged_attention": "src/repro/kernels/paged_attention/kernel.py:93",
+    "paged_attention_ragged": (f"{KERNEL_PY}:321", CSRC + "paged_attention.cu"),
+    "paged_attention": (f"{KERNEL_PY}:126", CSRC + "paged_attention.cu"),
+    "paged_attention_ragged_q8": (f"{KERNEL_PY}:481",
+                                  CSRC + "paged_attention.cu"),
+    "mla_paged_attention_ragged": (f"{KERNEL_PY}:637",
+                                   CSRC + "mla_paged_attention.cu"),
 }
+GEOM = dict(B=8, H=16, K=8, D=128, T=16, MP=64)
+MLA_GEOM = dict(B=8, H=128, dc=512, dr=64, T=16, MP=64)
+CHUNK = 128                  # serve phases' prefill chunk = kernel Qmax
 
 
 def log(*a):
@@ -95,8 +123,10 @@ def phase_env(torch):
             raise RuntimeError(f"nvcc failed on {src}:\n{text}")
         regs = [ln.split("ptxas info    :")[-1].strip()
                 for ln in text.splitlines() if "Used" in ln]
+        spills = [ln.strip() for ln in text.splitlines()
+                  if "spill" in ln and " 0 bytes spill stores" not in ln]
         log(f"[env] built {src.relative_to(ROOT)}: {len(regs)} kernels; "
-            f"{regs[:3]}")
+            f"{regs[:3]}; spilling: {spills[:3]}")
     log(f"[env] kernel build {time.time() - t0:.1f} s")
 
 
@@ -114,15 +144,8 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def kernel_inputs(torch, dev, dtype, qmax, seed):
-    """Main-path shapes with a q_len=0 row, mixed lengths, distinct live
-    pages, garbage table tails and random (garbage) slots past lengths."""
-    B, H, K, D, T, MP = 8, 16, 8, 128, 16, 64
-    P = B * MP + 64
-    g = torch.Generator(dev).manual_seed(seed)
-    q = torch.randn((B, qmax, H, D), generator=g, device=dev).to(dtype)
-    pk = torch.randn((P, T, K, D), generator=g, device=dev).to(dtype)
-    pv = torch.randn((P, T, K, D), generator=g, device=dev).to(dtype)
+def row_lengths(torch, dev, qmax):
+    """Mixed lengths with a q_len=0 (or lengths=0) row."""
     if qmax == 1:
         q_lens = [0, 1, 1, 1, 1, 1, 1, 1]      # row 0: lengths == 0
         ctx = [0, 0, 15, 16, 300, 701, 1023, 64]
@@ -131,20 +154,24 @@ def kernel_inputs(torch, dev, dtype, qmax, seed):
         ctx = [5, 300, 0, 700, 1023, 512, 64, 17]
     q_lens = torch.tensor(q_lens, dtype=torch.int32, device=dev)
     lengths = torch.tensor(ctx, dtype=torch.int32, device=dev) + q_lens
+    return lengths, q_lens
+
+
+def block_table(torch, g, dev, B, MP, P, T, lengths):
+    """Distinct live pages per row, garbage table tails."""
     perm = torch.randperm(P, generator=g, device=dev)[:B * MP]
     table = perm.reshape(B, MP).to(torch.int32)
     for b in range(B):
         live = -(-int(lengths[b]) // T)
         table[b, live:] = torch.randint(-P, 3 * P, (MP - live,), generator=g,
                                         device=dev, dtype=torch.int32)
-    return q, pk, pv, table, lengths, q_lens
+    return table
 
 
-def poison_dead(torch, pk, pv, table, lengths):
-    """Overwrite every slot a row may not see (past its length, and whole
-    pages past its live ones) with huge values."""
-    pk, pv = pk.clone(), pv.clone()
-    T, P = pk.shape[1], pk.shape[0]
+def dead_slots(torch, P, T, table, lengths):
+    """(P, T) mask of every slot no row may see: past a row's length in
+    its last live page, and whole pages past its live ones."""
+    dead = torch.zeros((P, T), dtype=torch.bool)
     tbl = table.tolist()
     lives = [-(-int(n) // T) for n in lengths.tolist()]
     live_pages = {tbl[b][lp] for b, live in enumerate(lives)
@@ -152,142 +179,237 @@ def poison_dead(torch, pk, pv, table, lengths):
     for b, live in enumerate(lives):
         n = int(lengths[b])
         if n % T:
-            phys = tbl[b][live - 1]
-            pk[phys, n % T:] = 1e4
-            pv[phys, n % T:] = -1e4
+            dead[tbl[b][live - 1], n % T:] = True
         for phys in tbl[b][live:]:
             if 0 <= phys < P and phys not in live_pages:
-                pk[phys] = 3e4
-                pv[phys] = -3e4
-    return pk, pv
+                dead[phys] = True
+    return dead.to(table.device)
 
 
-def work(lengths, q_lens, qmax, H, K, D, T, itemsize):
-    """Bytes the function must move and flops it must do on these inputs:
-    live K/V pages of rows with queries, q, table, output; QK^T and P.V
-    over each valid query's causal span."""
+def sdpa(torch, q, k, v, lengths, q_lens, scale=None):
+    """``F.scaled_dot_product_attention`` of q (B, Qm, H, D) over dense
+    k/v (B, S, Kh, D), causal in the chunk (a yardstick only — the port
+    never calls it)."""
+    F = torch.nn.functional
+    Qm = q.shape[1]
+    S = k.shape[1]
+    qpos = (lengths - q_lens).long()[:, None] + torch.arange(Qm,
+                                                             device=q.device)
+    mask = (torch.arange(S, device=q.device)[None, None, :]
+            <= qpos[:, :, None])[:, None]
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True, scale=scale)
+
+
+def gather(pool, table):
+    """Pool pages (P, T, ...) through the clamped table → (B, S, ...)."""
+    tbl = table.long().clamp(0, pool.shape[0] - 1)
+    return pool[tbl].reshape((table.shape[0], -1) + pool.shape[2:])
+
+
+class Case:
+    """One kernel entry at one shape and dtype: its arguments, kernel and
+    plain calls, the plain fp32 version's arguments, a copy of the
+    arguments with every dead slot poisoned, the decode entry its q_len=1
+    slice must equal, the work it must do, and a library yardstick."""
+
+
+def dense_case(torch, dev, dtype, qmax, seed, q8=False):
+    from repro_torch.kernels.paged_attention import ops, ref
+    from repro_torch.models.attention import quantize_kv
+    B, H, K, D, T, MP = (GEOM[k] for k in "B H K D T MP".split())
+    P = B * MP + 64
+    g = torch.Generator(dev).manual_seed(seed)
+    lengths, q_lens = row_lengths(torch, dev, qmax)
+    table = block_table(torch, g, dev, B, MP, P, T, lengths)
+    q = torch.randn((B, qmax, H, D), generator=g, device=dev).to(dtype)
+    pk = torch.randn((P, T, K, D), generator=g, device=dev)
+    pv = torch.randn((P, T, K, D), generator=g, device=dev)
+    dead = dead_slots(torch, P, T, table, lengths)
+    c = Case()
+    if q8:
+        (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
+        planes = (pk, pv, ks, vs)
+        poisoned = tuple(x.clone() for x in planes)
+        poisoned[0][dead], poisoned[1][dead] = 127, -127
+        poisoned[2][dead], poisoned[3][dead] = 1e6, 1e6
+        ragged, decode = ops.paged_attention_ragged_q8, ops.paged_attention_q8
+        plain_r, plain_d = (ref.paged_attention_ragged_q8_ref,
+                            ref.paged_attention_q8_ref)
+        # SDPA over K/V gathered and dequantized beforehand
+        kd = gather(ref.dequant_pool(pk, ks).to(dtype), table)
+        vd = gather(ref.dequant_pool(pv, vs).to(dtype), table)
+        page_bytes = T * K * (2 * D + 2 * 2)
+    else:
+        pk, pv = pk.to(dtype), pv.to(dtype)
+        planes = (pk, pv)
+        poisoned = (pk.clone(), pv.clone())
+        poisoned[0][dead], poisoned[1][dead] = 1e4, -1e4
+        ragged, decode = ops.paged_attention_ragged, ops.paged_attention
+        plain_r, plain_d = ref.paged_attention_ragged_ref, ref.paged_attention_ref
+        kd, vd = gather(pk, table), gather(pv, table)
+        page_bytes = T * K * D * 2 * q.element_size()
+    rows = (table, lengths)
+    if qmax == 1:
+        c.kern = lambda *a: decode(a[0][:, 0], *a[1:-1])[:, None]
+        c.plain = lambda *a: plain_d(a[0][:, 0], *a[1:-1])[:, None]
+    else:
+        c.kern = lambda *a: ragged(*a)
+        c.plain = lambda *a: plain_r(*a)
+    c.args = (q,) + planes + rows + (q_lens,)
+    c.args32 = (q.float(),) + c.args[1:]
+    c.poisoned = (q,) + poisoned + rows + (q_lens,)
+    c.decode = lambda: decode(q[:, 0], *planes, *rows)[:, None]
+    c.library = sdpa(torch, q, kd, vd, lengths, q_lens)
+    c.q_lens, c.out_dtype = q_lens, dtype
+    c.rate_dtype = str(dtype).split(".")[-1]
     nbytes, flops = 0, 0
     for n, ql in zip(lengths.tolist(), q_lens.tolist()):
         if ql > 0:
-            nbytes += -(-n // T) * T * K * D * 2 * itemsize
+            nbytes += -(-n // T) * page_bytes
             flops += sum(4 * D * (n - ql + i + 1) for i in range(ql)) * H
-    B = len(lengths)
-    nbytes += 2 * B * qmax * H * D * itemsize + B * 64 * 4 + 2 * B * 4
-    return nbytes, flops
+    nbytes += 2 * q.numel() * q.element_size() + table.numel() * 4 + 2 * B * 4
+    c.work = (nbytes, flops)
+    return c
 
 
-def library_call(torch, q, pk, pv, table, lengths, q_lens):
-    """``F.scaled_dot_product_attention`` over K/V gathered densely through
-    the block table (a yardstick only — the port never calls it)."""
-    F = torch.nn.functional
-    B, Qm, H, D = q.shape
-    P, T, K, _ = pk.shape
-    tbl = table.long().clamp(0, P - 1)
-    k = pk[tbl].reshape(B, -1, K, D).transpose(1, 2)
-    v = pv[tbl].reshape(B, -1, K, D).transpose(1, 2)
-    S = k.shape[2]
-    qpos = (lengths - q_lens).long()[:, None] + torch.arange(Qm,
-                                                             device=q.device)
-    mask = torch.arange(S, device=q.device)[None, None, :] <= qpos[:, :, None]
-    mask = mask[:, None]
-    qt = q.transpose(1, 2)
-    return lambda: F.scaled_dot_product_attention(qt, k, v, attn_mask=mask,
-                                                  enable_gqa=True)
+def mla_case(torch, dev, pool_dtype, qmax, seed):
+    from repro_torch.kernels.paged_attention import ops, ref
+    B, H, dc, dr, T, MP = (MLA_GEOM[k] for k in "B H dc dr T MP".split())
+    P = B * MP + 64
+    scale = 1.0 / (128 + 64) ** 0.5            # 1/sqrt(qk_nope + qk_rope)
+    g = torch.Generator(dev).manual_seed(seed)
+    lengths, q_lens = row_lengths(torch, dev, qmax)
+    table = block_table(torch, g, dev, B, MP, P, T, lengths)
+    q_c = torch.randn((B, qmax, H, dc), generator=g, device=dev)
+    q_r = torch.randn((B, qmax, H, dr), generator=g, device=dev)
+    pc = torch.randn((P, T, dc), generator=g, device=dev).to(pool_dtype)
+    pkr = torch.randn((P, T, dr), generator=g, device=dev).to(pool_dtype)
+    dead = dead_slots(torch, P, T, table, lengths)
+    pc2, pkr2 = pc.clone(), pkr.clone()
+    pc2[dead], pkr2[dead] = 1e4, -1e4
+    c = Case()
+    if qmax == 1:
+        c.kern = lambda *a: ops.mla_paged_attention(
+            a[0][:, 0], a[1][:, 0], *a[2:-1], scale=scale)[:, None]
+        c.plain = lambda *a: ref.mla_paged_attention_ref(
+            a[0][:, 0], a[1][:, 0], *a[2:-1], scale=scale)[:, None]
+    else:
+        c.kern = lambda *a: ops.mla_paged_attention_ragged(*a, scale=scale)
+        c.plain = lambda *a: ref.mla_paged_attention_ragged_ref(
+            *a, scale=scale)
+    rows = (table, lengths, q_lens)
+    c.args = (q_c, q_r, pc, pkr) + rows
+    c.args32 = (q_c, q_r, pc.float(), pkr.float()) + rows
+    c.poisoned = (q_c, q_r, pc2, pkr2) + rows
+    c.decode = lambda: ops.mla_paged_attention(
+        q_c[:, 0], q_r[:, 0], pc, pkr, table, lengths, scale=scale)[:, None]
+    # SDPA: one KV head holding [c, kr], values c, gathered beforehand
+    kc = gather(pc, table).float()
+    k = torch.cat([kc, gather(pkr, table).float()], dim=-1)[:, :, None]
+    c.library = sdpa(torch, torch.cat([q_c, q_r], dim=-1), k, kc[:, :, None],
+                     lengths, q_lens, scale=scale)
+    c.q_lens, c.out_dtype, c.rate_dtype = q_lens, torch.float32, "float32"
+    nbytes, flops = 0, 0
+    for n, ql in zip(lengths.tolist(), q_lens.tolist()):
+        if ql > 0:
+            nbytes += -(-n // T) * T * (dc + dr) * pc.element_size()
+            flops += sum((2 * (dc + dr) + 2 * dc) * (n - ql + i + 1)
+                         for i in range(ql)) * H
+    nbytes += (q_c.numel() * 2 + q_r.numel()) * 4 + table.numel() * 4 \
+        + 2 * B * 4
+    c.work = (nbytes, flops)
+    return c
+
+
+def measure(torch, name, c, what):
+    """Hold a case against its plain version and pins; time it. Returns
+    the row fields of this case."""
+    out, ref = c.kern(*c.args), c.plain(*c.args)
+    torch.cuda.synchronize()
+    tol = "bfloat16" if c.out_dtype == torch.bfloat16 else "float32"
+    atol, rtol = TOL[tol]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    err = float((out.float() - ref.float()).abs().max())
+    fields = {"max_abs_err": err}
+    # the plain fp32 version on the same values: a bf16 output within half
+    # an ulp, an fp32 output (MLA over a bf16 pool) within fp32 tolerance
+    ref32 = c.plain(*c.args32).float()
+    a32, r32 = TOL_BF16_VS_FP32 if tol == "bfloat16" else TOL["float32"]
+    torch.testing.assert_close(out.float(), ref32, atol=a32, rtol=r32)
+    fields["max_abs_err_vs_fp32"] = float((out.float() - ref32).abs().max())
+    for b, ql in enumerate(c.q_lens.tolist()):
+        if not bool((out[b, ql:] == 0).all()):
+            raise AssertionError(f"{name} {what}: row {b} padding not 0")
+    if not torch.equal(c.kern(*c.poisoned), out):
+        raise AssertionError(f"{name} {what}: dead slots changed the output")
+    ones = (c.q_lens == 1).nonzero().flatten()
+    if not torch.equal(out[ones, 0], c.decode()[ones, 0]):
+        raise AssertionError(f"{name} {what}: ragged at q_len=1 != decode")
+    nbytes, flops = c.work
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / FLOPS_PER_S[c.rate_dtype]
+    bound = max(t_bytes, t_ops)
+    ms = cuda_ms(torch, lambda: c.kern(*c.args), 20)
+    plain_ms = cuda_ms(torch, lambda: c.plain(*c.args), 3)
+    lib_ms = cuda_ms(torch, c.library, 10)
+    log(f"[kernels] {name} {what}: max_abs_err {err:.3e} (atol {atol}), vs "
+        f"plain fp32 {fields['max_abs_err_vs_fp32']:.3e} (atol {a32}, rtol "
+        f"{r32}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
+        f"{lib_ms:.4f} ms, bound {bound * 1e3:.4f} ms ({nbytes} B = "
+        f"{t_bytes * 1e3:.4f} ms, {flops} flop = {t_ops * 1e3:.4f} ms at "
+        f"{c.rate_dtype}); {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+    fields.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound * 1e3,
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "library_ms": lib_ms})
+    return fields
 
 
 def phase_kernels(torch, dev, seed):
-    from repro_torch.kernels.paged_attention import ops
-    from repro_torch.kernels.paged_attention.ref import (
-        paged_attention_ragged_ref, paged_attention_ref)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    results = {}
-    for name, qmax in (("paged_attention_ragged", 128),
-                       ("paged_attention", 1)):
-        row = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/paged_attention/csrc/"
-                         "paged_attention.cu",
-               "replaces": KERNELS[name]}
-        for dtype_name in ("float32", "bfloat16"):
-            dtype = getattr(torch, dtype_name)
-            q, pk, pv, table, lengths, q_lens = kernel_inputs(
-                torch, dev, dtype, qmax, seed)
-            if name == "paged_attention":
-                args = (q[:, 0], pk, pv, table, lengths)
-                kern = lambda: ops.paged_attention(*args)        # noqa: E731
-                plain = lambda: paged_attention_ref(*args)       # noqa: E731
-            else:
-                args = (q, pk, pv, table, lengths, q_lens)
-                kern = lambda: ops.paged_attention_ragged(*args)  # noqa: E731
-                plain = lambda: paged_attention_ragged_ref(*args)  # noqa: E731
-            out, ref = kern(), plain()
-            torch.cuda.synchronize()
-            atol, rtol = TOL[dtype_name]
-            torch.testing.assert_close(out.float(), ref.float(), atol=atol,
-                                       rtol=rtol)
-            err = float((out.float() - ref.float()).abs().max())
-            if dtype_name == "bfloat16":
-                # same bf16 values, plain math in fp32
-                up = [a.float() if a.is_floating_point() else a for a in args]
-                ref32 = (paged_attention_ref(*up) if name == "paged_attention"
-                         else paged_attention_ragged_ref(*up))
-                a32, r32 = TOL_BF16_VS_FP32
-                torch.testing.assert_close(out.float(), ref32, atol=a32,
-                                           rtol=r32)
-                err32 = float((out.float() - ref32).abs().max())
-                row["max_abs_err_vs_fp32"] = err32
-                log(f"[kernels] {name} bf16 vs plain fp32 on bf16 inputs: "
-                    f"max_abs_err {err32:.3e} (atol {a32}, rtol {r32})")
-            # bitwise pins: padding slots and q_len == 0 rows are zero,
-            # dead pages change nothing, ragged at q_len == 1 is decode
-            o4 = out if out.ndim == 4 else out[:, None]
-            for b in range(q.shape[0]):
-                if not bool((o4[b, int(q_lens[b]):] == 0).all()):
-                    raise AssertionError(f"{name}: row {b} padding not 0")
-            pk2, pv2 = poison_dead(torch, pk, pv, table, lengths)
-            out2 = (ops.paged_attention(q[:, 0], pk2, pv2, table, lengths)
-                    if name == "paged_attention" else
-                    ops.paged_attention_ragged(q, pk2, pv2, table, lengths,
-                                               q_lens))
-            if not torch.equal(out2, out):
-                raise AssertionError(f"{name}: dead pages changed the output")
-            if name == "paged_attention_ragged":
-                ones = (q_lens == 1).nonzero().flatten()
-                dec = ops.paged_attention(q[:, 0], pk, pv, table, lengths)
-                if not torch.equal(out[ones, 0], dec[ones]):
-                    raise AssertionError("ragged at q_len=1 != decode entry")
-            itemsize = q.element_size()
-            nbytes, flops = work(lengths, q_lens, qmax, 16, 8, 128, 16,
-                                 itemsize)
-            t_bytes = nbytes / HBM_BYTES_PER_S
-            t_ops = flops / FLOPS_PER_S[dtype_name]
-            bound = max(t_bytes, t_ops)
-            ms = cuda_ms(torch, kern, 50)
-            plain_ms = cuda_ms(torch, plain, 5)
-            lib_ms = cuda_ms(torch, library_call(torch, q, pk, pv, table,
-                                                 lengths, q_lens), 20)
-            log(f"[kernels] {name} {dtype_name} Qmax={qmax}: max_abs_err "
-                f"{err:.3e} (atol {atol}); kernel {ms:.4f} ms, plain "
-                f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-                f"{bound * 1e3:.4f} ms ({nbytes} B = {t_bytes * 1e3:.4f} ms, "
-                f"{flops} flop = {t_ops * 1e3:.4f} ms); "
-                f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s")
-            row[f"max_abs_err_{dtype_name}"] = err
-            if dtype_name == "bfloat16":          # the serve phase's dtype
-                row.update({"max_abs_err": err, "ms": ms,
-                            "plain_ms": plain_ms,
-                            "bound_ms": bound * 1e3,
-                            "bound_by": ("bytes" if t_bytes >= t_ops
-                                         else "operations"),
-                            "library_ms": lib_ms})
-        results[name] = row
-    return results
+    # row → [(what, case builder)]; the first case is the row's headline
+    # (the dtype its serve phase runs), the rest are kept under their names
+    bf16, f32 = torch.bfloat16, torch.float32
+    plan = {
+        "paged_attention_ragged": [
+            (f"{d} Qmax={CHUNK}", lambda d=d: dense_case(torch, dev, d, CHUNK,
+                                                         seed))
+            for d in (bf16, f32)],
+        "paged_attention": [
+            (f"{d} Qmax=1", lambda d=d: dense_case(torch, dev, d, 1, seed))
+            for d in (bf16, f32)],
+        "paged_attention_ragged_q8": [
+            (f"q {d} Qmax={qm}", lambda d=d, qm=qm: dense_case(
+                torch, dev, d, qm, seed, q8=True))
+            for qm in (CHUNK, 1) for d in (bf16, f32)],
+        "mla_paged_attention_ragged": [
+            (f"pool {d} Qmax={qm}", lambda d=d, qm=qm: mla_case(
+                torch, dev, d, qm, seed))
+            for qm in (CHUNK, 1) for d in (bf16, f32)],
+    }
+    rows = {}
+    for name, cases in plan.items():
+        row = {"name": name, "route": "cuda", "source": KERNELS[name][1],
+               "replaces": KERNELS[name][0], "cases": {}}
+        for i, (what, build) in enumerate(cases):
+            what = what.replace("torch.", "")
+            fields = measure(torch, name, build(), what)
+            torch.cuda.empty_cache()
+            if i == 0:
+                row.update(fields)
+            row["cases"][what] = fields
+        rows[name] = row
+    return rows
 
 
-# ------------------------------------------------------------ phases 3-5
-def make_model(torch, cfg, dtype, dev, seed):
+# ------------------------------------------------------------ phases 3-9
+def make_model(torch, cfg, dtype, dev, seed, kv_cache_dtype="native"):
     from repro_torch.models import LM
-    return LM(cfg, dtype=dtype, device=dev).init(
+    return LM(cfg, dtype=dtype, device=dev,
+              kv_cache_dtype=kv_cache_dtype).init(
         torch.Generator(dev).manual_seed(seed))
 
 
@@ -305,16 +427,23 @@ def engine(model, dev, *, hbm, fuse=True, max_len=560):
     from repro_torch.serving import ServeConfig, ServingEngine
     return ServingEngine(model, ServeConfig(
         max_len=max_len, page_tokens=16, max_batch_seqs=8,
-        prefill_chunk_tokens=128, fuse_ticks=fuse,
+        prefill_chunk_tokens=CHUNK, fuse_ticks=fuse,
         engine_spec=EngineSpec(engine="paged", kv_hbm_bytes=hbm)),
         device=dev)
 
 
-def phase_serve(torch, dev, seed):
-    from repro_torch.configs import get_config
+def free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve(torch, dev, seed, what, model, entry):
+    """Phase 3's workload through ``model`` on a 1 GiB pool, with the
+    launch counts set to 0 just before and read just after; checks and
+    returns (launches of ``entry``, pool pages)."""
     from repro_torch.kernels.paged_attention import ops
-    cfg = get_config("internlm2-1.8b")
-    model = make_model(torch, cfg, torch.bfloat16, dev, seed)
+    cfg = model.cfg
     reqs = requests(8, 64, 512, 32, cfg.vocab_size, seed)
     eng = engine(model, dev, hbm=1 << 30)
     torch.cuda.synchronize()
@@ -324,50 +453,88 @@ def phase_serve(torch, dev, seed):
     eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = ops.paged_attention_ragged.launches
+    launches = entry.launches
+    others = {e.__name__: e.launches for e in ops.ENTRIES
+              if e is not entry and e.launches}
     s = eng.stats()
     new = sum(len(r.generated) for r in reqs)
     if not all(r.done and len(r.generated) == 32 for r in reqs):
-        raise AssertionError("serve: a request did not finish")
+        raise AssertionError(f"{what}: a request did not finish")
     if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
-        raise AssertionError("serve: a token is out of the vocab")
+        raise AssertionError(f"{what}: a token is out of the vocab")
     if s["mirror_d2h_bytes"] != 0:
-        raise AssertionError(f"serve: mirror bytes {s['mirror_d2h_bytes']}")
+        raise AssertionError(f"{what}: mirror bytes {s['mirror_d2h_bytes']}")
     if s["step_calls"] != s["sched_ticks"]:
-        raise AssertionError("serve: step_calls != ticks")
-    if launches <= 0 or launches != cfg.num_layers * s["step_calls"]:
-        raise AssertionError(f"serve: {launches} ragged launches for "
-                             f"{s['step_calls']} steps")
-    log(f"[serve] internlm2-1.8b bf16: {len(reqs)} requests, prompts "
+        raise AssertionError(f"{what}: step_calls != ticks")
+    if launches <= 0 or launches != cfg.num_layers * s["step_calls"] \
+            or others:
+        raise AssertionError(f"{what}: {launches} {entry.__name__} launches "
+                             f"for {s['step_calls']} steps; others {others}")
+    pages = eng.tiered.pool_pages
+    log(f"[{what}] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
+        f"{eng.desc.family} pool: {len(reqs)} requests, prompts "
         f"{[len(r.prompt) for r in reqs]}, {new} new tokens in {wall:.3f} s "
         f"= {new / wall:.2f} tok/s (incl. prefill); ticks {s['sched_ticks']}, "
-        f"step_calls {s['step_calls']}, ragged launches {launches}, "
-        f"mirror_d2h_bytes {s['mirror_d2h_bytes']}, peak memory "
+        f"step_calls {s['step_calls']}, {entry.__name__} launches "
+        f"{launches}, mirror_d2h_bytes {s['mirror_d2h_bytes']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, pool pages "
-        f"{eng.tiered.pool_pages}")
-    return launches
+        f"{pages} of {eng.desc.page_group_bytes} B")
+    return launches, pages
 
 
-def first_divergence(torch, model, req, ref_tokens):
-    """Check a token mismatch is a near-tie of the reference: returns
-    (step, margin, std) at the first differing token."""
-    import numpy as np
-    step = next(i for i, (a, b) in enumerate(zip(req.generated, ref_tokens))
-                if a != b)
-    prefix = np.concatenate([req.prompt, np.asarray(ref_tokens[:step],
-                                                    np.int32)])
-    logits, _ = model.prefill(torch.as_tensor(prefix[None], device=model.device),
-                              len(prefix))
+def prompt_state(torch, model, prompt, first, max_len):
+    """(logits, dense cache) after ``prompt`` along the sequential
+    reference: its first ``first`` tokens (all when None) prefilled at
+    once, the rest through the dense decode step one by one."""
+    first = len(prompt) if first is None else min(first, len(prompt))
+    logits, cache = model.prefill(
+        torch.as_tensor(prompt[None, :first], device=model.device), max_len)
+    for t in prompt[first:]:
+        logits, cache = decode(torch, model, cache, int(t))
+    return logits, cache
+
+
+def decode(torch, model, cache, token):
+    return model.decode_step(
+        cache, torch.tensor([[token]], device=model.device), cache["pos"])
+
+
+def chunked_sequential(torch, model, reqs, first, max_len=560):
+    """The sequential reference with the pooled path's prompt split: the
+    first chunk prefilled, later prompt tokens through the decode step.
+    An int8 cache needs it: a chunked prompt's later tokens attend over
+    the QUANTIZED K/V of earlier chunks, where one-shot prefill attends
+    over unquantized K/V — another function, not noise."""
+    for req in reqs:
+        logits, cache = prompt_state(torch, model, req.prompt, first, max_len)
+        for _ in range(req.max_new):
+            nxt = int(torch.argmax(logits[:, -1], -1)[0])
+            req.generated.append(nxt)
+            logits, cache = decode(torch, model, cache, nxt)
+        req.done = True
+    return reqs
+
+
+def reference_margin(torch, model, req, step, first, max_len):
+    """The sequential reference's own top-2 logit margin and logit std at
+    ``step``, replayed over its tokens."""
+    logits, cache = prompt_state(torch, model, req.prompt, first, max_len)
+    for t in req.generated[:step]:
+        logits, cache = decode(torch, model, cache, t)
     lv = logits[0, -1, :model.cfg.vocab_size].double()
     top = torch.topk(lv, 2).values
-    return step, float(top[0] - top[1]), float(lv.std())
+    return float(top[0] - top[1]), float(lv.std())
 
 
-def check_identical(torch, model, got, ref, what):
+def check_identical(torch, model, got, ref, what, first=None, max_len=560):
+    """Token identity, where a divergence is accepted only at a reference
+    near-tie (top-2 margin below 1e-4 of the logit std)."""
     for r, rr in zip(got, ref):
         if r.generated == rr.generated:
             continue
-        step, margin, std = first_divergence(torch, model, rr, rr.generated)
+        step = next(i for i, (a, b) in enumerate(zip(r.generated,
+                                                     rr.generated)) if a != b)
+        margin, std = reference_margin(torch, model, rr, step, first, max_len)
         log(f"[{what}] request {r.rid} differs at step {step}: reference "
             f"top-2 margin {margin:.3e}, logit std {std:.3e}")
         if margin >= 1e-4 * std:
@@ -375,55 +542,80 @@ def check_identical(torch, model, got, ref, what):
                                  f"{step} with a clear margin")
 
 
-def phase_parity(torch, dev, seed):
-    from repro_torch.configs import get_config
+def reference(torch, model, dev, reqs, first):
+    """``generate_sequential()``, or with ``first`` set the chunk-aware
+    :func:`chunked_sequential`."""
+    if first is None:
+        return engine(model, dev, hbm=1 << 30).generate_sequential(reqs)
+    return chunked_sequential(torch, model, reqs, first)
+
+
+def parity(torch, dev, seed, what, cfg, *, kv_cache_dtype="native",
+           full_width_check=True, first=None):
+    """fp32: ``generate()`` against the sequential reference on ``cfg``
+    (when ``full_width_check``), then 4 layers of it on a pool tight
+    enough to preempt. ``first`` selects the chunk-aware reference.
+    Returns the 4-layer model and its reference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = get_config("internlm2-1.8b")
-    model = make_model(torch, cfg, torch.float32, dev, seed)
-    ref = requests(4, 64, 400, 16, cfg.vocab_size, seed + 1)
-    engine(model, dev, hbm=4 << 30).generate_sequential(ref)
-    got = requests(4, 64, 400, 16, cfg.vocab_size, seed + 1)
-    eng = engine(model, dev, hbm=4 << 30)
-    eng.generate(got)
-    check_identical(torch, model, got, ref, "parity")
-    log(f"[parity] internlm2-1.8b fp32: generate() == generate_sequential() "
-        f"on {len(got)} requests x 16 tokens (ticks "
-        f"{eng.stats()['sched_ticks']})")
-    del model, eng
-
+    if full_width_check:
+        model = make_model(torch, cfg, torch.float32, dev, seed,
+                           kv_cache_dtype)
+        ref = reference(torch, model, dev,
+                        requests(4, 64, 400, 16, cfg.vocab_size, seed + 1),
+                        first)
+        got = requests(4, 64, 400, 16, cfg.vocab_size, seed + 1)
+        eng = engine(model, dev, hbm=4 << 30)
+        eng.generate(got)
+        check_identical(torch, model, got, ref, what, first)
+        log(f"[{what}] {cfg.name} {cfg.num_layers} layers fp32 "
+            f"{eng.desc.family} pool: generate() == "
+            f"{'generate_sequential()' if first is None else 'the chunk-aware sequential reference'}"
+            f" on {len(got)} requests x 16 tokens (ticks "
+            f"{eng.stats()['sched_ticks']})")
+        if first is not None:
+            one_shot = engine(model, dev, hbm=4 << 30).generate_sequential(
+                requests(4, 64, 400, 16, cfg.vocab_size, seed + 1))
+            same = [a.generated == b.generated for a, b in zip(got, one_shot)]
+            log(f"[{what}] against the one-shot generate_sequential(): "
+                f"{sum(same)}/{len(same)} requests identical {same}")
+        del model, eng
+        free(torch)
     cfg4 = dataclasses.replace(cfg, num_layers=4)
-    model4 = make_model(torch, cfg4, torch.float32, dev, seed)
-    ref4 = requests(4, 64, 400, 16, cfg.vocab_size, seed + 2)
-    engine(model4, dev, hbm=1 << 30).generate_sequential(ref4)
-    group = cfg4.num_layers * 16 * 2 * cfg4.num_kv_heads * cfg4.head_dim * 4
+    model4 = make_model(torch, cfg4, torch.float32, dev, seed, kv_cache_dtype)
+    ref4 = reference(torch, model4, dev,
+                     requests(4, 64, 400, 16, cfg.vocab_size, seed + 2),
+                     first)
     tight = requests(4, 64, 400, 16, cfg.vocab_size, seed + 2)
-    eng = engine(model4, dev, hbm=40 * group)
+    eng = engine(model4, dev,
+                 hbm=40 * model4.cache_descriptor(16).page_group_bytes)
     eng.generate(tight)
     s = eng.stats()
     if s["preempts"] <= 0:
-        raise AssertionError("parity: the tight pool did not preempt")
-    check_identical(torch, model4, tight, ref4, "parity-tight")
-    log(f"[parity] 4-layer fp32 tight pool ({eng.tiered.pool_pages} pages): "
-        f"token-identical with {s['preempts']} preempts, "
-        f"{s['pool_page_spills']} page spills")
+        raise AssertionError(f"{what}: the tight pool did not preempt")
+    check_identical(torch, model4, tight, ref4, what + "-tight", first)
+    log(f"[{what}] 4-layer fp32 tight {eng.desc.family} pool "
+        f"({eng.tiered.pool_pages} pages): token-identical with "
+        f"{s['preempts']} preempts, {s['pool_page_spills']} page spills")
     return model4, ref4
 
 
-def phase_unfused(torch, dev, seed, model4, ref4):
+def unfused(torch, dev, seed, what, model4, ref4, entry, first=None):
+    """The 4-layer run with ``fuse_ticks=False``: prompt chunks go token
+    by token through ``entry`` (a decode entry)."""
     from repro_torch.kernels.paged_attention import ops
     got = requests(4, 64, 400, 16, model4.cfg.vocab_size, seed + 2)
     eng = engine(model4, dev, hbm=1 << 30, fuse=False)
     ops.reset_launch_counts()
     eng.generate(got)
     torch.cuda.synchronize()
-    launches = ops.paged_attention.launches
+    launches = entry.launches
     if launches <= 0:
-        raise AssertionError("unfused: the decode kernel never launched")
-    check_identical(torch, model4, got, ref4, "unfused")
-    log(f"[unfused] 4-layer fp32 fuse_ticks=False: token-identical, decode "
-        f"launches {launches}, ragged launches "
-        f"{ops.paged_attention_ragged.launches}")
+        raise AssertionError(f"{what}: {entry.__name__} never launched")
+    check_identical(torch, model4, got, ref4, what, first)
+    log(f"[{what}] 4-layer fp32 fuse_ticks=False: token-identical, "
+        f"{entry.__name__} launches {launches}, all: "
+        f"{ {e.__name__: e.launches for e in ops.ENTRIES} }")
     return launches
 
 
@@ -440,26 +632,85 @@ def main(argv=None) -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.paged_attention import ops
     dev = torch.device("cuda", 0)
     t0 = time.time()
+
+    def stamp(phase):
+        log(f"[time] {phase} done at {time.time() - t0:.1f} s")
+
     phase_env(torch)
     rows = phase_kernels(torch, dev, args.seed)
-    log(f"[time] kernels done at {time.time() - t0:.1f} s")
-    rows["paged_attention_ragged"]["launches"] = phase_serve(torch, dev,
-                                                             args.seed)
-    log(f"[time] serve done at {time.time() - t0:.1f} s")
-    model4, ref4 = phase_parity(torch, dev, args.seed)
-    log(f"[time] parity done at {time.time() - t0:.1f} s")
-    rows["paged_attention"]["launches"] = phase_unfused(torch, dev,
-                                                        args.seed, model4,
-                                                        ref4)
-    log(f"[time] unfused done at {time.time() - t0:.1f} s")
+    stamp("kernels")
+
+    dense = get_config("internlm2-1.8b")
+    model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
+    rows["paged_attention_ragged"]["launches"], bf16_pages = serve(
+        torch, dev, args.seed, "serve", model, ops.paged_attention_ragged)
+    del model
+    free(torch)
+    stamp("serve")
+    model4, ref4 = parity(torch, dev, args.seed, "parity", dense)
+    stamp("parity")
+    rows["paged_attention"]["launches"] = unfused(
+        torch, dev, args.seed, "unfused", model4, ref4, ops.paged_attention)
+    del model4
+    free(torch)
+    stamp("unfused")
+
+    model = make_model(torch, dense, torch.bfloat16, dev, args.seed, "int8")
+    row = rows["paged_attention_ragged_q8"]
+    row["launches"], int8_pages = serve(
+        torch, dev, args.seed, "serve-int8", model,
+        ops.paged_attention_ragged_q8)
+    # the pages a byte budget buys follow the page bytes: within a page of
+    # bf16 pages x (bf16 page bytes / int8 page bytes)
+    g8 = model.cache_descriptor(16).page_group_bytes
+    g16 = dense.num_layers * 16 * 2 * dense.num_kv_heads * dense.head_dim * 2
+    if int8_pages != (1 << 30) // g8 \
+            or abs(int8_pages - bf16_pages * g16 / g8) > 1:
+        raise AssertionError(f"serve-int8: {int8_pages} int8 pages against "
+                             f"{bf16_pages} bf16 pages at 1 GiB")
+    log(f"[serve-int8] int8/bf16 pool pages at 1 GiB: {int8_pages}/"
+        f"{bf16_pages} = {int8_pages / bf16_pages:.4f} (page bytes "
+        f"{g8}/{g16})")
+    row["pool_pages"] = {"int8": int8_pages, "bfloat16": bf16_pages}
+    del model
+    free(torch)
+    stamp("serve-int8")
+    model4, ref4 = parity(torch, dev, args.seed, "parity-int8", dense,
+                          kv_cache_dtype="int8", first=CHUNK)
+    row["decode_launches"] = unfused(torch, dev, args.seed, "unfused-int8",
+                                     model4, ref4, ops.paged_attention_q8,
+                                     first=CHUNK)
+    del model4
+    free(torch)
+    stamp("parity-int8")
+
+    mla = get_config("deepseek-v2-236b-noexperts")
+    model = make_model(torch, mla, torch.bfloat16, dev, args.seed)
+    row = rows["mla_paged_attention_ragged"]
+    row["launches"], _ = serve(torch, dev, args.seed, "serve-mla", model,
+                               ops.mla_paged_attention_ragged)
+    del model
+    free(torch)
+    stamp("serve-mla")
+    model4, ref4 = parity(torch, dev, args.seed, "parity-mla", mla,
+                          full_width_check=False)
+    row["decode_launches"] = unfused(torch, dev, args.seed, "unfused-mla",
+                                     model4, ref4, ops.mla_paged_attention)
+    del model4
+    free(torch)
+    stamp("parity-mla")
+
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err_float32", "max_abs_err_vs_fp32")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line())
-    print(json.dumps({"kernels": [{k: r[k] for k in keys}
-                                  for r in rows.values()]}))
+    print(json.dumps({"kernels": [
+        {**{k: r[k] for k in keys},
+         **{k: v for k, v in r.items() if k not in keys}}
+        for r in rows.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

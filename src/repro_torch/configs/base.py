@@ -1,15 +1,27 @@
-"""Model config dataclass for the PyTorch port.
+"""Model config dataclasses for the PyTorch port.
 
-The port's own copy of the dense-decoder part of the JAX package's
-``ModelConfig``: the fields a dense GQA decoder with a (Swi)GLU FFN reads,
-the padded-vocab rule, and ``reduced()`` for the smoke-sized sibling. The
-MoE, MLA, SSM, hybrid, encoder-decoder and frontend sub-configs wait for
-the slices that port those families.
+The port's own copy of the decoder part of the JAX package's
+``ModelConfig``: the fields a dense GQA or MLA (multi-head latent
+attention) decoder with a (Swi)GLU FFN reads, the padded-vocab rule, and
+``reduced()`` for the smoke-sized sibling. The MoE, SSM, hybrid,
+encoder-decoder and frontend sub-configs wait for the slices that port
+those families.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2 multi-head latent attention widths."""
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0           # 0 = full-rank q projection
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -34,6 +46,7 @@ class ModelConfig:
     logit_scale: float = 1.0
     logit_soft_cap: float = 0.0
     subquadratic: bool = False
+    mla: Optional[MLAConfig] = None
     # embedding tables are allocated padded to this multiple; the padded
     # logit columns are masked
     vocab_pad_multiple: int = 256
@@ -67,5 +80,10 @@ class ModelConfig:
             head_dim=32,
             max_seq_len=1024,
         )
+        if self.mla is not None:
+            small["mla"] = MLAConfig(
+                kv_lora_rank=32, q_lora_rank=0,
+                qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32)
+            small["head_dim"] = 32
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)

@@ -5,16 +5,18 @@ The port's copy of the JAX package's descriptors. A
 :class:`CacheDescriptor` makes the layout data, not code:
 
 * **paged planes** — per-token arrays that live in the device page pool as
-  ``(L, P, page_tokens, *shape)``; each plane carries its own dtype and
-  its name matches the model's prefill cache key (``k``/``v``).
+  ``(L, P, page_tokens, *shape)``; each plane carries its own dtype (int8
+  KV pages ride next to bf16 scale planes) and its name matches the
+  model's prefill cache key (``k``/``v``/``k_scale``/``v_scale``/``c``/
+  ``kr``).
 * **seq planes** — per-sequence state rows (SSM state) that ride alongside
   the page tables.
 
 Plane dtypes are kept as NAMES (``"float32"``, ``"bfloat16"``, ...):
 numpy has no bfloat16, so :data:`_DTYPES` maps each name to its torch
 dtype and itemsize, and the byte math (hence every byte counter) is the
-same in both packages. Only the dense family is ported; the int8, MLA and
-SSM families raise until their slices land.
+same in both packages. The dense, int8 and MLA families are ported; the
+SSM family raises until its slice lands.
 """
 from __future__ import annotations
 
@@ -127,6 +129,23 @@ def _dense_planes(cfg, kv_cache_dtype, compute_dtype):
             (), "dense")
 
 
+def _int8_planes(cfg, kv_cache_dtype, compute_dtype):
+    K, D = cfg.num_kv_heads, cfg.head_dim
+    return ((PlaneSpec("k", (K, D), "int8"),
+             PlaneSpec("v", (K, D), "int8"),
+             PlaneSpec("k_scale", (K,), "bfloat16", kind="scale"),
+             PlaneSpec("v_scale", (K,), "bfloat16", kind="scale")),
+            (), "int8")
+
+
+def _mla_planes(cfg, kv_cache_dtype, compute_dtype):
+    dt = dtype_name(compute_dtype)
+    m = cfg.mla
+    return ((PlaneSpec("c", (m.kv_lora_rank,), dt),
+             PlaneSpec("kr", (m.qk_rope_head_dim,), dt)),
+            (), "mla")
+
+
 def _not_ported(family: str, item: str):
     def build(cfg, kv_cache_dtype, compute_dtype):
         raise NotImplementedError(
@@ -135,11 +154,16 @@ def _not_ported(family: str, item: str):
     return build
 
 
+def _is_attn(cfg):
+    return cfg.family in ("attn_dense", "vlm", "moe")
+
+
 _FAMILY_BUILDERS: tuple = (
-    ("mla", lambda cfg, kd: getattr(cfg, "mla", None) is not None,
-     _not_ported("MLA", "10")),
-    ("int8", lambda cfg, kd: kd == "int8", _not_ported("int8", "10")),
-    ("dense", lambda cfg, kd: cfg.family in ("attn_dense", "vlm", "moe"),
+    ("mla", lambda cfg, kd: _is_attn(cfg) and cfg.mla is not None,
+     _mla_planes),
+    ("int8", lambda cfg, kd: _is_attn(cfg) and cfg.mla is None
+     and kd == "int8" and cfg.family != "moe", _int8_planes),
+    ("dense", lambda cfg, kd: _is_attn(cfg) and cfg.mla is None,
      _dense_planes),
     ("ssm", lambda cfg, kd: cfg.family == "ssm", _not_ported("SSM", "10")),
     # hybrid and encdec have no pooled layout: no entry → None

@@ -1,5 +1,9 @@
-"""Paged attention over the device KV pool (block-table indirection)."""
-from repro_torch.kernels.paged_attention.ops import (paged_attention,
-                                                     paged_attention_ragged)
+"""Paged attention over the device KV pool (block-table indirection):
+dense, int8 and MLA-latent pools."""
+from repro_torch.kernels.paged_attention.ops import (
+    mla_paged_attention, mla_paged_attention_ragged, paged_attention,
+    paged_attention_q8, paged_attention_ragged, paged_attention_ragged_q8)
 
-__all__ = ["paged_attention", "paged_attention_ragged"]
+__all__ = ["mla_paged_attention", "mla_paged_attention_ragged",
+           "paged_attention", "paged_attention_q8", "paged_attention_ragged",
+           "paged_attention_ragged_q8"]

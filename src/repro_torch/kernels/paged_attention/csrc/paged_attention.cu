@@ -1,13 +1,17 @@
 // Ragged-query paged attention for Hopper (sm_90a), plain C interface.
 //
-// Replaces two Pallas TPU kernels of the JAX package,
+// Replaces three Pallas TPU kernels of the JAX package,
 // src/repro/kernels/paged_attention/kernel.py:
 //   * paged_attention_ragged_pallas (body _pa_ragged_kernel, online-softmax
 //     step _ragged_softmax_step) — the fused serving tick's attention;
 //   * paged_attention_pallas (body _pa_kernel) — single-token decode. The
 //     port launches THIS kernel with Qmax = 1 and q_lens = 1 for it, so "the
 //     ragged entry at q_len == 1 is bit for bit the decode entry" holds by
-//     construction.
+//     construction;
+//   * paged_attention_ragged_q8_pallas (body _pa_ragged_q8_kernel) — the
+//     same attention over int8 K/V pages with bf16 per-(token, head) scale
+//     planes (entry paged_attention_ragged_q8_launch; its decode slice
+//     paged_attention_q8 is again this kernel at Qmax = 1).
 //
 // What it computes (from what _pa_ragged_kernel computes, not from its
 // TPU block layout): q (B, Qmax, H, D) attends a pool (P, T, K, D) of
@@ -15,14 +19,17 @@
 // position lengths[b] - q_lens[b] + i and sees pool positions at or before
 // it (causal inside the chunk); GQA maps head h to KV head h / (H / K).
 // Slots i >= q_lens[b] and q_lens[b] == 0 rows are exactly 0. The math is
-// fp32 whatever the element type (fp32 or bf16, a template parameter); the
-// output has q's type.
+// fp32 whatever the element type (q fp32 or bf16, a template parameter; the
+// pool of q's type, or int8 with scales); the output has q's type.
 //
 // Bound: HBM bytes. Each live K/V page is needed once per (row, KV head)
 // and the arithmetic intensity is ~2 * rows-per-KV-head flop/byte, far under
 // the card's ~295 flop/byte bf16 ridge, so the kernel's job is to read each
 // live page once per block and touch no dead page. (fp32 inputs at long
 // chunks sit near the ~20 flop/byte ridge of fp32 outside the tensor cores.)
+// The int8 layout halves the page bytes (2 * D + 4 bytes per token and KV
+// head against 4 * D in bf16), so its pages are read as int8 and
+// dequantized on the way into shared memory, never materialized in HBM.
 //
 // Design:
 //   * one block = one (b, kv head) and a tile of 16 of the Qmax*G query
@@ -33,13 +40,17 @@
 //   * table[b, p] is read in the block and clamped into [0, P); entries past
 //     the live pages are never read, so dead table tails can hold anything;
 //   * each page's K and V for the head are staged in shared memory as fp32
-//     (rows padded to D + 1 floats: conflict-free column reads);
+//     (rows padded to D + 1 floats: conflict-free column reads); an int8
+//     page is dequantized there as float(int8) * float(bf16 scale), one
+//     rounded product stored before any use (the JAX body's order), so no
+//     multiply can be contracted into a later FMA;
 //   * a row is owned by a segment of T lanes of one warp: lane t scores key
 //     t (a sequential fp32 dot), the segment reduces max and sum with xor
 //     butterflies, and lane t owns output features t, t + T, ...; the online
 //     softmax follows kernel.py's rules — running max starts at -1e30,
-//     masked probabilities are forced to 0, the finish divides by
-//     max(l, 1e-30).
+//     masked probabilities are forced to 0 and multiply nothing (a dead
+//     slot's value, int8 * 1e6 scale included, is never read), the finish
+//     divides by max(l, 1e-30).
 // A row's arithmetic does not depend on the tile, on Qmax or on the rows
 // around it: a page that is fully masked for a row leaves its state bitwise
 // unchanged (corr == exp(0) == 1, every probability 0), so stopping the
@@ -49,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -62,16 +75,23 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_float(int8_t x) {
+  return static_cast<float>(x);
+}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-template <typename scalar_t, int D, int T>
+// kv_t is scalar_t (dense pool) or int8_t (pool_ks/pool_vs then hold the
+// bf16 per-(token, head) scales; unused and null for a dense pool)
+template <typename scalar_t, typename kv_t, int D, int T>
 __global__ void __launch_bounds__(kWarps * 32)
 paged_attention_ragged_kernel(const scalar_t* __restrict__ q,
-                              const scalar_t* __restrict__ pool_k,
-                              const scalar_t* __restrict__ pool_v,
+                              const kv_t* __restrict__ pool_k,
+                              const kv_t* __restrict__ pool_v,
+                              const __nv_bfloat16* __restrict__ pool_ks,
+                              const __nv_bfloat16* __restrict__ pool_vs,
                               const int32_t* __restrict__ table,
                               const int32_t* __restrict__ lengths,
                               const int32_t* __restrict__ q_lens,
@@ -83,6 +103,7 @@ paged_attention_ragged_kernel(const scalar_t* __restrict__ q,
   constexpr int kDP = D + 1;                     // padded smem row
   static_assert(32 % T == 0 && kRowsPerWarp % kSegs == 0, "page size");
   static_assert(D % T == 0, "head dim");
+  constexpr bool kQ8 = std::is_same<kv_t, int8_t>::value;
 
   extern __shared__ float smem[];
   float* k_s = smem;                             // (T, kDP)
@@ -133,10 +154,16 @@ paged_attention_ragged_kernel(const scalar_t* __restrict__ q,
     __syncthreads();                 // the previous page's readers are done
     for (int idx = threadIdx.x; idx < T * D; idx += blockDim.x) {
       const int t = idx / D, d = idx % D;
-      const int64_t off =
-          ((static_cast<int64_t>(phys) * T + t) * K + kv) * D + d;
-      k_s[t * kDP + d] = to_float(pool_k[off]);
-      v_s[t * kDP + d] = to_float(pool_v[off]);
+      const int64_t tok = (static_cast<int64_t>(phys) * T + t) * K + kv;
+      const int64_t off = tok * D + d;
+      float kx = to_float(pool_k[off]);
+      float vx = to_float(pool_v[off]);
+      if constexpr (kQ8) {
+        kx *= __bfloat162float(pool_ks[tok]);
+        vx *= __bfloat162float(pool_vs[tok]);
+      }
+      k_s[t * kDP + d] = kx;
+      v_s[t * kDP + d] = vx;
     }
     __syncthreads();
 #pragma unroll
@@ -195,12 +222,13 @@ paged_attention_ragged_kernel(const scalar_t* __restrict__ q,
   }
 }
 
-template <typename scalar_t, int D, int T>
+template <typename scalar_t, typename kv_t, int D, int T>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
+                   const void* pool_ks, const void* pool_vs,
                    const void* table, const void* lengths, const void* q_lens,
                    void* out, int B, int Qm, int H, int K, int P, int MP,
                    float scale, cudaStream_t stream) {
-  auto kernel = paged_attention_ragged_kernel<scalar_t, D, T>;
+  auto kernel = paged_attention_ragged_kernel<scalar_t, kv_t, D, T>;
   const size_t smem = sizeof(float) * (2 * T + kRowsPerBlock) * (D + 1);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -211,25 +239,29 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
   const int tiles = (Qm * (H / K) + kRowsPerBlock - 1) / kRowsPerBlock;
   dim3 grid(tiles, K, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(pool_k),
-      static_cast<const scalar_t*>(pool_v),
+      static_cast<const scalar_t*>(q), static_cast<const kv_t*>(pool_k),
+      static_cast<const kv_t*>(pool_v),
+      static_cast<const __nv_bfloat16*>(pool_ks),
+      static_cast<const __nv_bfloat16*>(pool_vs),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lengths),
       static_cast<const int32_t*>(q_lens), static_cast<scalar_t*>(out), Qm, H,
       K, P, MP, scale);
   return cudaGetLastError();
 }
 
-template <typename scalar_t>
+template <typename scalar_t, typename kv_t>
 cudaError_t dispatch(int D, int T, const void* q, const void* pool_k,
-                     const void* pool_v, const void* table,
+                     const void* pool_v, const void* pool_ks,
+                     const void* pool_vs, const void* table,
                      const void* lengths, const void* q_lens, void* out,
                      int B, int Qm, int H, int K, int P, int MP, float scale,
                      cudaStream_t stream) {
-#define PA_CASE(DD, TT)                                                     \
-  if (D == DD && T == TT)                                                   \
-    return launch<scalar_t, DD, TT>(q, pool_k, pool_v, table, lengths,      \
-                                    q_lens, out, B, Qm, H, K, P, MP, scale, \
-                                    stream);
+#define PA_CASE(DD, TT)                                                      \
+  if (D == DD && T == TT)                                                    \
+    return launch<scalar_t, kv_t, DD, TT>(q, pool_k, pool_v, pool_ks,        \
+                                          pool_vs, table, lengths, q_lens,   \
+                                          out, B, Qm, H, K, P, MP, scale,    \
+                                          stream);
   PA_CASE(32, 8) PA_CASE(32, 16) PA_CASE(32, 32)
   PA_CASE(64, 8) PA_CASE(64, 16) PA_CASE(64, 32)
   PA_CASE(128, 8) PA_CASE(128, 16) PA_CASE(128, 32)
@@ -238,23 +270,51 @@ cudaError_t dispatch(int D, int T, const void* q, const void* pool_k,
   return cudaErrorInvalidValue;
 }
 
+bool bad_shape(int H, int K, int P, int MP) {
+  return K <= 0 || H % K != 0 || P <= 0 || MP <= 0;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = launched).
+// dtype (q's and the output's): 0 = float32, 1 = bfloat16; the pool has
+// q's type. Returns a cudaError_t (0 = launched).
 extern "C" int paged_attention_ragged_launch(
     const void* q, const void* pool_k, const void* pool_v, const void* table,
     const void* lengths, const void* q_lens, void* out, int B, int Qm, int H,
     int K, int D, int P, int T, int MP, float scale, int dtype,
     void* stream) {
   if (B <= 0 || Qm <= 0) return cudaSuccess;
-  if (K <= 0 || H % K != 0 || P <= 0 || MP <= 0)
-    return cudaErrorInvalidValue;
+  if (bad_shape(H, K, P, MP)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(D, T, q, pool_k, pool_v, table, lengths, q_lens,
-                           out, B, Qm, H, K, P, MP, scale, s);
+    return dispatch<float, float>(D, T, q, pool_k, pool_v, nullptr, nullptr,
+                                  table, lengths, q_lens, out, B, Qm, H, K, P,
+                                  MP, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, T, q, pool_k, pool_v, table, lengths,
-                                   q_lens, out, B, Qm, H, K, P, MP, scale, s);
+    return dispatch<__nv_bfloat16, __nv_bfloat16>(
+        D, T, q, pool_k, pool_v, nullptr, nullptr, table, lengths, q_lens,
+        out, B, Qm, H, K, P, MP, scale, s);
+  return cudaErrorInvalidValue;
+}
+
+// The int8 pool: pool_k/pool_v (P, T, K, D) int8, pool_ks/pool_vs (P, T, K)
+// bf16 scales; dtype as above, for q and the output.
+extern "C" int paged_attention_ragged_q8_launch(
+    const void* q, const void* pool_k, const void* pool_v,
+    const void* pool_ks, const void* pool_vs, const void* table,
+    const void* lengths, const void* q_lens, void* out, int B, int Qm, int H,
+    int K, int D, int P, int T, int MP, float scale, int dtype,
+    void* stream) {
+  if (B <= 0 || Qm <= 0) return cudaSuccess;
+  if (bad_shape(H, K, P, MP)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return dispatch<float, int8_t>(D, T, q, pool_k, pool_v, pool_ks, pool_vs,
+                                   table, lengths, q_lens, out, B, Qm, H, K,
+                                   P, MP, scale, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16, int8_t>(
+        D, T, q, pool_k, pool_v, pool_ks, pool_vs, table, lengths, q_lens,
+        out, B, Qm, H, K, P, MP, scale, s);
   return cudaErrorInvalidValue;
 }

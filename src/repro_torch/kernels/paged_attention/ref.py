@@ -1,10 +1,12 @@
 """Plain PyTorch versions of the paged-attention entries.
 
-The counterparts of the JAX package's ``paged_attention_ragged_ref`` and
-``paged_attention_ref``: gather the pool through the clamped block table,
-mask, softmax in fp32, and zero the rows the kernel contract zeroes. The
-CPU path of :mod:`~repro_torch.kernels.paged_attention.ops` runs these,
-and the card's parity checks hold the CUDA kernel against them.
+The counterparts of the JAX package's ``paged_attention_ragged_ref``,
+``paged_attention_ref``, ``paged_attention_ragged_q8_ref`` and
+``mla_paged_attention_ragged_ref``: gather the pool through the clamped
+block table, mask, softmax in fp32, and zero the rows the kernel contract
+zeroes. The CPU path of :mod:`~repro_torch.kernels.paged_attention.ops`
+runs these, and the card's parity checks hold the CUDA kernels against
+them.
 """
 from __future__ import annotations
 
@@ -67,3 +69,80 @@ def paged_attention_ref(q, pool_k, pool_v, block_table, lengths, *,
     return paged_attention_ragged_ref(q[:, None], pool_k, pool_v,
                                       block_table, lengths, ones,
                                       scale=scale)[:, 0]
+
+
+def dequant_pool(pool_q, pool_scale):
+    """int8 pages × per-(token, head) scales → fp32."""
+    return pool_q.float() * pool_scale.float()[..., None]
+
+
+def paged_attention_ragged_q8_ref(q, pool_k, pool_v, pool_ks, pool_vs,
+                                  block_table, lengths, q_lens, *,
+                                  scale: float | None = None):
+    """Ragged attention over an int8 pool: dequantize the pages the (clamped)
+    block table reaches, cast to q's dtype (as the JAX oracle does for the
+    whole pool), then the dense ragged version over them. pool_k/v
+    (P, T, K, D) int8; pool_ks/vs (P, T, K) bf16."""
+    B, MP = block_table.shape
+    table = block_table.to(q.device, torch.long).clamp(0, pool_k.shape[0] - 1)
+    pk, pv = (dequant_pool(p[table], s[table]).to(q.dtype).flatten(0, 1)
+              for p, s in ((pool_k, pool_ks), (pool_v, pool_vs)))
+    own = torch.arange(B * MP, device=q.device).reshape(B, MP)
+    return paged_attention_ragged_ref(q, pk, pv, own, lengths, q_lens,
+                                      scale=scale)
+
+
+def paged_attention_q8_ref(q, pool_k, pool_v, pool_ks, pool_vs, block_table,
+                           lengths, *, scale: float | None = None):
+    """int8 single-token decode: the ``q_len == 1`` slice of
+    :func:`paged_attention_ragged_q8_ref`."""
+    ones = torch.ones(q.shape[0], dtype=torch.long, device=q.device)
+    return paged_attention_ragged_q8_ref(q[:, None], pool_k, pool_v, pool_ks,
+                                         pool_vs, block_table, lengths, ones,
+                                         scale=scale)[:, 0]
+
+
+def mla_paged_attention_ragged_ref(q_c, q_r, pool_c, pool_kr, block_table,
+                                   lengths, q_lens, *, scale: float):
+    """Weight-absorbed MLA over the paged latent plane.
+
+    q_c:     (B, Qmax, H, dc)  absorbed queries (q_nope · w_uk)
+    q_r:     (B, Qmax, H, dr)  rope queries
+    pool_c:  (P, T, dc)        latent pages (also the values)
+    pool_kr: (P, T, dr)        rope-key pages
+    Scores are ``(q_c·cᵀ + q_r·krᵀ) · scale``; the output is the
+    probability-weighted latent (B, Qmax, H, dc) in q_c's dtype — ``w_uv``
+    and ``wo`` are the model's job. Padding slots and empty rows return
+    exactly zero.
+    """
+    B, Qm, H, dc = q_c.shape
+    P = pool_c.shape[0]
+    dev = q_c.device
+    table = block_table.to(dev, torch.long).clamp(0, P - 1)
+    lengths = lengths.to(dev, torch.long)
+    q_lens = q_lens.to(dev, torch.long)
+    c = pool_c[table].reshape(B, -1, dc).float()              # (B, S, dc)
+    kr = pool_kr[table].reshape(B, -1, pool_kr.shape[-1]).float()
+    S = c.shape[1]
+    s = (torch.einsum("bqhc,btc->bhqt", q_c.float(), c)
+         + torch.einsum("bqhr,btr->bhqt", q_r.float(), kr)) * scale
+    ar_q = torch.arange(Qm, device=dev)
+    qpos = (lengths - q_lens)[:, None] + ar_q[None, :]        # (B, Qm)
+    qvalid = ar_q[None, :] < q_lens[:, None]                  # (B, Qm)
+    allow = (torch.arange(S, device=dev)[None, None, :] <= qpos[:, :, None]) \
+        & qvalid[:, :, None]
+    s = torch.where(allow[:, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqt,btc->bqhc", p, c)
+    keep = (qvalid & (lengths > 0)[:, None])[:, :, None, None]
+    return torch.where(keep, out, 0.0).to(q_c.dtype)
+
+
+def mla_paged_attention_ref(q_c, q_r, pool_c, pool_kr, block_table, lengths,
+                            *, scale: float):
+    """MLA single-token decode: q_c (B, H, dc), q_r (B, H, dr); the
+    ``q_len == 1`` slice of :func:`mla_paged_attention_ragged_ref`."""
+    ones = torch.ones(q_c.shape[0], dtype=torch.long, device=q_c.device)
+    return mla_paged_attention_ragged_ref(q_c[:, None], q_r[:, None], pool_c,
+                                          pool_kr, block_table, lengths, ones,
+                                          scale=scale)[:, 0]

@@ -9,8 +9,9 @@ scheduler); every tick is one ragged forward whose attention runs the
 hand-written paged-attention kernel over the device page pool.
 ``--hbm-budget-bytes`` small enough to bind makes preemption visible in the
 printed stats; ``--sequential`` runs the one-at-a-time dense reference
-instead (same tokens). Weights are random, drawn from ``--seed``. Runs on
-the GPU unless ``--device cpu``.
+instead (same tokens). ``--arch deepseek-v2-236b-noexperts`` serves the
+MLA latent pool. Weights are random, drawn from ``--seed``. Runs on the GPU
+unless ``--device cpu``.
 """
 from __future__ import annotations
 

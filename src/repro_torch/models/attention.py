@@ -1,17 +1,22 @@
-"""Dense GQA attention over a dense cache or the paged KV pool.
+"""Attention over a dense cache or the paged KV pool: dense GQA, GQA over
+an int8 cache, and DeepSeek-V2 multi-head latent attention (MLA).
 
-The counterparts of the dense-GQA functions of the JAX package's
-``models/attention.py``. Prefill attention (``full_attention``) is plain
+The counterparts of the JAX package's ``models/attention.py`` for these
+three cache families. Prefill attention (``full_attention``) is plain
 torch, as it is XLA code there; the paged steps call the hand-written
-paged-attention kernel through
-:mod:`~repro_torch.kernels.paged_attention.ops`.
+paged-attention kernels through
+:mod:`~repro_torch.kernels.paged_attention.ops` (dense, int8 with
+in-kernel dequant, MLA over the latent plane). The projections around the
+kernels — ``w_uk`` absorption, ``w_uv``, ``wo``, the quantize-on-write
+arithmetic — stay ``torch`` matmuls, as they are XLA code there.
 
-The paged steps scatter new K/V IN PLACE into the layer's pool view: the
-pool tensors belong to the KV engine, which receives the same tensors back
-in ``commit_step_planes``. Where the JAX scatter drops out-of-range writes
-(padding slots aimed at page ``P``, ``mode="drop"``), torch would raise —
-so padding slots are masked out before the scatter and never touch the
-pool, and block-table lookups are clamped where JAX clamps.
+The paged steps scatter new cache entries IN PLACE into the layer's pool
+views: the pool tensors belong to the KV engine, which receives the same
+tensors back in ``commit_step_planes``. Where the JAX scatter drops
+out-of-range writes (padding slots aimed at page ``P``, ``mode="drop"``),
+torch would raise — so padding slots are masked out before the scatter and
+never touch the pool, and block-table lookups are clamped where JAX
+clamps.
 """
 from __future__ import annotations
 
@@ -19,9 +24,10 @@ import math
 
 import torch
 
-from repro_torch.kernels.paged_attention.ops import (paged_attention,
-                                                     paged_attention_ragged)
-from repro_torch.models.layers import apply_rope
+from repro_torch.kernels.paged_attention.ops import (
+    mla_paged_attention, mla_paged_attention_ragged, paged_attention,
+    paged_attention_q8, paged_attention_ragged, paged_attention_ragged_q8)
+from repro_torch.models.layers import apply_rope, rmsnorm
 
 NEG_INF = -1e30
 
@@ -96,24 +102,43 @@ def attn_decode(p, cfg, x, cache_k, cache_v, positions):
     return out.reshape(B, 1, H * D) @ p.wo, cache_k, cache_v
 
 
+def _scatter_pool(pools, values, block_table, positions, valid):
+    """Write ``values[j][b, i]`` into plane ``pools[j]`` at the page slot
+    of position ``positions[b, i]``, IN PLACE, for the ``valid`` slots
+    whose table entry is a real page; the others touch nothing (JAX's
+    ``mode="drop"``). positions/valid: (B, Q)."""
+    P, T = pools[0].shape[0], pools[0].shape[1]
+    logical = (positions // T).clamp(0, block_table.shape[1] - 1)
+    phys = torch.gather(block_table, 1, logical).long()        # (B, Q)
+    ok = valid & (phys >= 0) & (phys < P)
+    phys, slot = phys[ok], (positions % T)[ok]
+    for pool, val in zip(pools, values):
+        pool[phys, slot] = val[ok].to(pool.dtype)
+
+
+def _ragged_positions(x, ctx_lens, q_lens):
+    """(positions, valid) of a ragged step's (B, Qmax) slots."""
+    ar = torch.arange(x.shape[1], device=x.device)
+    return ctx_lens[:, None] + ar[None, :], ar[None, :] < q_lens[:, None]
+
+
+def _decode_positions(x, positions):
+    if x.shape[1] != 1:
+        raise ValueError(f"a decode step takes one token per row, got "
+                         f"{x.shape[1]}")
+    return positions[:, None], torch.ones_like(positions[:, None],
+                                               dtype=torch.bool)
+
+
 def attn_decode_paged(p, cfg, x, pool_k, pool_v, block_table, positions):
     """Single-step decode directly over one layer's pool view (P, T, K, D):
     the new token's K/V goes into its page slot in place, then the decode
     kernel attends over the pool. Returns ``(out, pool_k, pool_v)``."""
-    B, S, _ = x.shape
-    if S != 1:
-        raise ValueError(f"attn_decode_paged takes one token per row, "
-                         f"got {S}")
+    B = x.shape[0]
     H, D = cfg.num_heads, cfg.head_dim
-    q, k, v = _project_qkv(p, cfg, x, positions[:, None])
-    P, T = pool_k.shape[0], pool_k.shape[1]
-    b_idx = torch.arange(B, device=x.device)
-    logical = (positions // T).clamp(0, block_table.shape[1] - 1)
-    phys = block_table[b_idx, logical].long()
-    ok = (phys >= 0) & (phys < P)          # JAX drops out-of-range writes
-    slot = positions % T
-    pool_k[phys[ok], slot[ok]] = k[:, 0][ok].to(pool_k.dtype)
-    pool_v[phys[ok], slot[ok]] = v[:, 0][ok].to(pool_v.dtype)
+    pos2, valid = _decode_positions(x, positions)
+    q, k, v = _project_qkv(p, cfg, x, pos2)
+    _scatter_pool((pool_k, pool_v), (k, v), block_table, pos2, valid)
     out = paged_attention(q.reshape(B, H, D), pool_k, pool_v, block_table,
                           positions + 1, scale=1.0 / math.sqrt(D))
     return out.reshape(B, 1, H * D) @ p.wo, pool_k, pool_v
@@ -129,17 +154,214 @@ def attn_step_paged_ragged(p, cfg, x, pool_k, pool_v, block_table,
     Returns ``(out, pool_k, pool_v)``."""
     B, Qm, _ = x.shape
     H, D = cfg.num_heads, cfg.head_dim
-    ar = torch.arange(Qm, device=x.device)
-    positions = ctx_lens[:, None] + ar[None, :]
+    positions, valid = _ragged_positions(x, ctx_lens, q_lens)
     q, k, v = _project_qkv(p, cfg, x, positions)
-    P, T = pool_k.shape[0], pool_k.shape[1]
-    logical = (positions // T).clamp(0, block_table.shape[1] - 1)
-    phys = torch.gather(block_table, 1, logical).long()        # (B, Qm)
-    ok = (ar[None, :] < q_lens[:, None]) & (phys >= 0) & (phys < P)
-    slot = positions % T
-    pool_k[phys[ok], slot[ok]] = k[ok].to(pool_k.dtype)
-    pool_v[phys[ok], slot[ok]] = v[ok].to(pool_v.dtype)
+    _scatter_pool((pool_k, pool_v), (k, v), block_table, positions, valid)
     out = paged_attention_ragged(
         q.reshape(B, Qm, H, D), pool_k, pool_v, block_table,
         ctx_lens + q_lens, q_lens, scale=1.0 / math.sqrt(D))
     return out.reshape(B, Qm, H * D) @ p.wo, pool_k, pool_v
+
+
+# ---------------------------------------------------------------------------
+# int8 KV cache: symmetric per-(token, head) scales, stored as bf16
+# ---------------------------------------------------------------------------
+def quantize_kv(kv):
+    """kv: (..., K, D) → (int8 codes, bf16 scales (..., K)). The scale is
+    ``max|x| / 127`` floored at 1e-8 (fp32); codes round half to even and
+    clip to ±127."""
+    x = kv.float()
+    scale = (x.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.round(x / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale.to(torch.bfloat16)
+
+
+def dequantize_kv(q, scale, dtype):
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+def attn_decode_q8(p, cfg, x, ck, cv, ck_s, cv_s, positions):
+    """:func:`attn_decode` over a dense int8 cache (the sequential
+    reference's): quantize on write IN PLACE at ``positions``, dequantize
+    the cache to the compute dtype on read. Returns
+    ``(out, ck, cv, ck_s, cv_s)``."""
+    B = x.shape[0]
+    H, D = cfg.num_heads, cfg.head_dim
+    pos2, _ = _decode_positions(x, positions)
+    q, k, v = _project_qkv(p, cfg, x, pos2)
+    b_idx = torch.arange(B, device=x.device)
+    kq, ks = quantize_kv(k[:, 0])
+    vq, vs = quantize_kv(v[:, 0])
+    ck[b_idx, positions], ck_s[b_idx, positions] = kq, ks
+    cv[b_idx, positions], cv_s[b_idx, positions] = vq, vs
+    kf = dequantize_kv(ck, ck_s, x.dtype)
+    vf = dequantize_kv(cv, cv_s, x.dtype)
+    kv_pos = torch.arange(kf.shape[1], device=x.device)
+    out = full_attention(q, kf, vf, scale=1.0 / math.sqrt(D),
+                         q_positions=pos2, kv_positions=kv_pos, causal=False,
+                         kv_valid=kv_pos[None, :] <= positions[:, None])
+    return out.reshape(B, 1, H * D) @ p.wo, ck, cv, ck_s, cv_s
+
+
+def attn_decode_paged_q8(p, cfg, x, pool_k, pool_v, pool_ks, pool_vs,
+                         block_table, positions):
+    """Single-step decode over one layer's int8 pool: the new token
+    quantizes on write into its int8 page slot and scale slots (in place),
+    then the int8 decode kernel dequantizes as it reads. pool_k/v
+    (P, T, K, D) int8; pool_ks/vs (P, T, K) bf16. Returns
+    ``(out, pool_k, pool_v, pool_ks, pool_vs)``."""
+    B = x.shape[0]
+    H, D = cfg.num_heads, cfg.head_dim
+    pos2, valid = _decode_positions(x, positions)
+    q, k, v = _project_qkv(p, cfg, x, pos2)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    pools = (pool_k, pool_v, pool_ks, pool_vs)
+    _scatter_pool(pools, (kq, vq, ks, vs), block_table, pos2, valid)
+    out = paged_attention_q8(q.reshape(B, H, D), *pools, block_table,
+                             positions + 1, scale=1.0 / math.sqrt(D))
+    return (out.reshape(B, 1, H * D) @ p.wo,) + pools
+
+
+def attn_step_paged_ragged_q8(p, cfg, x, pool_k, pool_v, pool_ks, pool_vs,
+                              block_table, ctx_lens, q_lens):
+    """:func:`attn_step_paged_ragged` over one layer's int8 pool:
+    quantize-on-write scatters into the int8 pages and scale planes, then
+    one int8 ragged kernel launch. Returns
+    ``(out, pool_k, pool_v, pool_ks, pool_vs)``."""
+    B, Qm, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    positions, valid = _ragged_positions(x, ctx_lens, q_lens)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    pools = (pool_k, pool_v, pool_ks, pool_vs)
+    _scatter_pool(pools, (kq, vq, ks, vs), block_table, positions, valid)
+    out = paged_attention_ragged_q8(
+        q.reshape(B, Qm, H, D), *pools, block_table, ctx_lens + q_lens,
+        q_lens, scale=1.0 / math.sqrt(D))
+    return (out.reshape(B, Qm, H * D) @ p.wo,) + pools
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+def _mla_queries(p, cfg, x, positions):
+    m = cfg.mla
+    B, S, _ = x.shape
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    if m.q_lora_rank:
+        cq = rmsnorm(p.q_norm, x @ p.w_dq, cfg.norm_eps)
+        q = (cq @ p.w_uq).reshape(B, S, cfg.num_heads, qk_head)
+    else:
+        q = (x @ p.w_q).reshape(B, S, cfg.num_heads, qk_head)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, cfg, x, positions):
+    c_kv = rmsnorm(p.kv_norm, x @ p.w_dkv, cfg.norm_eps)
+    k_rope = apply_rope((x @ p.w_kr)[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_scale(cfg):
+    m = cfg.mla
+    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+
+
+def _absorb(p, q_nope):
+    """q_nope · w_uk in fp32: (B, S, H, dn) → (B, S, H, dc)."""
+    return torch.einsum("bshd,chd->bshc", q_nope.float(), p.w_uk.float())
+
+
+def _mla_out(p, cfg, o_c, dtype):
+    """Attended latent (B, S, H, dc) → ``w_uv`` → ``wo``."""
+    B, S = o_c.shape[:2]
+    o = torch.einsum("bshc,chd->bshd", o_c.float(),
+                     p.w_uv.float()).to(dtype)
+    return o.reshape(B, S, cfg.num_heads * cfg.mla.v_head_dim) @ p.wo
+
+
+def mla_train(p, cfg, x, positions, *, chunk_size=512):
+    """MLA over a full sequence (prefill compute), with K and V expanded
+    from the latent. Returns ``(out, (c_kv, k_rope))`` for caching."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.num_heads
+    if S > chunk_size:
+        raise NotImplementedError(
+            f"prompt of {S} tokens > chunk_size={chunk_size}: chunked "
+            f"prefill attention is not ported yet (ROADMAP.md, modules to "
+            f"port, item 9); split the prompt with prefill_chunk_tokens")
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = torch.einsum("btc,chd->bthd", c_kv, p.w_uk)
+    v = torch.einsum("btc,chd->bthd", c_kv, p.w_uv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        B, S, H, m.qk_rope_head_dim)], dim=-1)
+    out = full_attention(q[:, :, :, None, :], k, v, scale=_mla_scale(cfg),
+                         q_positions=positions, kv_positions=positions,
+                         causal=True)
+    out = out.reshape(B, S, H * m.v_head_dim)
+    return out @ p.wo, (c_kv, k_rope)
+
+
+def mla_decode(p, cfg, x, cache_c, cache_kr, positions):
+    """Weight-absorbed MLA decode over the dense latent cache (the
+    sequential reference's): cache_c (B, T, dc), cache_kr (B, T, dr),
+    written IN PLACE at ``positions``. Returns ``(out, cache_c,
+    cache_kr)``."""
+    B = x.shape[0]
+    pos2, _ = _decode_positions(x, positions)
+    q_nope, q_rope = _mla_queries(p, cfg, x, pos2)
+    c_new, kr_new = _mla_latent(p, cfg, x, pos2)
+    b_idx = torch.arange(B, device=x.device)
+    cache_c[b_idx, positions] = c_new[:, 0].to(cache_c.dtype)
+    cache_kr[b_idx, positions] = kr_new[:, 0].to(cache_kr.dtype)
+    q_c = _absorb(p, q_nope)
+    s = (torch.einsum("bshc,btc->bhst", q_c, cache_c.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), cache_kr.float()))
+    m = cfg.mla
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    kv_pos = torch.arange(cache_c.shape[1], device=x.device)
+    valid = kv_pos[None, :] <= positions[:, None]                  # (B, T)
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    o_c = torch.einsum("bhst,btc->bshc", torch.softmax(s, dim=-1),
+                       cache_c.float())
+    return _mla_out(p, cfg, o_c, x.dtype), cache_c, cache_kr
+
+
+def mla_decode_paged(p, cfg, x, pool_c, pool_kr, block_table, positions):
+    """Single-step weight-absorbed MLA decode over one layer's latent pool
+    (P, T, dc) / (P, T, dr): the new latent and rope key go into their page
+    slots in place, then the MLA decode kernel. Returns
+    ``(out, pool_c, pool_kr)``."""
+    pos2, valid = _decode_positions(x, positions)
+    q_nope, q_rope = _mla_queries(p, cfg, x, pos2)
+    c_new, kr_new = _mla_latent(p, cfg, x, pos2)
+    _scatter_pool((pool_c, pool_kr), (c_new, kr_new), block_table, pos2,
+                  valid)
+    o_c = mla_paged_attention(_absorb(p, q_nope)[:, 0],
+                              q_rope[:, 0].float(), pool_c, pool_kr,
+                              block_table, positions + 1,
+                              scale=_mla_scale(cfg))
+    return _mla_out(p, cfg, o_c[:, None], x.dtype), pool_c, pool_kr
+
+
+def mla_step_paged_ragged(p, cfg, x, pool_c, pool_kr, block_table, ctx_lens,
+                          q_lens):
+    """Ragged multi-token weight-absorbed MLA step over one layer's latent
+    pool — the fused tick for the MLA family, one MLA kernel launch.
+    Returns ``(out, pool_c, pool_kr)``."""
+    positions, valid = _ragged_positions(x, ctx_lens, q_lens)
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+    c_new, kr_new = _mla_latent(p, cfg, x, positions)
+    _scatter_pool((pool_c, pool_kr), (c_new, kr_new), block_table,
+                  positions, valid)
+    o_c = mla_paged_attention_ragged(
+        _absorb(p, q_nope), q_rope.float(), pool_c, pool_kr, block_table,
+        ctx_lens + q_lens, q_lens, scale=_mla_scale(cfg))
+    return _mla_out(p, cfg, o_c, x.dtype), pool_c, pool_kr

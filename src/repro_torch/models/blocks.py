@@ -1,8 +1,12 @@
 """Decoder block: parameters as an ``nn.Module``, math as functions.
 
-The counterparts of the dense decoder-block functions of the JAX
-package's ``models/blocks.py``: pre-norm GQA attention and a dense
-(Swi)GLU FFN, each added back through ``residual_scale``.
+The counterparts of the decoder-block functions of the JAX package's
+``models/blocks.py``: pre-norm attention — GQA, or MLA when ``cfg.mla`` is
+set — and a dense (Swi)GLU FFN, each added back through
+``residual_scale``. The cache-bearing functions dispatch on the layer's
+cache planes as the JAX ones do: ``cfg.mla`` means the latent ``(c, kr)``,
+four planes mean int8 ``(k, v, k_scale, v_scale)``, two mean dense
+``(k, v)``.
 """
 from __future__ import annotations
 
@@ -12,17 +16,43 @@ from torch import nn
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import apply_ffn, rmsnorm, truncated_normal_
 
-#: block parameter names → (shape from cfg, JAX pytree path)
-_MATRICES = {
-    "wq": (lambda c: (c.d_model, c.num_heads * c.head_dim), ("attn", "wq")),
-    "wk": (lambda c: (c.d_model, c.num_kv_heads * c.head_dim), ("attn", "wk")),
-    "wv": (lambda c: (c.d_model, c.num_kv_heads * c.head_dim), ("attn", "wv")),
-    "wo": (lambda c: (c.num_heads * c.head_dim, c.d_model), ("attn", "wo")),
-    "w_gate": (lambda c: (c.d_model, c.d_ff), ("ffn", "w_gate")),
-    "w_up": (lambda c: (c.d_model, c.d_ff), ("ffn", "w_up")),
-    "w_down": (lambda c: (c.d_ff, c.d_model), ("ffn", "w_down")),
-}
-_NORMS = {"ln_attn": ("ln_attn", "scale"), "ln_ffn": ("ln_ffn", "scale")}
+
+def _matrices(c) -> dict:
+    """Block matrix name → (shape, JAX pytree path), for ``cfg``'s
+    attention flavour; matrices keep the JAX ``(d_in, ..., d_out)``
+    layout."""
+    d = c.d_model
+    if c.mla is None:
+        attn = {"wq": (d, c.num_heads * c.head_dim),
+                "wk": (d, c.num_kv_heads * c.head_dim),
+                "wv": (d, c.num_kv_heads * c.head_dim),
+                "wo": (c.num_heads * c.head_dim, d)}
+    else:
+        m, H = c.mla, c.num_heads
+        qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        attn = ({"w_dq": (d, m.q_lora_rank), "w_uq": (m.q_lora_rank, H * qk)}
+                if m.q_lora_rank else {"w_q": (d, H * qk)})
+        attn.update({"w_dkv": (d, m.kv_lora_rank),
+                     "w_kr": (d, m.qk_rope_head_dim),
+                     "w_uk": (m.kv_lora_rank, H, m.qk_nope_head_dim),
+                     "w_uv": (m.kv_lora_rank, H, m.v_head_dim),
+                     "wo": (H * m.v_head_dim, d)})
+    out = {n: (shape, ("attn", n)) for n, shape in attn.items()}
+    for n, shape in (("w_gate", (d, c.d_ff)), ("w_up", (d, c.d_ff)),
+                     ("w_down", (c.d_ff, d))):
+        out[n] = (shape, ("ffn", n))
+    return out
+
+
+def _norms(c) -> dict:
+    """Block RMSNorm scale name → (size, JAX pytree path)."""
+    out = {"ln_attn": (c.d_model, ("ln_attn", "scale")),
+           "ln_ffn": (c.d_model, ("ln_ffn", "scale"))}
+    if c.mla is not None:
+        if c.mla.q_lora_rank:
+            out["q_norm"] = (c.mla.q_lora_rank, ("attn", "q_norm", "scale"))
+        out["kv_norm"] = (c.mla.kv_lora_rank, ("attn", "kv_norm", "scale"))
+    return out
 
 
 def frozen_param(shape, dtype, device, fill=None):
@@ -33,25 +63,28 @@ def frozen_param(shape, dtype, device, fill=None):
 
 
 class DecoderBlock(nn.Module):
-    """One dense decoder layer's parameters, stored in the compute dtype."""
+    """One decoder layer's parameters (GQA or MLA attention, dense FFN),
+    stored in the compute dtype."""
 
     def __init__(self, cfg, dtype, device):
         super().__init__()
         if cfg.ffn_activation not in ("swiglu", "geglu"):
             raise NotImplementedError(
                 f"ungated FFN ({cfg.ffn_activation!r}) is not ported yet")
-        for name in _NORMS:
-            setattr(self, name, frozen_param((cfg.d_model,), dtype, device,
-                                             1.0))
-        for name, (shape, _) in _MATRICES.items():
-            setattr(self, name, frozen_param(shape(cfg), dtype, device))
+        norms, matrices = _norms(cfg), _matrices(cfg)
+        self._norm_names, self._matrix_names = tuple(norms), tuple(matrices)
+        for name, (size, _) in norms.items():
+            setattr(self, name, frozen_param((size,), dtype, device, 1.0))
+        for name, (shape, _) in matrices.items():
+            setattr(self, name, frozen_param(shape, dtype, device))
 
     def init_weights(self, generator) -> None:
         """The JAX package's init distributions: truncated normal with
-        ``std = 1/sqrt(fan_in)``, norm scales at 1."""
-        for name in _NORMS:
+        ``std = 1/sqrt(fan_in)`` (fan_in the first axis), norm scales
+        at 1."""
+        for name in self._norm_names:
             getattr(self, name).data.fill_(1.0)
-        for name in _MATRICES:
+        for name in self._matrix_names:
             truncated_normal_(getattr(self, name), 1.0, generator)
 
 
@@ -61,44 +94,65 @@ def _ffn(p, cfg, h):
 
 
 def apply_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
-    """Full-sequence block (prefill). Returns ``(h, (k, v))``."""
+    """Full-sequence block (prefill). Returns ``(h, cache pair)``:
+    ``(k, v)`` for GQA, ``(c_kv, k_rope)`` for MLA."""
     x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
-    a, kv = attn_mod.attn_train(p, cfg, x, positions, chunk_size=chunk_size)
+    train = attn_mod.mla_train if cfg.mla is not None else attn_mod.attn_train
+    a, kv = train(p, cfg, x, positions, chunk_size=chunk_size)
     return _ffn(p, cfg, h + cfg.residual_scale * a), kv
 
 
 def decode_decoder_block(p, cfg, h, cache, positions):
-    """Single-token block over one layer's dense cache ``(k, v)``."""
+    """Single-token block over one layer's dense cache planes, written in
+    place: ``(c, kr)`` MLA, ``(k, v, k_scale, v_scale)`` int8, ``(k, v)``
+    dense."""
     x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
-    a, c0, c1 = attn_mod.attn_decode(p, cfg, x, cache[0], cache[1],
-                                     positions)
-    return _ffn(p, cfg, h + cfg.residual_scale * a), (c0, c1)
+    if cfg.mla is not None:
+        step = attn_mod.mla_decode
+    elif len(cache) == 4:
+        step = attn_mod.attn_decode_q8
+    else:
+        step = attn_mod.attn_decode
+    a, *cache = step(p, cfg, x, *cache, positions)
+    return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(cache)
 
 
 def decode_paged_block(p, cfg, h, planes, block_table, positions):
-    """Single-token block over one layer's pool planes ``(k, v)``."""
+    """Single-token block over one layer's pool planes (descriptor
+    order), dispatched as :func:`decode_decoder_block`."""
     x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
-    a, *planes = attn_mod.attn_decode_paged(p, cfg, x, planes[0], planes[1],
-                                            block_table, positions)
+    if cfg.mla is not None:
+        step = attn_mod.mla_decode_paged
+    elif len(planes) == 4:
+        step = attn_mod.attn_decode_paged_q8
+    else:
+        step = attn_mod.attn_decode_paged
+    a, *planes = step(p, cfg, x, *planes, block_table, positions)
     return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(planes)
 
 
 def step_paged_ragged_block(p, cfg, h, planes, block_table, ctx_lens,
                             q_lens):
-    """Ragged multi-token block over one layer's pool planes ``(k, v)``
-    (the fused mixed-batch tick)."""
+    """Ragged multi-token block over one layer's pool planes (the fused
+    mixed-batch tick), dispatched as :func:`decode_decoder_block`."""
     x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
-    a, *planes = attn_mod.attn_step_paged_ragged(
-        p, cfg, x, planes[0], planes[1], block_table, ctx_lens, q_lens)
+    if cfg.mla is not None:
+        step = attn_mod.mla_step_paged_ragged
+    elif len(planes) == 4:
+        step = attn_mod.attn_step_paged_ragged_q8
+    else:
+        step = attn_mod.attn_step_paged_ragged
+    a, *planes = step(p, cfg, x, *planes, block_table, ctx_lens, q_lens)
     return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(planes)
 
 
-def jax_block_arrays(np_blocks: dict, i: int) -> dict:
+def jax_block_arrays(np_blocks: dict, i: int, cfg) -> dict:
     """Layer ``i`` of the JAX package's stacked ``params["blocks"]`` pytree
     (leading L axis) as ``{port name: numpy array}``."""
     out = {}
-    for name, (_, path) in _MATRICES.items():
-        out[name] = np_blocks[path[0]][path[1]][i]
-    for name, path in _NORMS.items():
-        out[name] = np_blocks[path[0]][path[1]][i]
+    for name, (_, path) in {**_matrices(cfg), **_norms(cfg)}.items():
+        node = np_blocks
+        for key in path:
+            node = node[key]
+        out[name] = node[i]
     return out

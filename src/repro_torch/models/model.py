@@ -1,21 +1,24 @@
-"""Decoder-only LM for the dense GQA family, as an ``nn.Module``.
+"""Decoder-only LM for ``family="attn_dense"``, as an ``nn.Module``.
 
-The counterpart of the JAX package's ``LM`` for ``family="attn_dense"``:
+The counterpart of the JAX package's ``LM`` for the three cache families
+of a dense decoder: GQA with a native cache, GQA with an int8 cache
+(``kv_cache_dtype="int8"``), and MLA (``cfg.mla``, the latent cache):
 
 * ``init(generator)`` — random weights with the reference's distributions;
 * ``prefill(tokens, max_len) -> (logits, cache)`` — dense padded cache;
 * ``decode_step`` — one token over the dense cache (the sequential
   reference's step);
 * ``decode_step_paged`` / ``step_paged_ragged`` — one token / one ragged
-  mixed batch over the KV engine's device page pool, through the
-  hand-written paged-attention kernel.
+  mixed batch over the KV engine's device page pool, through the family's
+  hand-written paged-attention kernel. The pool planes are named by the
+  cache descriptor (``pool_<plane>`` in the cache dict).
 
 Parameters are stored once in the compute dtype (the JAX package casts
 every weight on every call, which is free inside ``jit`` but would copy
 all weights every tick in eager torch). The layer stack is a Python loop
 over an ``nn.ModuleList``; where the JAX ``scan`` returns new pools, the
 paged steps scatter in place into per-layer views of the engine's
-``(L, P, T, K, D)`` planes and return those same tensors.
+``(L, P, T, *shape)`` planes and return those same tensors.
 """
 from __future__ import annotations
 
@@ -26,19 +29,26 @@ from torch import nn
 from repro_torch import resolve_device
 from repro_torch.core.engines.desc import descriptor_for
 from repro_torch.models import blocks as B
+from repro_torch.models.attention import quantize_kv
 from repro_torch.models.layers import (embed, lm_logits, rmsnorm,
                                        truncated_normal_)
 
 
 class LM(nn.Module):
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
-                 chunk_size: int = 512):
+                 chunk_size: int = 512, kv_cache_dtype: str = "native"):
         super().__init__()
         if cfg.family != "attn_dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
                 f"modules to port)")
+        if kv_cache_dtype not in ("native", "int8"):
+            raise ValueError(f"kv_cache_dtype must be 'native' or 'int8', "
+                             f"got {kv_cache_dtype!r}")
         self.cfg = cfg
+        # "int8": quantized KV cache with bf16 per-(token, head) scales
+        # (GQA only: an MLA config keeps its latent cache, as in JAX)
+        self.kv_cache_dtype = kv_cache_dtype
         self.device = resolve_device(device)
         self.dtype = dtype
         self.chunk_size = chunk_size
@@ -50,6 +60,10 @@ class LM(nn.Module):
         self.blocks = nn.ModuleList(
             B.DecoderBlock(cfg, dtype, self.device)
             for _ in range(cfg.num_layers))
+        # the cache planes by name, fixed by the descriptor: every step
+        # reads this instead of asking the descriptor again
+        self.plane_names = tuple(
+            p.name for p in self.cache_descriptor().paged_planes)
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> "LM":
@@ -78,9 +92,12 @@ class LM(nn.Module):
                          vocab_size=cfg.vocab_size)
 
     def cache_descriptor(self, page_tokens: int = 16):
-        """This model's dense ``(k, v)`` cache descriptor in the compute
-        dtype — the plane layout the pooled serving path allocates."""
-        return descriptor_for(self.cfg, "native", self.dtype, page_tokens)
+        """This model's cache descriptor — dense ``(k, v)`` or MLA
+        ``(c, kr)`` in the compute dtype, or int8 ``(k, v)`` with bf16
+        ``(k_scale, v_scale)`` — the plane layout the pooled serving path
+        allocates."""
+        return descriptor_for(self.cfg, self.kv_cache_dtype, self.dtype,
+                              page_tokens)
 
     def supports_ragged_step(self) -> bool:
         return self.cache_descriptor() is not None
@@ -90,26 +107,37 @@ class LM(nn.Module):
     def prefill(self, tokens, max_len: int):
         """Run the prompt ``tokens`` (B, S); return the last position's
         logits (B, 1, V) fp32 and the decode cache: ``pos`` (B,) int32 and
-        ``k``/``v`` (L, B, max(max_len, S), K, D), zero past S."""
+        one ``(L, B, max(max_len, S), *shape)`` array per descriptor plane,
+        zero past S — ``k``/``v``; int8 ``k``/``v`` with ``k_scale``/
+        ``v_scale`` (the padded cache quantized, as in JAX); or MLA
+        ``c``/``kr``."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         Bz, S = tokens.shape
         h = self._embed_tokens(tokens)
         positions = torch.arange(S, device=self.device).expand(Bz, S)
-        ks, vs = [], []
+        parts = ([], [])
         for blk in self.blocks:
-            h, (k, v) = B.apply_decoder_block(blk, cfg, h, positions,
-                                              chunk_size=self.chunk_size)
-            ks.append(k)
-            vs.append(v)
+            h, kv = B.apply_decoder_block(blk, cfg, h, positions,
+                                          chunk_size=self.chunk_size)
+            for acc, x in zip(parts, kv):
+                acc.append(x)
         T = max(max_len, S)
+        padded = []
+        for acc in parts:
+            x = torch.zeros((cfg.num_layers, Bz, T) + acc[0].shape[2:],
+                            dtype=acc[0].dtype, device=self.device)
+            x[:, :, :S] = torch.stack(acc)
+            padded.append(x)
         cache = {"pos": torch.full((Bz,), S, dtype=torch.int32,
                                    device=self.device)}
-        for name, parts in (("k", ks), ("v", vs)):
-            kv = torch.zeros((cfg.num_layers, Bz, T) + parts[0].shape[2:],
-                             dtype=parts[0].dtype, device=self.device)
-            kv[:, :, :S] = torch.stack(parts)
-            cache[name] = kv
+        if cfg.mla is not None:
+            cache["c"], cache["kr"] = padded
+        elif self.kv_cache_dtype == "int8":
+            cache["k"], cache["k_scale"] = quantize_kv(padded[0])
+            cache["v"], cache["v_scale"] = quantize_kv(padded[1])
+        else:
+            cache["k"], cache["v"] = padded
         return self._logits(h[:, -1:]), cache
 
     # --------------------------------------------------------- decode steps
@@ -119,25 +147,31 @@ class LM(nn.Module):
         tokens: (B, 1); positions: (B,) write/query index."""
         h = self._embed_tokens(tokens)
         positions = positions.to(self.device, torch.long)
+        names = self.plane_names
         for i, blk in enumerate(self.blocks):
             h, _ = B.decode_decoder_block(
-                blk, self.cfg, h, (cache["k"][i], cache["v"][i]), positions)
+                blk, self.cfg, h, tuple(cache[n][i] for n in names),
+                positions)
         new_cache = dict(cache)
         new_cache["pos"] = (positions + 1).to(torch.int32)
         return self._logits(h), new_cache
 
     def _paged_layers(self, cache, h, step):
-        pools = (cache["pool_k"], cache["pool_v"])
+        """Run the layer stack over per-layer views of the cache's
+        ``pool_<plane>`` planes; returns ``h`` and the (updated in place)
+        planes by name."""
+        pools = {n: cache["pool_" + n] for n in self.plane_names}
         for i, blk in enumerate(self.blocks):
-            h, _ = step(blk, h, (pools[0][i], pools[1][i]))
-        return h, pools
+            h, _ = step(blk, h, tuple(p[i] for p in pools.values()))
+        return h, {"pool_" + n: p for n, p in pools.items()}
 
     @torch.no_grad()
     def decode_step_paged(self, cache, tokens, positions):
         """One token per row over the device page pool. cache: ``pos``,
-        ``pool_k``/``pool_v`` (L, P, T, K, D) and ``block_table``
-        (B, MP) int32. Returns logits (B, 1, V) and the cache with
-        ``pos + 1`` and the same (updated in place) pool tensors."""
+        one ``pool_<plane>`` (L, P, T, *shape) per descriptor plane and
+        ``block_table`` (B, MP) int32. Returns logits (B, 1, V) and the
+        cache with ``pos + 1`` and the same (updated in place) pool
+        tensors."""
         cfg, table = self.cfg, cache["block_table"]
         positions = positions.to(self.device, torch.long)
         h, pools = self._paged_layers(
@@ -145,8 +179,7 @@ class LM(nn.Module):
             lambda blk, hh, planes: B.decode_paged_block(
                 blk, cfg, hh, planes, table, positions))
         new_cache = {"pos": (positions + 1).to(torch.int32),
-                     "block_table": table,
-                     "pool_k": pools[0], "pool_v": pools[1]}
+                     "block_table": table, **pools}
         return self._logits(h), new_cache
 
     @torch.no_grad()
@@ -164,8 +197,7 @@ class LM(nn.Module):
             lambda blk, hh, planes: B.step_paged_ragged_block(
                 blk, cfg, hh, planes, table, ctx_lens, q_lens))
         new_cache = {"pos": (ctx_lens + q_lens).to(torch.int32),
-                     "block_table": table,
-                     "pool_k": pools[0], "pool_v": pools[1]}
+                     "block_table": table, **pools}
         return self._logits(h), new_cache
 
 
@@ -179,7 +211,8 @@ def params_from_jax(np_params: dict, cfg) -> dict:
     if not cfg.tie_embeddings:
         sd["head"] = np_params["head"]["table"]
     for i in range(cfg.num_layers):
-        for name, arr in B.jax_block_arrays(np_params["blocks"], i).items():
+        for name, arr in B.jax_block_arrays(np_params["blocks"], i,
+                                            cfg).items():
             sd[f"blocks.{i}.{name}"] = arr
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in sd.items()}

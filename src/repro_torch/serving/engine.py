@@ -7,9 +7,11 @@ registry) owns device-resident page planes; admission scatters a
 prompt's prefilled KV into pool pages on device, and every scheduler tick
 is ONE ragged forward (:meth:`ServingEngine.step_batch`): decode rows
 contribute one new token, prefill-chunk rows their next chunk, and the
-hand-written ``paged_attention_ragged`` kernel attends them all in the
-same launch, layer by layer, through the block table. No KV byte crosses
-the device→host link on this path: ``mirror_d2h_bytes`` stays 0.
+model family's hand-written ragged kernel (dense, int8 or MLA paged
+attention) attends them all in the same launch, layer by layer, through
+the block table. The pool's planes come from the model's cache
+descriptor. No KV byte crosses the device→host link on this path:
+``mirror_d2h_bytes`` stays 0.
 
 ``generate()`` runs requests through the continuous-batching
 :class:`~repro_torch.serving.scheduler.Scheduler` (admission, chunked
@@ -146,6 +148,11 @@ class ServingEngine:
                 f"multiple of page_tokens ({cfg.page_tokens})")
         self.pooled = True
         self.tiered.init_pool(device=self.device)
+        # host-facing mirror appends are dense-layout: an int8 or MLA pool
+        # cannot absorb them, so the sequential reference counts its
+        # mirror bytes but skips the tiered append (generate() never
+        # mirrors)
+        self._mirror_appends_ok = self.desc.kernel == "dense"
         # hooks the scheduler reads; their features are not ported yet
         self.speculate_k = 0
         self.proposer = None
@@ -157,21 +164,26 @@ class ServingEngine:
     def _mirror_kv(self, rid: int, cache, pos: int):
         """Mirror the newly appended token's KV into the tiered cache: the
         ``(L, K, D)`` token is sliced on device so only the single fp16
-        token crosses the device→host link."""
+        token crosses the device→host link. An MLA cache has no ``k`` and
+        mirrors nothing."""
+        if "k" not in cache:
+            return
         tok = batching.gather_new_kv(
             cache["k"], cache["v"],
             torch.tensor([pos], device=self.device))[0].cpu()
         self.mirror_d2h_bytes += tok.numel() * tok.element_size()
-        self.tiered.append(rid, tok)
+        if self._mirror_appends_ok:
+            self.tiered.append(rid, tok)
 
     def _mirror_prefill(self, rid: int, cache, n: int):
         """Mirror the whole prompt's KV as one batched append (sliced to the
         prompt's ``n`` tokens on device, cast to fp16 before transfer)."""
-        if n == 0:
+        if "k" not in cache or n == 0:
             return
         toks = batching.gather_prefill_kv(cache["k"], cache["v"], n).cpu()
         self.mirror_d2h_bytes += toks.numel() * toks.element_size()
-        self.tiered.append(rid, toks)
+        if self._mirror_appends_ok:
+            self.tiered.append(rid, toks)
 
     # ------------------------------------------------------------- generation
     def _prefill(self, toks):
@@ -351,7 +363,8 @@ class ServingEngine:
     def generate_sequential(self, requests: list[Request]) -> list[Request]:
         """Sequential reference: one request at a time, batch=1 decode over
         the dense cache (plain torch attention, no paged kernel), with the
-        tiered append mirroring every token into the engine."""
+        tiered append mirroring every token into the engine (dense pools
+        only; the int8 reference counts its mirror bytes, MLA has none)."""
         for req in requests:
             logits, cache = self._prefill(req.prompt)
             self._mirror_prefill(req.rid, cache, req.prompt.shape[0])

@@ -1,5 +1,6 @@
-"""The port on the card: the hand-written CUDA kernel against its plain
-PyTorch version, and the pooled serving path through it.
+"""The port on the card: the hand-written CUDA kernels (dense, int8 and MLA
+paged attention) against their plain PyTorch versions, and the pooled
+serving path through them.
 
 Every test here is marked ``cuda`` and skips when torch sees no GPU (the
 decision is taken inside the ``cuda_device`` fixture, never at import).
@@ -12,7 +13,9 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels.paged_attention import ops
-from repro_torch.kernels.paged_attention.ref import paged_attention_ragged_ref
+from repro_torch.kernels.paged_attention.ref import (
+    mla_paged_attention_ragged_ref, paged_attention_ragged_q8_ref,
+    paged_attention_ragged_ref)
 from repro_torch.models import LM
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
@@ -56,6 +59,55 @@ def _poison_dead(pk, pv, tbl, lens, T):
     return pk, pv, tbl
 
 
+def _q8_edge_inputs(seed=15):
+    """The edge rows of :func:`_edge_inputs` over an int8 pool with bf16
+    per-(token, head) scales."""
+    q, pk, _, tbl, lens, qls = _edge_inputs(seed)
+    rng = np.random.default_rng(seed)
+    P, T, K, D = pk.shape
+    pk = torch.from_numpy(rng.integers(-127, 128, (P, T, K, D), dtype=np.int8))
+    pv = torch.from_numpy(rng.integers(-127, 128, (P, T, K, D), dtype=np.int8))
+    ks = torch.from_numpy((rng.random((P, T, K)) * 0.1 + 0.01)
+                          .astype(np.float32)).to(torch.bfloat16)
+    vs = torch.from_numpy((rng.random((P, T, K)) * 0.1 + 0.01)
+                          .astype(np.float32)).to(torch.bfloat16)
+    return q, pk, pv, ks, vs, tbl, lens, qls
+
+
+def _poison_dead_q8(pk, pv, ks, vs, tbl, lens):
+    """:func:`_poison_dead` for an int8 pool: dead codes at ±127 and their
+    scales at 1e6 (``tests/test_kernels.py``'s poison), stale tails."""
+    T = pk.shape[1]
+    ks, vs = ks.clone(), vs.clone()
+    pk2, pv2, tbl2 = _poison_dead(pk.float(), pv.float(), tbl, lens, T)
+    dead = pk2.abs() >= 1e6                     # (P, T, K, D)
+    pk2 = torch.where(dead, 127.0, pk2).to(torch.int8)
+    pv2 = torch.where(dead, -127.0, pv2).to(torch.int8)
+    ks[dead[..., 0]] = 1e6
+    vs[dead[..., 0]] = 1e6
+    return pk2, pv2, ks, vs, tbl2
+
+
+def _mla_edge_inputs(seed=16, dc=64, dr=32):
+    """The edge rows of :func:`_edge_inputs` over a latent pool (no KV
+    head axis): fp32 queries, a (P, T, dc) latent and a (P, T, dr) rope-key
+    plane."""
+    q, pk, _, tbl, lens, qls = _edge_inputs(seed)
+    rng = np.random.default_rng(seed)
+    B, Qm, H, _ = q.shape
+    P, T = pk.shape[:2]
+    f = lambda *s: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal(s).astype(np.float32))
+    return (f(B, Qm, H, dc), f(B, Qm, H, dr), f(P, T, dc), f(P, T, dr), tbl,
+            lens, qls, float(1.0 / np.sqrt(dc + dr)))
+
+
+def _poison_dead_mla(pc, pkr, tbl, lens):
+    pc2, pkr2, tbl2 = _poison_dead(pc[:, :, None], pkr[:, :, None], tbl,
+                                   lens, pc.shape[1])
+    return pc2[:, :, 0], pkr2[:, :, 0], tbl2
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -90,6 +142,103 @@ def test_kernel_matches_plain_version(cuda_device, dtype):
     r1 = ops.paged_attention_ragged(q, pk, pv, tbl, lens, ones)
     d1 = ops.paged_attention(q[:, 0], pk, pv, tbl, lens)
     assert torch.equal(r1[:, 0], d1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_q8_kernel_matches_plain_version(cuda_device, dtype):
+    """The int8 kernel against its plain version (dequantized in fp32, as
+    the kernel does), then the pins: padding 0, poisoned dead codes and
+    scales change no bit, ragged at q_len == 1 is the int8 decode entry."""
+    q, pk, pv, ks, vs, tbl, lens, qls = (
+        t.to(cuda_device) for t in _q8_edge_inputs())
+    q = q.to(dtype)
+    before = ops.paged_attention_ragged_q8.launches
+    out = ops.paged_attention_ragged_q8(q, pk, pv, ks, vs, tbl, lens, qls)
+    torch.cuda.synchronize()
+    assert ops.paged_attention_ragged_q8.launches == before + 1
+    ref = paged_attention_ragged_q8_ref(q.float(), pk, pv, ks, vs, tbl, lens,
+                                        qls)
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref, atol=atol, rtol=rtol)
+    for b in range(q.shape[0]):
+        assert torch.all(out[b, int(qls[b]):] == 0)
+    poisoned = _poison_dead_q8(pk, pv, ks, vs, tbl, lens)
+    assert torch.equal(ops.paged_attention_ragged_q8(
+        q, *poisoned[:4], poisoned[4], lens, qls), out)
+    ones = torch.ones_like(qls)
+    r1 = ops.paged_attention_ragged_q8(q, pk, pv, ks, vs, tbl, lens, ones)
+    d1 = ops.paged_attention_q8(q[:, 0], pk, pv, ks, vs, tbl, lens)
+    assert torch.equal(r1[:, 0], d1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dc,dr", [(64, 32), (512, 64)])
+def test_mla_kernel_matches_plain_version(cuda_device, pool_dtype, dc, dr):
+    """The MLA kernel against its plain version on the same pool values
+    (fp32 math, fp32 output), then the pins: padding 0, dead pages and
+    stale tails change no bit, ragged at q_len == 1 is the decode entry."""
+    q_c, q_r, pc, pkr, tbl, lens, qls, scale = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else t
+        for t in _mla_edge_inputs(dc=dc, dr=dr))
+    pc, pkr = pc.to(pool_dtype), pkr.to(pool_dtype)
+    before = ops.mla_paged_attention_ragged.launches
+    out = ops.mla_paged_attention_ragged(q_c, q_r, pc, pkr, tbl, lens, qls,
+                                         scale=scale)
+    torch.cuda.synchronize()
+    assert ops.mla_paged_attention_ragged.launches == before + 1
+    ref = mla_paged_attention_ragged_ref(q_c, q_r, pc.float(), pkr.float(),
+                                         tbl, lens, qls, scale=scale)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=4e-5)
+    for b in range(q_c.shape[0]):
+        assert torch.all(out[b, int(qls[b]):] == 0)
+    pc2, pkr2, tbl2 = _poison_dead_mla(pc, pkr, tbl, lens)
+    assert torch.equal(ops.mla_paged_attention_ragged(
+        q_c, q_r, pc2, pkr2, tbl2, lens, qls, scale=scale), out)
+    ones = torch.ones_like(qls)
+    r1 = ops.mla_paged_attention_ragged(q_c, q_r, pc, pkr, tbl, lens, ones,
+                                        scale=scale)
+    d1 = ops.mla_paged_attention(q_c[:, 0], q_r[:, 0], pc, pkr, tbl, lens,
+                                 scale=scale)
+    assert torch.equal(r1[:, 0], d1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_cache_dtype", [
+    ("internlm2-1.8b-smoke", "int8"),
+    ("deepseek-v2-236b-noexperts-smoke", "native")])
+def test_family_serving_on_card_matches_sequential(cuda_device, arch,
+                                                   kv_cache_dtype):
+    """Smoke-sized int8 and MLA serving on the card: the fused path (one
+    family ragged launch per layer and step) and the unfused path (the
+    family decode entry) are token-identical to the dense sequential
+    reference, and mirror-free."""
+    cfg = get_config(arch)
+    model = LM(cfg, device=cuda_device, kv_cache_dtype=kv_cache_dtype).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    ragged, decode = ((ops.mla_paged_attention_ragged, ops.mla_paged_attention)
+                      if cfg.mla is not None else
+                      (ops.paged_attention_ragged_q8, ops.paged_attention_q8))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (8, 12, 8)]
+
+    def run(method, **kw):
+        reqs = [Request(rid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        eng = ServingEngine(model, ServeConfig(max_len=32, page_tokens=8,
+                                               **kw), device=cuda_device)
+        getattr(eng, method)(reqs)
+        return [r.generated for r in reqs], eng.stats()
+
+    ref, _ = run("generate_sequential")
+    ops.reset_launch_counts()
+    fused, s = run("generate", prefill_chunk_tokens=5)
+    assert fused == ref and s["mirror_d2h_bytes"] == 0
+    assert ragged.launches == cfg.num_layers * s["step_calls"]
+    unfused, _ = run("generate", prefill_chunk_tokens=5, fuse_ticks=False)
+    assert unfused == ref and decode.launches > 0
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""The port stands alone: serving through it loads neither JAX nor any
-module of the JAX package."""
+"""The port stands alone: serving through it — dense, int8 and MLA cache
+families — loads neither JAX nor any module of the JAX package."""
 import os
 import subprocess
 import sys
@@ -16,15 +16,22 @@ _SCRIPT = textwrap.dedent("""
     from repro_torch.models import LM
     from repro_torch.serving import Request, ServeConfig, ServingEngine
 
-    cfg = get_config("internlm2-1.8b-smoke")
-    model = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(0)
-    reqs = [Request(rid=i, prompt=rng.integers(0, 512, 6, dtype=np.int32),
-                    max_new=3) for i in range(2)]
-    eng = ServingEngine(model, ServeConfig(max_len=16, page_tokens=4),
-                        device="cpu")
-    eng.generate(reqs)
-    assert all(len(r.generated) == 3 for r in reqs)
+    for arch, kd in (("internlm2-1.8b-smoke", "native"),
+                     ("internlm2-1.8b-smoke", "int8"),
+                     ("deepseek-v2-236b-noexperts-smoke", "native")):
+        cfg = get_config(arch)
+        model = LM(cfg, device="cpu", kv_cache_dtype=kd).init(
+            torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(0)
+        reqs = [Request(rid=i, prompt=rng.integers(0, 512, 6,
+                                                   dtype=np.int32),
+                        max_new=3) for i in range(2)]
+        eng = ServingEngine(model, ServeConfig(max_len=16, page_tokens=4),
+                            device="cpu")
+        assert eng.desc.family == {"native": "mla" if cfg.mla else "dense",
+                                   "int8": "int8"}[kd]
+        eng.generate(reqs)
+        assert all(len(r.generated) == 3 for r in reqs)
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))

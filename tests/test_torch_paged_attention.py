@@ -2,21 +2,31 @@
 
 The plain PyTorch versions (what a CPU tensor runs) are held against the
 JAX Pallas kernels run in interpret mode, on the shape/dtype cases of
-``tests/test_kernels.py`` with its tolerances; the contract edges and the
-bitwise pins are checked on the port alone. The CUDA kernel itself is
-held against the plain version on the card in ``test_torch_cuda.py``.
+``tests/test_kernels.py`` with its tolerances — dense, int8 and MLA pools;
+the contract edges and the bitwise pins are checked on the port alone. The
+CUDA kernels themselves are held against the plain versions on the card in
+``test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import mla_paged_attention as jax_mla_paged_attention
+from repro.kernels import mla_paged_attention_ragged as jax_mla_ragged
 from repro.kernels import paged_attention as jax_paged_attention
+from repro.kernels import paged_attention_q8 as jax_paged_attention_q8
 from repro.kernels import paged_attention_ragged as jax_paged_attention_ragged
+from repro.kernels import paged_attention_ragged_q8 as jax_ragged_q8
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
+    mla_paged_attention_ragged_ref, mla_paged_attention_ref,
+    paged_attention_q8_ref, paged_attention_ragged_q8_ref,
     paged_attention_ragged_ref, paged_attention_ref)
-from test_torch_cuda import _edge_inputs, _poison_dead
+from test_kernels import _mla_inputs, _q8_inputs
+from test_torch_cuda import (_edge_inputs, _mla_edge_inputs, _poison_dead,
+                             _poison_dead_mla, _poison_dead_q8,
+                             _q8_edge_inputs)
 
 # tests/test_kernels.py: atol 5·_RTOL, rtol 2·_RTOL
 _TOL = {"float32": (1e-4, 4e-5), "bfloat16": (1e-1, 4e-2)}
@@ -127,13 +137,129 @@ def test_plain_ragged_qlen1_is_bitwise_plain_decode():
     assert torch.all(zero[0] == 0.0)
 
 
+def _t(a):
+    """A JAX array as a torch tensor (bf16 goes through fp32)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+# the inputs of tests/test_kernels.py (_q8_inputs, _mla_inputs): two layers
+# of a ragged batch with a q_len == 0 row, a decode row and two chunk rows;
+# the single-layer entries run layer by layer
+@pytest.mark.parametrize("layer", [0, 1])
+def test_plain_q8_matches_jax_kernel(layer):
+    q, pk, pv, ks, vs, tbl, lens, qls = _q8_inputs()
+    q, pk, pv, ks, vs = (a[layer] for a in (q, pk, pv, ks, vs))
+    out_j = jax_ragged_q8(q, pk, pv, ks, vs, tbl, lens, qls,
+                          force_pallas=True)
+    args = [_t(a) for a in (q, pk, pv, ks, vs, tbl, lens, qls)]
+    out_t = paged_attention_ragged_q8_ref(*args)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                               atol=1e-4, rtol=4e-5)
+    for b in range(out_t.shape[0]):
+        assert torch.all(out_t[b, int(qls[b]):] == 0.0), b
+    ones = jnp.ones_like(qls)
+    lens1 = jnp.maximum(lens, 1)
+    dec_j = jax_paged_attention_q8(q[:, 0], pk, pv, ks, vs, tbl, lens1,
+                                   force_pallas=True)
+    dec_t = paged_attention_q8_ref(args[0][:, 0], *args[1:6], _t(lens1))
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), atol=1e-4,
+                               rtol=4e-5)
+    r1 = paged_attention_ragged_q8_ref(args[0][:, :1], *args[1:6],
+                                       _t(lens1), _t(ones))
+    assert torch.equal(r1[:, 0], dec_t)
+
+
+@pytest.mark.parametrize("layer", [0, 1])
+def test_plain_mla_matches_jax_kernel(layer):
+    q_c, q_r, pc, pkr, tbl, lens, qls, scale = _mla_inputs()
+    q_c, q_r, pc, pkr = (a[layer] for a in (q_c, q_r, pc, pkr))
+    out_j = jax_mla_ragged(q_c, q_r, pc, pkr, tbl, lens, qls, scale=scale,
+                           force_pallas=True)
+    args = [_t(a) for a in (q_c, q_r, pc, pkr, tbl, lens, qls)]
+    out_t = mla_paged_attention_ragged_ref(*args, scale=scale)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                               atol=1e-4, rtol=4e-5)
+    for b in range(out_t.shape[0]):
+        assert torch.all(out_t[b, int(qls[b]):] == 0.0), b
+    lens1 = jnp.maximum(lens, 1)
+    dec_j = jax_mla_paged_attention(q_c[:, 0], q_r[:, 0], pc, pkr, tbl, lens1,
+                                    scale=scale, force_pallas=True)
+    dec_t = mla_paged_attention_ref(args[0][:, 0], args[1][:, 0], *args[2:5],
+                                    _t(lens1), scale=scale)
+    np.testing.assert_allclose(dec_t.numpy(), np.asarray(dec_j), atol=1e-4,
+                               rtol=4e-5)
+    r1 = mla_paged_attention_ragged_ref(
+        args[0][:, :1], args[1][:, :1], *args[2:5], _t(lens1),
+        torch.ones_like(args[6]), scale=scale)
+    assert torch.equal(r1[:, 0], dec_t)
+
+
+def test_plain_q8_contract_edges():
+    """int8 pool: padding slots and q_len == 0 rows exactly zero; dead
+    codes at ±127 with scales at 1e6 and stale table tails change nothing;
+    the plain version equals the JAX interpret-mode kernel."""
+    q, pk, pv, ks, vs, tbl, lens, qls = _q8_edge_inputs()
+    out = paged_attention_ragged_q8_ref(q, pk, pv, ks, vs, tbl, lens, qls)
+    ref = jax_ragged_q8(*(jnp.asarray(t.numpy()) for t in (q, pk, pv)),
+                        jnp.asarray(ks.float().numpy(), jnp.bfloat16),
+                        jnp.asarray(vs.float().numpy(), jnp.bfloat16),
+                        jnp.asarray(tbl.numpy()), jnp.asarray(lens.numpy()),
+                        jnp.asarray(qls.numpy()), force_pallas=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=4e-5)
+    for b in range(q.shape[0]):
+        assert torch.all(out[b, int(qls[b]):] == 0.0), b
+    pk2, pv2, ks2, vs2, tbl2 = _poison_dead_q8(pk, pv, ks, vs, tbl, lens)
+    assert torch.equal(
+        paged_attention_ragged_q8_ref(q, pk2, pv2, ks2, vs2, tbl2, lens, qls),
+        out)
+
+
+def test_plain_mla_contract_edges():
+    """MLA pool: padding and q_len == 0 rows zero; dead latent pages and
+    stale tails change nothing; equal to the JAX interpret-mode kernel."""
+    q_c, q_r, pc, pkr, tbl, lens, qls, scale = _mla_edge_inputs()
+    out = mla_paged_attention_ragged_ref(q_c, q_r, pc, pkr, tbl, lens, qls,
+                                         scale=scale)
+    ref = jax_mla_ragged(*(jnp.asarray(t.numpy()) for t in
+                           (q_c, q_r, pc, pkr, tbl, lens, qls)),
+                         scale=scale, force_pallas=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
+                               rtol=4e-5)
+    for b in range(q_c.shape[0]):
+        assert torch.all(out[b, int(qls[b]):] == 0.0), b
+    pc2, pkr2, tbl2 = _poison_dead_mla(pc, pkr, tbl, lens)
+    assert torch.equal(mla_paged_attention_ragged_ref(
+        q_c, q_r, pc2, pkr2, tbl2, lens, qls, scale=scale), out)
+
+
 def test_cpu_tensor_takes_plain_version_without_launching():
     q, pk, pv, tbl, lens, qls = _edge_inputs()
-    before = (ops.paged_attention_ragged.launches, ops.paged_attention.launches)
+    before = [e.launches for e in ops.ENTRIES]
     out = ops.paged_attention_ragged(q, pk, pv, tbl, lens, qls)
     assert torch.equal(out, paged_attention_ragged_ref(q, pk, pv, tbl, lens,
                                                        qls))
     dec = ops.paged_attention(q[:, 0], pk, pv, tbl, lens)
     assert torch.equal(dec, paged_attention_ref(q[:, 0], pk, pv, tbl, lens))
-    assert (ops.paged_attention_ragged.launches,
-            ops.paged_attention.launches) == before
+    q, pk, pv, ks, vs, tbl, lens, qls = _q8_edge_inputs()
+    assert torch.equal(
+        ops.paged_attention_ragged_q8(q, pk, pv, ks, vs, tbl, lens, qls),
+        paged_attention_ragged_q8_ref(q, pk, pv, ks, vs, tbl, lens, qls))
+    assert torch.equal(
+        ops.paged_attention_q8(q[:, 0], pk, pv, ks, vs, tbl, lens),
+        paged_attention_q8_ref(q[:, 0], pk, pv, ks, vs, tbl, lens))
+    q_c, q_r, pc, pkr, tbl, lens, qls, scale = _mla_edge_inputs()
+    assert torch.equal(
+        ops.mla_paged_attention_ragged(q_c, q_r, pc, pkr, tbl, lens, qls,
+                                       scale=scale),
+        mla_paged_attention_ragged_ref(q_c, q_r, pc, pkr, tbl, lens, qls,
+                                       scale=scale))
+    assert torch.equal(
+        ops.mla_paged_attention(q_c[:, 0], q_r[:, 0], pc, pkr, tbl, lens,
+                                scale=scale),
+        mla_paged_attention_ref(q_c[:, 0], q_r[:, 0], pc, pkr, tbl, lens,
+                                scale=scale))
+    assert [e.launches for e in ops.ENTRIES] == before
