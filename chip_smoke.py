@@ -15,11 +15,24 @@ each raises on failure, and any failure ends the run with a traceback:
                 output also against the plain fp32 version on the same
                 inputs, to half a bf16 ulp), the bitwise pins (padding
                 slots and q_len=0 rows are 0, dead slots change nothing,
-                ragged at q_len=1 is the decode entry), and CUDA-event
-                times beside the bound and a library call. Dense and int8:
-                B=8, H=16, K=8, D=128, T=16, MP=64, Qmax 128 and 1; MLA:
-                B=8, H=128, dc=512, dr=64, T=16, MP=64, Qmax 128 (the MLA
-                serve phase's prefill chunk) and 1.
+                ragged at q_len=1 is the decode entry, layer l of a
+                multi-layer launch is the single-layer launch on layer l),
+                and CUDA-event times beside the bound and a library call.
+                Dense and int8: B=8, H=16, K=8, D=128, T=16, MP=64, Qmax
+                128 and 1, one layer and L=24; MLA: B=8, H=128, dc=512,
+                dr=64, T=16, MP=64, Qmax 128 (the MLA serve phase's
+                prefill chunk) and 1, one layer and L=8; flash attention:
+                one InternLM2-1.8B layer of a 4096-token prefill (B=1,
+                H=16, K=8, D=128, causal) and the JAX package's test
+                cases, with a causal Sq > Skv case whose dead rows are 0;
+                log patch: P=682, T=16, C=2048 (K and V of one token in
+                one InternLM2-1.8B layer), N=256 records with colliding
+                targets, skipped records and out-of-range indices, bit for
+                bit the plain version. Each entry that no serving path
+                calls (the multi-layer entries and log patch, as in the
+                JAX package) is then called once more through
+                ``repro_torch.kernels`` with the launch counts set to 0
+                just before and read just after: its public-entry run.
 3. serve      — full-width InternLM2-1.8B (random weights from --seed) in
                 bf16 through ``ServingEngine.generate()``, pooled and
                 fused: 8 requests, prompts of 64–512 tokens, 32 new tokens
@@ -41,14 +54,28 @@ each raises on failure, and any failure ends the run with a traceback:
                 phase 3's requests.
 9. parity-mla — 4 layers of it at full width in fp32: fused and unfused
                 runs token-identical to ``generate_sequential()``.
+10. serve-long — full-width InternLM2-1.8B in bf16, whole-prompt prefill
+                (no prefill chunks) of prompts of 4096, 3072, 2048 and
+                1100 tokens through the flash-attention kernel, 32 new
+                tokens each, 2 GiB pool: one flash launch per layer and
+                prompt.
+11. parity-long — full width in fp32, prompts of 1100 and 2048 tokens, 8
+                new tokens: ``generate()`` against
+                ``generate_sequential()``; then ``LM.prefill`` of the
+                2048-token prompt through the flash kernel against the
+                same model's plain ``full_attention`` branch (last logits
+                and every layer's K/V, fp32 tolerance).
 
 Each serving path is driven with the launch counts set to 0 just before
-it and read just after. The last lines are the card's name and power
+it and read just after; a row's ``serving_launches`` is the sum of its
+entry's counts over those runs (0 for an entry only its public-entry run
+calls). The last lines are the card's name and power
 limit, a ``{"kernels": ...}`` JSON line, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
@@ -71,18 +98,40 @@ TOL = {"float32": (1e-4, 4e-5), "bfloat16": (1e-1, 4e-2)}
 TOL_BF16_VS_FP32 = (1e-5, 2 ** -8)
 KERNEL_PY = "src/repro/kernels/paged_attention/kernel.py"
 CSRC = "src/repro_torch/kernels/paged_attention/csrc/"
+PAGED_CU = CSRC + "paged_attention.cu"
+MLA_CU = CSRC + "mla_paged_attention.cu"
 # row name → (TPU kernel's pallas_call line, CUDA source)
 KERNELS = {
-    "paged_attention_ragged": (f"{KERNEL_PY}:321", CSRC + "paged_attention.cu"),
-    "paged_attention": (f"{KERNEL_PY}:126", CSRC + "paged_attention.cu"),
-    "paged_attention_ragged_q8": (f"{KERNEL_PY}:481",
-                                  CSRC + "paged_attention.cu"),
-    "mla_paged_attention_ragged": (f"{KERNEL_PY}:637",
-                                   CSRC + "mla_paged_attention.cu"),
+    "paged_attention_ragged": (f"{KERNEL_PY}:321", PAGED_CU),
+    "paged_attention": (f"{KERNEL_PY}:126", PAGED_CU),
+    "paged_attention_layers": (f"{KERNEL_PY}:211", PAGED_CU),
+    "paged_attention_layers_ragged": (f"{KERNEL_PY}:373", PAGED_CU),
+    "paged_attention_ragged_q8": (f"{KERNEL_PY}:481", PAGED_CU),
+    "paged_attention_layers_ragged_q8": (f"{KERNEL_PY}:539", PAGED_CU),
+    "mla_paged_attention_ragged": (f"{KERNEL_PY}:637", MLA_CU),
+    "mla_paged_attention_layers_ragged": (f"{KERNEL_PY}:684", MLA_CU),
+    "flash_attention": (
+        "src/repro/kernels/flash_attention/kernel.py:104",
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"),
+    "log_patch": ("src/repro/kernels/log_patch/kernel.py:70",
+                  "src/repro_torch/kernels/log_patch/csrc/log_patch.cu"),
 }
 GEOM = dict(B=8, H=16, K=8, D=128, T=16, MP=64)
 MLA_GEOM = dict(B=8, H=128, dc=512, dr=64, T=16, MP=64)
 CHUNK = 128                  # serve phases' prefill chunk = kernel Qmax
+LAYERS, MLA_LAYERS = 24, 8   # depth of the multi-layer kernel cases
+# one InternLM2-1.8B layer of a 4096-token prefill
+FLASH_GEOM = dict(B=1, S=4096, H=16, K=8, D=128)
+# the JAX package's flash cases (tests/test_kernels.py), and one causal
+# Sq > Skv case whose first 32 query rows see no key
+# (B, Sq, Skv, H, K, D, causal)
+FLASH_CHECKS = [(2, 128, 128, 8, 2, 64, True), (1, 100, 260, 4, 4, 32, True),
+                (2, 64, 192, 6, 2, 128, False), (1, 256, 256, 4, 1, 128, True),
+                (1, 37, 129, 2, 2, 256, True), (1, 48, 16, 2, 1, 32, True)]
+# K and V of one token in one InternLM2-1.8B layer, the bf16 page count
+# of a 1 GiB pool, one drain batch
+LOG_GEOM = dict(P=682, T=16, C=2048, N=256)
+LONG_PROMPTS = (4096, 3072, 2048, 1100)
 
 
 def log(*a):
@@ -210,160 +259,397 @@ def gather(pool, table):
 
 class Case:
     """One kernel entry at one shape and dtype: its arguments, kernel and
-    plain calls, the plain fp32 version's arguments, a copy of the
-    arguments with every dead slot poisoned, the decode entry its q_len=1
-    slice must equal, the work it must do, and a library yardstick."""
+    plain calls, the plain fp32 version's arguments (``args32``, None when
+    the kernel must equal its plain version bit for bit: ``exact``), the
+    pins its output must hold, the work it must do, a library yardstick,
+    and — for an entry no serving path calls — the entry itself, called
+    once more as its public-entry run."""
+    exact = False
+    args32 = None
+    entry = None
+    iters = (20, 3, 10)          # kernel, plain, library timing loops
+
+    def pins(self, out):
+        pass
 
 
-def dense_case(torch, dev, dtype, qmax, seed, q8=False):
-    from repro_torch.kernels.paged_attention import ops, ref
+def paged_pins(torch, c, out):
+    """The paged entries' bitwise pins on ``out`` ((L,) B, Qmax, ...):
+    padding slots and q_len=0 rows are 0, poisoned dead slots change
+    nothing, q_len=1 rows equal the decode entry, and layer l of a
+    multi-layer launch is the single-layer launch on layer l."""
+    for b, ql in enumerate(c.q_lens.tolist()):
+        if not bool((out[..., b, ql:, :, :] == 0).all()):
+            raise AssertionError(f"{c.label}: row {b} padding not 0")
+    if not torch.equal(c.kern(*c.poisoned), out):
+        raise AssertionError(f"{c.label}: dead slots changed the output")
+    ones = (c.q_lens == 1).nonzero().flatten()
+    if not torch.equal(out[..., ones, 0, :, :],
+                       c.decode()[..., ones, 0, :, :]):
+        raise AssertionError(f"{c.label}: ragged at q_len=1 != decode")
+    for l in range(getattr(c, "layers", 0)):
+        if not torch.equal(out[l], c.single(l)):
+            raise AssertionError(f"{c.label}: layer {l} != the single-layer "
+                                 f"entry")
+
+
+def paged_work(lengths, q_lens, T, page_bytes, row_flops, fixed_bytes,
+               layers=1):
+    """(bytes, flops) of a paged call: each live page of each row with
+    queries read once, queries and output once, over ``layers`` layers;
+    ``row_flops(n, ql)`` is one row's work in one layer."""
+    nbytes, flops = 0, 0
+    for n, ql in zip(lengths.tolist(), q_lens.tolist()):
+        if ql > 0:
+            nbytes += -(-n // T) * page_bytes
+            flops += row_flops(n, ql)
+    return layers * nbytes + fixed_bytes, layers * flops
+
+
+def dense_case(torch, dev, dtype, qmax, seed, q8=False, layers=None):
+    """The dense or int8 paged entries at phase 2's shapes: one layer, or
+    ``layers`` layers through the multi-layer entries."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.paged_attention import ref
     from repro_torch.models.attention import quantize_kv
-    B, H, K, D, T, MP = (GEOM[k] for k in "B H K D T MP".split())
+    B, H, Kh, D, T, MP = (GEOM[k] for k in "B H K D T MP".split())
     P = B * MP + 64
+    L = layers or 1
     g = torch.Generator(dev).manual_seed(seed)
     lengths, q_lens = row_lengths(torch, dev, qmax)
     table = block_table(torch, g, dev, B, MP, P, T, lengths)
-    q = torch.randn((B, qmax, H, D), generator=g, device=dev).to(dtype)
-    pk = torch.randn((P, T, K, D), generator=g, device=dev)
-    pv = torch.randn((P, T, K, D), generator=g, device=dev)
+    lead = (L,) if layers else ()
+    q = torch.randn(lead + (B, qmax, H, D), generator=g, device=dev).to(dtype)
+    pk = torch.randn(lead + (P, T, Kh, D), generator=g, device=dev)
+    pv = torch.randn(lead + (P, T, Kh, D), generator=g, device=dev)
     dead = dead_slots(torch, P, T, table, lengths)
+    at = (slice(None), dead) if layers else (dead,)
     c = Case()
     if q8:
         (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
         planes = (pk, pv, ks, vs)
         poisoned = tuple(x.clone() for x in planes)
-        poisoned[0][dead], poisoned[1][dead] = 127, -127
-        poisoned[2][dead], poisoned[3][dead] = 1e6, 1e6
-        ragged, decode = ops.paged_attention_ragged_q8, ops.paged_attention_q8
-        plain_r, plain_d = (ref.paged_attention_ragged_q8_ref,
-                            ref.paged_attention_q8_ref)
-        # SDPA over K/V gathered and dequantized beforehand
-        kd = gather(ref.dequant_pool(pk, ks).to(dtype), table)
-        vd = gather(ref.dequant_pool(pv, vs).to(dtype), table)
-        page_bytes = T * K * (2 * D + 2 * 2)
+        poisoned[0][at], poisoned[1][at] = 127, -127
+        poisoned[2][at], poisoned[3][at] = 1e6, 1e6
+        kd, vd = (ref.dequant_pool(p, s).to(dtype)
+                  for p, s in ((pk, ks), (pv, vs)))
+        page_bytes = T * Kh * (2 * D + 2 * 2)
+        if layers:
+            ragged, plain_r = (K.paged_attention_layers_ragged_q8,
+                               ref.paged_attention_layers_ragged_q8_ref)
+            decode = None
+        else:
+            ragged, decode = K.paged_attention_ragged_q8, K.paged_attention_q8
+            plain_r, plain_d = (ref.paged_attention_ragged_q8_ref,
+                                ref.paged_attention_q8_ref)
     else:
         pk, pv = pk.to(dtype), pv.to(dtype)
         planes = (pk, pv)
         poisoned = (pk.clone(), pv.clone())
-        poisoned[0][dead], poisoned[1][dead] = 1e4, -1e4
-        ragged, decode = ops.paged_attention_ragged, ops.paged_attention
-        plain_r, plain_d = ref.paged_attention_ragged_ref, ref.paged_attention_ref
-        kd, vd = gather(pk, table), gather(pv, table)
-        page_bytes = T * K * D * 2 * q.element_size()
+        poisoned[0][at], poisoned[1][at] = 1e4, -1e4
+        kd, vd = pk, pv
+        page_bytes = T * Kh * D * 2 * q.element_size()
+        if layers:
+            ragged, decode = (K.paged_attention_layers_ragged,
+                              K.paged_attention_layers)
+            plain_r, plain_d = (ref.paged_attention_layers_ragged_ref,
+                                ref.paged_attention_layers_ref)
+        else:
+            ragged, decode = K.paged_attention_ragged, K.paged_attention
+            plain_r, plain_d = (ref.paged_attention_ragged_ref,
+                                ref.paged_attention_ref)
     rows = (table, lengths)
-    if qmax == 1:
-        c.kern = lambda *a: decode(a[0][:, 0], *a[1:-1])[:, None]
-        c.plain = lambda *a: plain_d(a[0][:, 0], *a[1:-1])[:, None]
+    use_decode = qmax == 1 and decode is not None
+    if use_decode:
+        c.kern = lambda *a: decode(a[0][..., 0, :, :], *a[1:-1])[
+            ..., None, :, :]
+        c.plain = lambda *a: plain_d(a[0][..., 0, :, :], *a[1:-1])[
+            ..., None, :, :]
     else:
         c.kern = lambda *a: ragged(*a)
         c.plain = lambda *a: plain_r(*a)
+    # only the multi-layer entries lack a serving caller
+    c.entry = (decode if use_decode else ragged) if layers else None
     c.args = (q,) + planes + rows + (q_lens,)
     c.args32 = (q.float(),) + c.args[1:]
     c.poisoned = (q,) + poisoned + rows + (q_lens,)
-    c.decode = lambda: decode(q[:, 0], *planes, *rows)[:, None]
-    c.library = sdpa(torch, q, kd, vd, lengths, q_lens)
+    if decode is not None:
+        c.decode = lambda: decode(q[..., 0, :, :], *planes, *rows)[
+            ..., None, :, :]
+    else:                        # int8 layers: the single-layer decode
+        c.decode = lambda: torch.stack([K.paged_attention_q8(
+            q[l][:, 0], *(p[l] for p in planes), *rows)[:, None]
+            for l in range(L)])
+    if layers:
+        single_r = K.paged_attention_ragged_q8 if q8 else \
+            K.paged_attention_ragged
+        c.layers = L
+        c.single = lambda l: (
+            single_r(q[l], *(p[l] for p in planes), *rows, q_lens)
+            if qmax > 1 or q8 else
+            K.paged_attention(q[l][:, 0], *(p[l] for p in planes),
+                              *rows)[:, None])
+        kd = torch.stack([gather(kd[l], table) for l in range(L)]).flatten(
+            0, 1)
+        vd = torch.stack([gather(vd[l], table) for l in range(L)]).flatten(
+            0, 1)
+        c.library = sdpa(torch, q.flatten(0, 1), kd, vd, lengths.repeat(L),
+                         q_lens.repeat(L))
+    else:
+        c.library = sdpa(torch, q, gather(kd, table), gather(vd, table),
+                         lengths, q_lens)
+    c.pins = lambda out: paged_pins(torch, c, out)
     c.q_lens, c.out_dtype = q_lens, dtype
     c.rate_dtype = str(dtype).split(".")[-1]
-    nbytes, flops = 0, 0
-    for n, ql in zip(lengths.tolist(), q_lens.tolist()):
-        if ql > 0:
-            nbytes += -(-n // T) * page_bytes
-            flops += sum(4 * D * (n - ql + i + 1) for i in range(ql)) * H
-    nbytes += 2 * q.numel() * q.element_size() + table.numel() * 4 + 2 * B * 4
-    c.work = (nbytes, flops)
+    c.work = paged_work(
+        lengths, q_lens, T, page_bytes,
+        lambda n, ql: sum(4 * D * (n - ql + i + 1) for i in range(ql)) * H,
+        2 * q.numel() * q.element_size() + table.numel() * 4 + 2 * B * 4, L)
     return c
 
 
-def mla_case(torch, dev, pool_dtype, qmax, seed):
-    from repro_torch.kernels.paged_attention import ops, ref
+def mla_case(torch, dev, pool_dtype, qmax, seed, layers=None):
+    """The MLA entries at phase 2's shapes: one layer, or ``layers`` layers
+    through the multi-layer entry."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.paged_attention import ref
     B, H, dc, dr, T, MP = (MLA_GEOM[k] for k in "B H dc dr T MP".split())
     P = B * MP + 64
+    L = layers or 1
+    lead = (L,) if layers else ()
     scale = 1.0 / (128 + 64) ** 0.5            # 1/sqrt(qk_nope + qk_rope)
     g = torch.Generator(dev).manual_seed(seed)
     lengths, q_lens = row_lengths(torch, dev, qmax)
     table = block_table(torch, g, dev, B, MP, P, T, lengths)
-    q_c = torch.randn((B, qmax, H, dc), generator=g, device=dev)
-    q_r = torch.randn((B, qmax, H, dr), generator=g, device=dev)
-    pc = torch.randn((P, T, dc), generator=g, device=dev).to(pool_dtype)
-    pkr = torch.randn((P, T, dr), generator=g, device=dev).to(pool_dtype)
+    q_c = torch.randn(lead + (B, qmax, H, dc), generator=g, device=dev)
+    q_r = torch.randn(lead + (B, qmax, H, dr), generator=g, device=dev)
+    pc = torch.randn(lead + (P, T, dc), generator=g, device=dev).to(
+        pool_dtype)
+    pkr = torch.randn(lead + (P, T, dr), generator=g, device=dev).to(
+        pool_dtype)
     dead = dead_slots(torch, P, T, table, lengths)
+    at = (slice(None), dead) if layers else (dead,)
     pc2, pkr2 = pc.clone(), pkr.clone()
-    pc2[dead], pkr2[dead] = 1e4, -1e4
+    pc2[at], pkr2[at] = 1e4, -1e4
     c = Case()
-    if qmax == 1:
-        c.kern = lambda *a: ops.mla_paged_attention(
+    rows = (table, lengths, q_lens)
+    if layers:
+        c.entry = K.mla_paged_attention_layers_ragged
+        c.kern = lambda *a: K.mla_paged_attention_layers_ragged(*a,
+                                                                scale=scale)
+        c.plain = lambda *a: ref.mla_paged_attention_layers_ragged_ref(
+            *a, scale=scale)
+        c.decode = lambda: torch.stack([K.mla_paged_attention(
+            q_c[l][:, 0], q_r[l][:, 0], pc[l], pkr[l], *rows[:2],
+            scale=scale)[:, None] for l in range(L)])
+        c.layers = L
+        c.single = lambda l: K.mla_paged_attention_ragged(
+            q_c[l], q_r[l], pc[l], pkr[l], *rows, scale=scale)
+    elif qmax == 1:
+        c.kern = lambda *a: K.mla_paged_attention(
             a[0][:, 0], a[1][:, 0], *a[2:-1], scale=scale)[:, None]
         c.plain = lambda *a: ref.mla_paged_attention_ref(
             a[0][:, 0], a[1][:, 0], *a[2:-1], scale=scale)[:, None]
     else:
-        c.kern = lambda *a: ops.mla_paged_attention_ragged(*a, scale=scale)
+        c.kern = lambda *a: K.mla_paged_attention_ragged(*a, scale=scale)
         c.plain = lambda *a: ref.mla_paged_attention_ragged_ref(
             *a, scale=scale)
-    rows = (table, lengths, q_lens)
+    if not layers:
+        c.decode = lambda: K.mla_paged_attention(
+            q_c[:, 0], q_r[:, 0], pc, pkr, table, lengths,
+            scale=scale)[:, None]
     c.args = (q_c, q_r, pc, pkr) + rows
     c.args32 = (q_c, q_r, pc.float(), pkr.float()) + rows
     c.poisoned = (q_c, q_r, pc2, pkr2) + rows
-    c.decode = lambda: ops.mla_paged_attention(
-        q_c[:, 0], q_r[:, 0], pc, pkr, table, lengths, scale=scale)[:, None]
+    c.pins = lambda out: paged_pins(torch, c, out)
     # SDPA: one KV head holding [c, kr], values c, gathered beforehand
-    kc = gather(pc, table).float()
-    k = torch.cat([kc, gather(pkr, table).float()], dim=-1)[:, :, None]
-    c.library = sdpa(torch, torch.cat([q_c, q_r], dim=-1), k, kc[:, :, None],
-                     lengths, q_lens, scale=scale)
+    kc = torch.stack([gather(pc.reshape((L, P, T, dc))[l], table)
+                      for l in range(L)]).flatten(0, 1).float()
+    kr = torch.stack([gather(pkr.reshape((L, P, T, dr))[l], table)
+                      for l in range(L)]).flatten(0, 1).float()
+    k = torch.cat([kc, kr], dim=-1)[:, :, None]
+    q = torch.cat([q_c, q_r], dim=-1).reshape((L * B, qmax, H, dc + dr))
+    c.library = sdpa(torch, q, k, kc[:, :, None], lengths.repeat(L),
+                     q_lens.repeat(L), scale=scale)
     c.q_lens, c.out_dtype, c.rate_dtype = q_lens, torch.float32, "float32"
-    nbytes, flops = 0, 0
-    for n, ql in zip(lengths.tolist(), q_lens.tolist()):
-        if ql > 0:
-            nbytes += -(-n // T) * T * (dc + dr) * pc.element_size()
-            flops += sum((2 * (dc + dr) + 2 * dc) * (n - ql + i + 1)
-                         for i in range(ql)) * H
-    nbytes += (q_c.numel() * 2 + q_r.numel()) * 4 + table.numel() * 4 \
-        + 2 * B * 4
-    c.work = (nbytes, flops)
+    c.work = paged_work(
+        lengths, q_lens, T, T * (dc + dr) * pc.element_size(),
+        lambda n, ql: sum((2 * (dc + dr) + 2 * dc) * (n - ql + i + 1)
+                          for i in range(ql)) * H,
+        (q_c.numel() * 2 + q_r.numel()) * 4 + table.numel() * 4 + 2 * B * 4,
+        L)
+    return c
+
+
+def flash_checks(torch, dev, dtype, seed):
+    """The flash kernel against its plain version on the JAX package's test
+    cases and the Sq > Skv case (dead rows exactly 0), in ``dtype``; a bf16
+    output also against the plain fp32 version. Returns the max error."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(dev).manual_seed(seed)
+    worst = 0.0
+    for B, Sq, Skv, H, Kh, D, causal in FLASH_CHECKS:
+        q, k, v = (torch.randn(s, generator=g, device=dev).to(dtype)
+                   for s in ((B, Sq, H, D), (B, Skv, Kh, D), (B, Skv, Kh, D)))
+        out = K.flash_attention(q, k, v, causal=causal)
+        ref = flash_attention_ref(q, k, v, causal=causal)
+        tol = "bfloat16" if dtype == torch.bfloat16 else "float32"
+        torch.testing.assert_close(out.float(), ref.float(), atol=TOL[tol][0],
+                                   rtol=TOL[tol][1])
+        ref32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                    causal=causal)
+        a32, r32 = TOL_BF16_VS_FP32 if tol == "bfloat16" else TOL["float32"]
+        torch.testing.assert_close(out.float(), ref32, atol=a32, rtol=r32)
+        if causal and Sq > Skv and not bool((out[:, :Sq - Skv] == 0).all()):
+            raise AssertionError("flash_attention: a row that sees no key "
+                                 "is not 0")
+        worst = max(worst, float((out.float() - ref.float()).abs().max()))
+    log(f"[kernels] flash_attention {str(dtype)[6:]}: {len(FLASH_CHECKS)} JAX-test "
+        f"and Sq > Skv cases within tolerance, max abs err {worst:.3e}; "
+        f"rows that see no key are 0")
+    return worst
+
+
+def flash_case(torch, dev, dtype, seed):
+    """One InternLM2-1.8B layer of a 4096-token causal prefill."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, S, H, Kh, D = (FLASH_GEOM[k] for k in "B S H K D".split())
+    scale = 1.0 / D ** 0.5
+    g = torch.Generator(dev).manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, S, Kh, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, S, Kh, D), generator=g, device=dev).to(dtype)
+    c = Case()
+    c.kern = lambda *a: K.flash_attention(*a, causal=True, scale=scale)
+    c.plain = lambda *a: flash_attention_ref(*a, causal=True, scale=scale)
+    c.args, c.args32 = (q, k, v), (q.float(), k.float(), v.float())
+    c.pins = lambda out: flash_checks(torch, dev, dtype, seed)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    c.library = lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+    c.out_dtype, c.rate_dtype = dtype, str(dtype).split(".")[-1]
+    c.work = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+              4 * D * H * B * S * (S + 1) // 2)
+    c.iters = (5, 2, 10)
+    return c
+
+
+def log_patch_case(torch, dev, dtype, seed):
+    """One drain batch of N records onto a P-page pool: records 128..191
+    rewrite the targets of records 0..63 (the later must win), about one
+    in ten is not valid, and one page and one slot index are out of range
+    (clamped)."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.log_patch.ref import log_patch_ref
+    P, T, C, N = (LOG_GEOM[k] for k in "P T C N".split())
+    g = torch.Generator(dev).manual_seed(seed)
+    pool = torch.randn((P, T, C), generator=g, device=dev).to(dtype)
+    pays = torch.randn((N, C), generator=g, device=dev).to(dtype)
+    pg = torch.randint(0, P, (N,), generator=g, device=dev, dtype=torch.int32)
+    sl = torch.randint(0, T, (N,), generator=g, device=dev, dtype=torch.int32)
+    pg[128:192], sl[128:192] = pg[:64].clone(), sl[:64].clone()
+    pg[5], sl[9] = P + 7, -3
+    valid = (torch.rand((N,), generator=g, device=dev) < 0.9).to(torch.int32)
+    c = Case()
+    c.exact, c.entry = True, K.log_patch
+    c.kern, c.plain = K.log_patch, log_patch_ref
+    c.args = (pool, pays, pg, sl, valid)
+    # the library call: one index_put over the winning records (targets
+    # made unique beforehand: no torch call keeps last-writer-wins)
+    page, slot = pg.long().clamp(0, P - 1), sl.long().clamp(0, T - 1)
+    last = {}
+    for n, (a, b, ok) in enumerate(zip(page.tolist(), slot.tolist(),
+                                       valid.tolist())):
+        if ok:
+            last[(a, b)] = n
+    win = torch.tensor(sorted(last.values()), device=dev)
+    c.library = lambda: torch.index_put(pool, (page[win], slot[win]),
+                                        pays[win])
+
+    def pins(out):
+        if not torch.equal(c.library(), out):
+            raise AssertionError("log_patch: index_put over the winning "
+                                 "records differs")
+        wit = K.log_patch(torch.zeros((2, 4, 3), device=dev),
+                          torch.arange(1.0, 4.0, device=dev)[:, None].repeat(
+                              1, 3),
+                          torch.tensor([5, -1, 0], device=dev),
+                          torch.tensor([1, 9, 0], device=dev))
+        if not (wit[1, 1, 0] == 1 and wit[0, 3, 0] == 2 and wit[0, 0, 0] == 3
+                and int((wit != 0).sum()) == 9):
+            raise AssertionError("log_patch: out-of-range records not "
+                                 "clamped as the Pallas kernel clamps")
+    c.pins = pins
+    c.out_dtype, c.rate_dtype = dtype, str(dtype).split(".")[-1]
+    c.work = (2 * pool.numel() * pool.element_size()
+              + pays.numel() * pays.element_size() + 3 * N * 4, 0)
     return c
 
 
 def measure(torch, name, c, what):
-    """Hold a case against its plain version and pins; time it. Returns
-    the row fields of this case."""
+    """Hold a case against its plain version and pins; time it; for an
+    entry no serving path calls, its public-entry run. Returns the row
+    fields of this case."""
+    import repro_torch.kernels as K
     out, ref = c.kern(*c.args), c.plain(*c.args)
     torch.cuda.synchronize()
-    tol = "bfloat16" if c.out_dtype == torch.bfloat16 else "float32"
-    atol, rtol = TOL[tol]
-    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
     err = float((out.float() - ref.float()).abs().max())
     fields = {"max_abs_err": err}
-    # the plain fp32 version on the same values: a bf16 output within half
-    # an ulp, an fp32 output (MLA over a bf16 pool) within fp32 tolerance
-    ref32 = c.plain(*c.args32).float()
-    a32, r32 = TOL_BF16_VS_FP32 if tol == "bfloat16" else TOL["float32"]
-    torch.testing.assert_close(out.float(), ref32, atol=a32, rtol=r32)
-    fields["max_abs_err_vs_fp32"] = float((out.float() - ref32).abs().max())
-    for b, ql in enumerate(c.q_lens.tolist()):
-        if not bool((out[b, ql:] == 0).all()):
-            raise AssertionError(f"{name} {what}: row {b} padding not 0")
-    if not torch.equal(c.kern(*c.poisoned), out):
-        raise AssertionError(f"{name} {what}: dead slots changed the output")
-    ones = (c.q_lens == 1).nonzero().flatten()
-    if not torch.equal(out[ones, 0], c.decode()[ones, 0]):
-        raise AssertionError(f"{name} {what}: ragged at q_len=1 != decode")
+    if c.exact:
+        if not torch.equal(out, ref):
+            raise AssertionError(f"{name} {what}: not bit for bit the plain "
+                                 f"version")
+        check = "bit for bit"
+    else:
+        tol = "bfloat16" if c.out_dtype == torch.bfloat16 else "float32"
+        atol, rtol = TOL[tol]
+        torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                                   rtol=rtol)
+        # the plain fp32 version on the same values: a bf16 output within
+        # half an ulp, an fp32 output (MLA over a bf16 pool) within fp32
+        # tolerance
+        ref32 = c.plain(*c.args32).float()
+        a32, r32 = TOL_BF16_VS_FP32 if tol == "bfloat16" else TOL["float32"]
+        torch.testing.assert_close(out.float(), ref32, atol=a32, rtol=r32)
+        fields["max_abs_err_vs_fp32"] = float((out.float() - ref32).abs()
+                                              .max())
+        check = (f"atol {atol}; vs plain fp32 "
+                 f"{fields['max_abs_err_vs_fp32']:.3e} (atol {a32}, rtol "
+                 f"{r32})")
+    del ref
+    c.label = f"{name} {what}"
+    c.pins(out)
     nbytes, flops = c.work
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / FLOPS_PER_S[c.rate_dtype]
     bound = max(t_bytes, t_ops)
-    ms = cuda_ms(torch, lambda: c.kern(*c.args), 20)
-    plain_ms = cuda_ms(torch, lambda: c.plain(*c.args), 3)
-    lib_ms = cuda_ms(torch, c.library, 10)
-    log(f"[kernels] {name} {what}: max_abs_err {err:.3e} (atol {atol}), vs "
-        f"plain fp32 {fields['max_abs_err_vs_fp32']:.3e} (atol {a32}, rtol "
-        f"{r32}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa "
-        f"{lib_ms:.4f} ms, bound {bound * 1e3:.4f} ms ({nbytes} B = "
-        f"{t_bytes * 1e3:.4f} ms, {flops} flop = {t_ops * 1e3:.4f} ms at "
-        f"{c.rate_dtype}); {nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
+    ki, pi, li = c.iters
+    ms = cuda_ms(torch, lambda: c.kern(*c.args), ki)
+    plain_ms = cuda_ms(torch, lambda: c.plain(*c.args), pi)
+    lib_ms = cuda_ms(torch, c.library, li)
+    log(f"[kernels] {name} {what}: max_abs_err {err:.3e} ({check}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {bound * 1e3:.4f} ms ({nbytes} B = {t_bytes * 1e3:.4f} ms, "
+        f"{flops} flop = {t_ops * 1e3:.4f} ms at {c.rate_dtype}); "
+        f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
         f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
     fields.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": lib_ms})
+    if c.entry is not None:
+        # the public-entry run: no serving path calls this entry
+        K.reset_launch_counts()
+        again = c.kern(*c.args)
+        torch.cuda.synchronize()
+        launches = c.entry.launches
+        others = {e.__name__: e.launches for e in K.ENTRIES
+                  if e is not c.entry and e.launches}
+        if launches != 1 or others or not torch.equal(again, out):
+            raise AssertionError(f"{name} {what}: public-entry run launched "
+                                 f"{launches} (others {others})")
+        fields.update({"launches": launches, "path": "public entry"})
     return fields
 
 
@@ -381,14 +667,37 @@ def phase_kernels(torch, dev, seed):
         "paged_attention": [
             (f"{d} Qmax=1", lambda d=d: dense_case(torch, dev, d, 1, seed))
             for d in (bf16, f32)],
+        "paged_attention_layers": [
+            (f"{d} L={LAYERS} Qmax=1", lambda d=d: dense_case(
+                torch, dev, d, 1, seed, layers=LAYERS))
+            for d in (bf16, f32)],
+        "paged_attention_layers_ragged": [
+            (f"{d} L={LAYERS} Qmax={CHUNK}", lambda d=d: dense_case(
+                torch, dev, d, CHUNK, seed, layers=LAYERS))
+            for d in (bf16, f32)],
         "paged_attention_ragged_q8": [
             (f"q {d} Qmax={qm}", lambda d=d, qm=qm: dense_case(
                 torch, dev, d, qm, seed, q8=True))
+            for qm in (CHUNK, 1) for d in (bf16, f32)],
+        "paged_attention_layers_ragged_q8": [
+            (f"q {d} L={LAYERS} Qmax={qm}", lambda d=d, qm=qm: dense_case(
+                torch, dev, d, qm, seed, q8=True, layers=LAYERS))
             for qm in (CHUNK, 1) for d in (bf16, f32)],
         "mla_paged_attention_ragged": [
             (f"pool {d} Qmax={qm}", lambda d=d, qm=qm: mla_case(
                 torch, dev, d, qm, seed))
             for qm in (CHUNK, 1) for d in (bf16, f32)],
+        "mla_paged_attention_layers_ragged": [
+            (f"pool {d} L={MLA_LAYERS} Qmax={qm}", lambda d=d, qm=qm: mla_case(
+                torch, dev, d, qm, seed, layers=MLA_LAYERS))
+            for qm in (CHUNK, 1) for d in (bf16, f32)],
+        "flash_attention": [
+            (f"{d} S={FLASH_GEOM['S']} causal", lambda d=d: flash_case(
+                torch, dev, d, seed)) for d in (bf16, f32)],
+        "log_patch": [
+            (f"{d} P={LOG_GEOM['P']} N={LOG_GEOM['N']}",
+             lambda d=d: log_patch_case(torch, dev, d, seed))
+            for d in (bf16, f32)],
     }
     rows = {}
     for name, cases in plan.items():
@@ -397,7 +706,7 @@ def phase_kernels(torch, dev, seed):
         for i, (what, build) in enumerate(cases):
             what = what.replace("torch.", "")
             fields = measure(torch, name, build(), what)
-            torch.cuda.empty_cache()
+            free(torch)
             if i == 0:
                 row.update(fields)
             row["cases"][what] = fields
@@ -422,14 +731,28 @@ def requests(n, lo, hi, max_new, vocab, seed):
         max_new=max_new) for i in range(n)]
 
 
-def engine(model, dev, *, hbm, fuse=True, max_len=560):
+def requests_of(lens, max_new, vocab, seed):
+    """Requests with prompts of the given lengths (tokens from ``seed``)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, n, dtype=np.int32),
+                    max_new=max_new) for i, n in enumerate(lens)]
+
+
+def engine(model, dev, *, hbm, fuse=True, max_len=560, chunk=CHUNK):
     from repro_torch.core.engines import EngineSpec
     from repro_torch.serving import ServeConfig, ServingEngine
     return ServingEngine(model, ServeConfig(
         max_len=max_len, page_tokens=16, max_batch_seqs=8,
-        prefill_chunk_tokens=CHUNK, fuse_ticks=fuse,
+        prefill_chunk_tokens=chunk, fuse_ticks=fuse,
         engine_spec=EngineSpec(engine="paged", kv_hbm_bytes=hbm)),
         device=dev)
+
+
+def launch_counts(ops):
+    """Every entry's launches since the counts were last set to 0."""
+    return {e.__name__: e.launches for e in ops.ENTRIES}
 
 
 def free(torch):
@@ -441,8 +764,8 @@ def free(torch):
 def serve(torch, dev, seed, what, model, entry):
     """Phase 3's workload through ``model`` on a 1 GiB pool, with the
     launch counts set to 0 just before and read just after; checks and
-    returns (launches of ``entry``, pool pages)."""
-    from repro_torch.kernels.paged_attention import ops
+    returns (launches of ``entry``, pool pages, every entry's launches)."""
+    import repro_torch.kernels as ops
     cfg = model.cfg
     reqs = requests(8, 64, 512, 32, cfg.vocab_size, seed)
     eng = engine(model, dev, hbm=1 << 30)
@@ -453,9 +776,9 @@ def serve(torch, dev, seed, what, model, entry):
     eng.generate(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = entry.launches
-    others = {e.__name__: e.launches for e in ops.ENTRIES
-              if e is not entry and e.launches}
+    counts = launch_counts(ops)
+    launches = counts[entry.__name__]
+    others = {k: n for k, n in counts.items() if k != entry.__name__ and n}
     s = eng.stats()
     new = sum(len(r.generated) for r in reqs)
     if not all(r.done and len(r.generated) == 32 for r in reqs):
@@ -479,7 +802,7 @@ def serve(torch, dev, seed, what, model, entry):
         f"{launches}, mirror_d2h_bytes {s['mirror_d2h_bytes']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, pool pages "
         f"{pages} of {eng.desc.page_group_bytes} B")
-    return launches, pages
+    return launches, pages, counts
 
 
 def prompt_state(torch, model, prompt, first, max_len):
@@ -542,6 +865,138 @@ def check_identical(torch, model, got, ref, what, first=None, max_len=560):
                                  f"{step} with a clear margin")
 
 
+def serve_long(torch, dev, seed, model):
+    """Phase 10: whole-prompt prefill of ``LONG_PROMPTS`` (no prefill
+    chunks) through the flash-attention kernel, then pooled, fused decode,
+    on a 2 GiB pool, with the launch counts set to 0 just before and read
+    just after. Returns every entry's launches."""
+    import repro_torch.kernels as K
+    cfg = model.cfg
+    reqs = requests_of(LONG_PROMPTS, 32, cfg.vocab_size, seed)
+    max_len = -(-(max(LONG_PROMPTS) + 32 + 1) // 16) * 16   # whole pages
+    eng = engine(model, dev, hbm=2 << 30, max_len=max_len, chunk=None)
+    prefill_ms = {}
+    admit = eng.prefill_one
+
+    def timed_prefill(req, *a, **kw):      # host clock around synced work
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = admit(req, *a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms[req.rid] = (time.perf_counter() - t) * 1e3
+        return out
+    eng.prefill_one = timed_prefill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(K)
+    s = eng.stats()
+    flash, paged = (counts["flash_attention"],
+                    counts["paged_attention_ragged"])
+    others = {k: n for k, n in counts.items() if n and k not in (
+        "flash_attention", "paged_attention_ragged")}
+    n_long = sum(n > model.chunk_size for n in LONG_PROMPTS)
+    if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
+        raise AssertionError("serve-long: a request did not finish in vocab")
+    if s["mirror_d2h_bytes"] != 0 or s["sched_prefill_chunks"] != 0:
+        raise AssertionError(f"serve-long: mirror bytes "
+                             f"{s['mirror_d2h_bytes']}, prefill chunks "
+                             f"{s['sched_prefill_chunks']}")
+    if flash != cfg.num_layers * n_long or sorted(prefill_ms) != list(
+            range(len(reqs))):
+        raise AssertionError(f"serve-long: {flash} flash launches for "
+                             f"{n_long} long prompts; prefills {prefill_ms}")
+    if s["step_calls"] != s["sched_ticks"] or others \
+            or paged != cfg.num_layers * s["step_calls"]:
+        raise AssertionError(f"serve-long: {paged} paged launches for "
+                             f"{s['step_calls']} steps; others {others}")
+    new = sum(len(r.generated) for r in reqs)
+    log(f"[serve-long] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
+        f"whole-prompt prefill of prompts {list(LONG_PROMPTS)}: {new} new "
+        f"tokens in {wall:.3f} s = {new / wall:.2f} tok/s (incl. prefill); "
+        f"prefill ms per request "
+        f"{ {r.rid: round(prefill_ms[r.rid], 3) for r in reqs} }; ticks "
+        f"{s['sched_ticks']}, flash_attention launches {flash} (= "
+        f"{cfg.num_layers} x {n_long}), paged_attention_ragged launches "
+        f"{paged} (= {cfg.num_layers} x {s['step_calls']}), mirror_d2h_bytes "
+        f"{s['mirror_d2h_bytes']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, pool pages "
+        f"{eng.tiered.pool_pages}")
+    return counts
+
+
+def parity_long(torch, dev, seed, cfg):
+    """Phase 11: fp32 at full width, whole-prompt prefill of 1100- and
+    2048-token prompts: ``generate()`` against ``generate_sequential()``
+    (both prefill through the flash kernel), token-identical apart from
+    reference near-ties; then ``LM.prefill`` of the 2048-token prompt
+    through the flash kernel against the same model's plain
+    ``full_attention`` branch (``chunk_size`` past the prompt): last
+    logits and every layer's K/V within fp32 tolerance. Returns every
+    entry's launches in the ``generate()`` run."""
+    import repro_torch.kernels as K
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = make_model(torch, cfg, torch.float32, dev, seed)
+    lens, max_len = (1100, 2048), 2048 + 16
+    ref = engine(model, dev, hbm=4 << 30, max_len=max_len, chunk=None
+                 ).generate_sequential(
+        requests_of(lens, 8, cfg.vocab_size, seed + 3))
+    got = requests_of(lens, 8, cfg.vocab_size, seed + 3)
+    K.reset_launch_counts()
+    eng = engine(model, dev, hbm=4 << 30, max_len=max_len, chunk=None)
+    eng.generate(got)
+    torch.cuda.synchronize()
+    counts = launch_counts(K)
+    flash = counts["flash_attention"]
+    others = {k: n for k, n in counts.items() if n and k not in (
+        "flash_attention", "paged_attention_ragged")}
+    if flash != cfg.num_layers * len(lens) or others:
+        raise AssertionError(f"parity-long: {flash} flash launches; others "
+                             f"{others}")
+    check_identical(torch, model, got, ref, "parity-long", max_len=max_len)
+    log(f"[parity-long] {cfg.name} {cfg.num_layers} layers fp32: generate() "
+        f"== generate_sequential() on prompts {list(lens)} x 8 tokens "
+        f"(flash launches {flash}, ticks {eng.stats()['sched_ticks']})")
+    del eng
+    free(torch)
+    tokens = torch.as_tensor(got[-1].prompt[None], device=dev)
+    chunk = model.chunk_size
+    K.reset_launch_counts()
+    logits, cache = model.prefill(tokens, max_len)
+    flash = K.flash_attention.launches
+    model.chunk_size = tokens.shape[1]       # the plain full_attention
+    try:
+        plain_logits, plain_cache = model.prefill(tokens, max_len)
+    finally:
+        model.chunk_size = chunk
+    torch.cuda.synchronize()
+    if flash != cfg.num_layers or K.flash_attention.launches != flash:
+        raise AssertionError(f"parity-long: flash launches {flash}, then "
+                             f"{K.flash_attention.launches - flash} more")
+    atol, rtol = TOL["float32"]
+    errs = {}
+    for name, a, b in (("logits", logits, plain_logits),
+                       ("k", cache["k"], plain_cache["k"]),
+                       ("v", cache["v"], plain_cache["v"])):
+        errs[name] = float((a - b).abs().max())
+        log(f"[parity-long] prefill {name} {tuple(a.shape)}: flash vs "
+            f"full_attention max abs err {errs[name]:.3e} (atol {atol}, "
+            f"rtol {rtol})")
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+    log(f"[parity-long] {tokens.shape[1]}-token LM.prefill through the flash "
+        f"kernel ({flash} launches) == the full_attention branch within fp32 "
+        f"tolerance: {errs}")
+    del model, cache, plain_cache
+    free(torch)
+    return counts
+
+
 def reference(torch, model, dev, reqs, first):
     """``generate_sequential()``, or with ``first`` set the chunk-aware
     :func:`chunked_sequential`."""
@@ -600,23 +1055,29 @@ def parity(torch, dev, seed, what, cfg, *, kv_cache_dtype="native",
     return model4, ref4
 
 
-def unfused(torch, dev, seed, what, model4, ref4, entry, first=None):
+def unfused(torch, dev, seed, what, model4, ref4, entry, ragged,
+            first=None):
     """The 4-layer run with ``fuse_ticks=False``: prompt chunks go token
-    by token through ``entry`` (a decode entry)."""
-    from repro_torch.kernels.paged_attention import ops
+    by token through ``entry`` (a decode entry); the first chunk's tick
+    runs the family's ``ragged`` entry, and no other entry may launch.
+    Returns every entry's launches."""
+    import repro_torch.kernels as ops
     got = requests(4, 64, 400, 16, model4.cfg.vocab_size, seed + 2)
     eng = engine(model4, dev, hbm=1 << 30, fuse=False)
     ops.reset_launch_counts()
     eng.generate(got)
     torch.cuda.synchronize()
-    launches = entry.launches
-    if launches <= 0:
-        raise AssertionError(f"{what}: {entry.__name__} never launched")
+    counts = launch_counts(ops)
+    launches = counts[entry.__name__]
+    others = {k: n for k, n in counts.items()
+              if n and k not in (entry.__name__, ragged.__name__)}
+    if launches <= 0 or others:
+        raise AssertionError(f"{what}: {launches} {entry.__name__} launches;"
+                             f" others {others}")
     check_identical(torch, model4, got, ref4, what, first)
     log(f"[{what}] 4-layer fp32 fuse_ticks=False: token-identical, "
-        f"{entry.__name__} launches {launches}, all: "
-        f"{ {e.__name__: e.launches for e in ops.ENTRIES} }")
-    return launches
+        f"{entry.__name__} launches {launches}, all: {counts}")
+    return counts
 
 
 def main(argv=None) -> int:
@@ -632,8 +1093,8 @@ def main(argv=None) -> int:
               "is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.kernels as ops
     from repro_torch.configs import get_config
-    from repro_torch.kernels.paged_attention import ops
     dev = torch.device("cuda", 0)
     t0 = time.time()
 
@@ -644,26 +1105,33 @@ def main(argv=None) -> int:
     rows = phase_kernels(torch, dev, args.seed)
     stamp("kernels")
 
+    # every entry's launches over the serving phases, each read just
+    # after its run
+    served = collections.Counter()
     dense = get_config("internlm2-1.8b")
     model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
-    rows["paged_attention_ragged"]["launches"], bf16_pages = serve(
+    rows["paged_attention_ragged"]["launches"], bf16_pages, counts = serve(
         torch, dev, args.seed, "serve", model, ops.paged_attention_ragged)
+    served.update(counts)
     del model
     free(torch)
     stamp("serve")
     model4, ref4 = parity(torch, dev, args.seed, "parity", dense)
     stamp("parity")
-    rows["paged_attention"]["launches"] = unfused(
-        torch, dev, args.seed, "unfused", model4, ref4, ops.paged_attention)
+    counts = unfused(torch, dev, args.seed, "unfused", model4, ref4,
+                     ops.paged_attention, ops.paged_attention_ragged)
+    rows["paged_attention"]["launches"] = counts["paged_attention"]
+    served.update(counts)
     del model4
     free(torch)
     stamp("unfused")
 
     model = make_model(torch, dense, torch.bfloat16, dev, args.seed, "int8")
     row = rows["paged_attention_ragged_q8"]
-    row["launches"], int8_pages = serve(
+    row["launches"], int8_pages, counts = serve(
         torch, dev, args.seed, "serve-int8", model,
         ops.paged_attention_ragged_q8)
+    served.update(counts)
     # the pages a byte budget buys follow the page bytes: within a page of
     # bf16 pages x (bf16 page bytes / int8 page bytes)
     g8 = model.cache_descriptor(16).page_group_bytes
@@ -681,9 +1149,11 @@ def main(argv=None) -> int:
     stamp("serve-int8")
     model4, ref4 = parity(torch, dev, args.seed, "parity-int8", dense,
                           kv_cache_dtype="int8", first=CHUNK)
-    row["decode_launches"] = unfused(torch, dev, args.seed, "unfused-int8",
-                                     model4, ref4, ops.paged_attention_q8,
-                                     first=CHUNK)
+    counts = unfused(torch, dev, args.seed, "unfused-int8", model4, ref4,
+                     ops.paged_attention_q8, ops.paged_attention_ragged_q8,
+                     first=CHUNK)
+    row["decode_launches"] = counts["paged_attention_q8"]
+    served.update(counts)
     del model4
     free(torch)
     stamp("parity-int8")
@@ -691,18 +1161,41 @@ def main(argv=None) -> int:
     mla = get_config("deepseek-v2-236b-noexperts")
     model = make_model(torch, mla, torch.bfloat16, dev, args.seed)
     row = rows["mla_paged_attention_ragged"]
-    row["launches"], _ = serve(torch, dev, args.seed, "serve-mla", model,
-                               ops.mla_paged_attention_ragged)
+    row["launches"], _, counts = serve(torch, dev, args.seed, "serve-mla",
+                                       model, ops.mla_paged_attention_ragged)
+    served.update(counts)
     del model
     free(torch)
     stamp("serve-mla")
     model4, ref4 = parity(torch, dev, args.seed, "parity-mla", mla,
                           full_width_check=False)
-    row["decode_launches"] = unfused(torch, dev, args.seed, "unfused-mla",
-                                     model4, ref4, ops.mla_paged_attention)
+    counts = unfused(torch, dev, args.seed, "unfused-mla", model4, ref4,
+                     ops.mla_paged_attention, ops.mla_paged_attention_ragged)
+    row["decode_launches"] = counts["mla_paged_attention"]
+    served.update(counts)
     del model4
     free(torch)
     stamp("parity-mla")
+
+    model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
+    counts = serve_long(torch, dev, args.seed, model)
+    rows["flash_attention"]["launches"] = counts["flash_attention"]
+    rows["flash_attention"]["path"] = "serve-long"
+    rows["paged_attention_ragged"]["long_prompt_launches"] = counts[
+        "paged_attention_ragged"]
+    served.update(counts)
+    del model
+    free(torch)
+    stamp("serve-long")
+    served.update(parity_long(torch, dev, args.seed, dense))
+    stamp("parity-long")
+
+    for name, row in rows.items():
+        row["serving_launches"] = served[name]
+        if row.get("path") == "public entry" and served[name]:
+            raise AssertionError(f"{name}: a serving phase launched it "
+                                 f"{served[name]} times")
+    log(f"[launches] over the serving phases: {dict(served)}")
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -71,3 +71,27 @@ def load_library(source: Path) -> ctypes.CDLL:
         lib, _ = compile_library(source)
         _LOADED[key] = ctypes.CDLL(str(lib))
     return _LOADED[key]
+
+
+def c_entry(source: Path, name: str, argtypes: list):
+    """The C entry ``name`` of ``source``'s library, with ``argtypes`` set
+    (``ctypes.c_void_p`` for each pointer and the stream: a bare Python int
+    would be cut to 32 bits) and an ``int`` (``cudaError_t``) result."""
+    fn = getattr(load_library(source), name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def require_cuda(entry: str, t) -> None:
+    """A kernel entry takes CPU tensors to its plain version and CUDA
+    tensors to its kernel; any other device raises."""
+    if t.device.type != "cuda":
+        raise ValueError(f"no {entry} kernel for {t.device}")
+
+
+def check_launch(rc: int, entry: str) -> None:
+    """Raise on a launch the C entry reports as refused (``cudaError_t``)."""
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")

@@ -1,0 +1,77 @@
+"""Public ``flash_attention`` entry: dispatch on the tensor's device.
+
+A CUDA tensor runs the hand-written Hopper kernel ``csrc/flash_attention.cu``
+(or the call raises); a CPU tensor runs the plain PyTorch version of
+:mod:`~repro_torch.kernels.flash_attention.ref`. There is no fallback from
+one to the other. ``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import c_entry, check_launch, require_cuda
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (32, 64, 128, 256)
+_C, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    scale: float | None = None, block_q: int = 128,
+                    block_k: int = 128):
+    """Flash attention, forward: q (B, Sq, H, D), k and v (B, Skv, K, D)
+    with H = K * G; query head ``h`` reads KV head ``h // G``. Causal
+    queries are the last Sq positions of the Skv keys; a query that sees
+    no key (Sq > Skv) returns 0. ``scale`` defaults to 1/sqrt(D). The math
+    is fp32; q, k and v are fp32 or bf16 of one dtype and the output has
+    q's. ``block_q``/``block_k`` are the TPU kernel's block sizes: the
+    CUDA kernel tiles on its own, and no block size changes a bit of the
+    result."""
+    if block_q <= 0 or block_k <= 0:
+        raise ValueError(f"block sizes must be positive, got {block_q}, "
+                         f"{block_k}")
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    require_cuda("flash-attention", q)
+    B, Sq, H, D = q.shape
+    Bk, Skv, K, Dk = k.shape
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
+            or v.dtype != q.dtype:
+        raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if v.shape != k.shape or Bk != B or Dk != D or K == 0 or H % K:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"the kernel is built for head_dim in "
+                         f"{_HEAD_DIMS}; got {D}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    if scale is None:
+        scale = 1.0 / (D ** 0.5)
+    fn = c_entry(SOURCE, "flash_attention_launch",
+                 [_C] * 4 + [_I] * 7 + [ctypes.c_float, _I, _C])
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, K, D, int(bool(causal)), float(scale),
+            _DTYPE_CODE[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    check_launch(rc, "flash_attention")
+    flash_attention.launches += 1
+    return out
+
+
+ENTRIES = (flash_attention,)
+
+
+def reset_launch_counts() -> None:
+    flash_attention.launches = 0
+
+
+reset_launch_counts()

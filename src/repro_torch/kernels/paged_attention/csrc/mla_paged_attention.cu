@@ -5,7 +5,14 @@
 // _mla_ragged_kernel) of src/repro/kernels/paged_attention/kernel.py, and
 // with it the decode entry mla_paged_attention, which the port launches as
 // THIS kernel at Qmax = 1 and q_lens = 1 ("ragged at q_len == 1 is bit for
-// bit the decode entry" by construction).
+// bit the decode entry" by construction), and the multi-layer entry
+// mla_paged_attention_layers_ragged_pallas: the same body over all L layers
+// of (L, P, T, dc) / (L, P, T, dr) planes in one launch, one block table and
+// one lengths / q_lens shared by every layer. The grid's y axis runs over
+// L * B (layer l = y / B, row b = y % B) and each block offsets its query,
+// pool and output pointers by 64-bit per-layer strides; a single-layer call
+// is L = 1, so layer l of a multi-layer launch is bit for bit the
+// single-layer launch on the planes of layer l.
 //
 // What it computes: DeepSeek-V2's multi-head latent attention after the
 // model has absorbed w_uk into the queries. The pool holds, per token, one
@@ -76,8 +83,9 @@ mla_paged_attention_ragged_kernel(const float* __restrict__ q_c,
                                   const int32_t* __restrict__ table,
                                   const int32_t* __restrict__ lengths,
                                   const int32_t* __restrict__ q_lens,
-                                  float* __restrict__ out, int Qm, int H,
-                                  int DR, int P, int MP, float scale) {
+                                  float* __restrict__ out, int B, int Qm,
+                                  int H, int DR, int P, int MP,
+                                  int64_t pool_ls, float scale) {
   constexpr int kSegs = 32 / T;                  // rows a warp runs at once
   constexpr int kPasses = kRowsPerWarp / kSegs;
   constexpr int kDPL = DC / T;                   // latent features per lane
@@ -90,8 +98,14 @@ mla_paged_attention_ragged_kernel(const float* __restrict__ q_c,
   float* kv_s = smem;                            // (T, kDP): [c | kr]
   float* q_s = kv_s + T * kDP;                   // (kRowsPerBlock, kDP)
 
-  const int b = blockIdx.y;
+  const int layer = blockIdx.y / B, b = blockIdx.y % B;
   const int n_rows = Qm * H;
+  const int64_t rows_ls = static_cast<int64_t>(B) * n_rows;  // per layer
+  q_c += layer * rows_ls * DC;
+  out += layer * rows_ls * DC;
+  q_r += layer * rows_ls * DR;
+  pool_c += layer * pool_ls * DC;
+  pool_kr += layer * pool_ls * DR;
   const int row0 = blockIdx.x * kRowsPerBlock;
   const int length = lengths[b];
   const int q_len = q_lens[b];
@@ -195,8 +209,8 @@ mla_paged_attention_ragged_kernel(const float* __restrict__ q_c,
 template <typename pool_t, int DC, int T>
 cudaError_t launch(const void* q_c, const void* q_r, const void* pool_c,
                    const void* pool_kr, const void* table,
-                   const void* lengths, const void* q_lens, void* out, int B,
-                   int Qm, int H, int DR, int P, int MP, float scale,
+                   const void* lengths, const void* q_lens, void* out, int L,
+                   int B, int Qm, int H, int DR, int P, int MP, float scale,
                    cudaStream_t stream) {
   auto kernel = mla_paged_attention_ragged_kernel<pool_t, DC, T>;
   const size_t smem =
@@ -208,13 +222,13 @@ cudaError_t launch(const void* q_c, const void* q_r, const void* pool_c,
     if (err != cudaSuccess) return err;
   }
   const int tiles = (Qm * H + kRowsPerBlock - 1) / kRowsPerBlock;
-  dim3 grid(tiles, B);
+  dim3 grid(tiles, L * B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const float*>(q_c), static_cast<const float*>(q_r),
       static_cast<const pool_t*>(pool_c), static_cast<const pool_t*>(pool_kr),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lengths),
-      static_cast<const int32_t*>(q_lens), static_cast<float*>(out), Qm, H,
-      DR, P, MP, scale);
+      static_cast<const int32_t*>(q_lens), static_cast<float*>(out), B, Qm, H,
+      DR, P, MP, static_cast<int64_t>(P) * T, scale);
   return cudaGetLastError();
 }
 
@@ -222,14 +236,14 @@ template <typename pool_t>
 cudaError_t dispatch(int DC, int T, const void* q_c, const void* q_r,
                      const void* pool_c, const void* pool_kr,
                      const void* table, const void* lengths,
-                     const void* q_lens, void* out, int B, int Qm, int H,
-                     int DR, int P, int MP, float scale,
+                     const void* q_lens, void* out, int L, int B, int Qm,
+                     int H, int DR, int P, int MP, float scale,
                      cudaStream_t stream) {
 #define MLA_CASE(CC, TT)                                                    \
   if (DC == CC && T == TT)                                                  \
     return launch<pool_t, CC, TT>(q_c, q_r, pool_c, pool_kr, table,         \
-                                  lengths, q_lens, out, B, Qm, H, DR, P, MP, \
-                                  scale, stream);
+                                  lengths, q_lens, out, L, B, Qm, H, DR, P,  \
+                                  MP, scale, stream);
   MLA_CASE(32, 8) MLA_CASE(32, 16) MLA_CASE(32, 32)
   MLA_CASE(64, 8) MLA_CASE(64, 16) MLA_CASE(64, 32)
   MLA_CASE(128, 8) MLA_CASE(128, 16) MLA_CASE(128, 32)
@@ -241,23 +255,27 @@ cudaError_t dispatch(int DC, int T, const void* q_c, const void* q_r,
 
 }  // namespace
 
-// q_c (B, Qm, H, DC) and q_r (B, Qm, H, DR) fp32; pool_c (P, T, DC) and
-// pool_kr (P, T, DR) of pool_dtype (0 = float32, 1 = bfloat16); out
-// (B, Qm, H, DC) fp32. Returns a cudaError_t (0 = launched).
-extern "C" int mla_paged_attention_ragged_launch(
+// q_c (L, B, Qm, H, DC) and q_r (L, B, Qm, H, DR) fp32; pool_c
+// (L, P, T, DC) and pool_kr (L, P, T, DR) of pool_dtype (0 = float32,
+// 1 = bfloat16); table (B, MP), lengths and q_lens (B,) int32, shared by
+// every layer; out (L, B, Qm, H, DC) fp32. Returns a cudaError_t
+// (0 = launched).
+extern "C" int mla_paged_attention_layers_ragged_launch(
     const void* q_c, const void* q_r, const void* pool_c, const void* pool_kr,
     const void* table, const void* lengths, const void* q_lens, void* out,
-    int B, int Qm, int H, int DC, int DR, int P, int T, int MP, float scale,
-    int pool_dtype, void* stream) {
-  if (B <= 0 || Qm <= 0) return cudaSuccess;
-  if (H <= 0 || DR <= 0 || P <= 0 || MP <= 0) return cudaErrorInvalidValue;
+    int L, int B, int Qm, int H, int DC, int DR, int P, int T, int MP,
+    float scale, int pool_dtype, void* stream) {
+  if (L <= 0 || B <= 0 || Qm <= 0) return cudaSuccess;
+  if (H <= 0 || DR <= 0 || P <= 0 || MP <= 0 ||
+      static_cast<int64_t>(L) * B > 65535)          // gridDim.y
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (pool_dtype == 0)
     return dispatch<float>(DC, T, q_c, q_r, pool_c, pool_kr, table, lengths,
-                           q_lens, out, B, Qm, H, DR, P, MP, scale, s);
+                           q_lens, out, L, B, Qm, H, DR, P, MP, scale, s);
   if (pool_dtype == 1)
     return dispatch<__nv_bfloat16>(DC, T, q_c, q_r, pool_c, pool_kr, table,
-                                   lengths, q_lens, out, B, Qm, H, DR, P, MP,
-                                   scale, s);
+                                   lengths, q_lens, out, L, B, Qm, H, DR, P,
+                                   MP, scale, s);
   return cudaErrorInvalidValue;
 }

@@ -10,8 +10,18 @@
 //     construction;
 //   * paged_attention_ragged_q8_pallas (body _pa_ragged_q8_kernel) — the
 //     same attention over int8 K/V pages with bf16 per-(token, head) scale
-//     planes (entry paged_attention_ragged_q8_launch; its decode slice
-//     paged_attention_q8 is again this kernel at Qmax = 1).
+//     planes (entry paged_attention_layers_ragged_q8_launch; its decode
+//     slice paged_attention_q8 is again this kernel at Qmax = 1);
+//   * the multi-layer entries paged_attention_layers_ragged_pallas,
+//     paged_attention_layers_pallas and
+//     paged_attention_layers_ragged_q8_pallas — the same bodies over all L
+//     layers of an (L, P, T, K, D) pool in one launch, one block table and
+//     one lengths / q_lens shared by every layer (the TPU runs the
+//     single-layer bodies with batch_axis=1). Here the grid's z axis runs
+//     over L * B (layer l = z / B, row b = z % B) and each block offsets its
+//     q, pool, scale and output pointers by 64-bit per-layer strides. A
+//     single-layer call is L = 1: one code path, so layer l of a
+//     multi-layer launch is bit for bit the single-layer launch on pool[l].
 //
 // What it computes (from what _pa_ragged_kernel computes, not from its
 // TPU block layout): q (B, Qmax, H, D) attends a pool (P, T, K, D) of
@@ -95,8 +105,10 @@ paged_attention_ragged_kernel(const scalar_t* __restrict__ q,
                               const int32_t* __restrict__ table,
                               const int32_t* __restrict__ lengths,
                               const int32_t* __restrict__ q_lens,
-                              scalar_t* __restrict__ out, int Qm, int H,
-                              int K, int P, int MP, float scale) {
+                              scalar_t* __restrict__ out, int B, int Qm,
+                              int H, int K, int P, int MP, int64_t q_ls,
+                              int64_t pool_ls, int64_t scale_ls,
+                              float scale) {
   constexpr int kSegs = 32 / T;                  // rows a warp runs at once
   constexpr int kPasses = kRowsPerWarp / kSegs;
   constexpr int kDPL = D / T;                    // features per lane
@@ -110,7 +122,16 @@ paged_attention_ragged_kernel(const scalar_t* __restrict__ q,
   float* v_s = k_s + T * kDP;                    // (T, kDP)
   float* q_s = v_s + T * kDP;                    // (kRowsPerBlock, kDP)
 
-  const int kv = blockIdx.y, b = blockIdx.z;
+  const int kv = blockIdx.y;
+  const int layer = blockIdx.z / B, b = blockIdx.z % B;
+  q += layer * q_ls;
+  out += layer * q_ls;
+  pool_k += layer * pool_ls;
+  pool_v += layer * pool_ls;
+  if constexpr (kQ8) {
+    pool_ks += layer * scale_ls;
+    pool_vs += layer * scale_ls;
+  }
   const int G = H / K;
   const int n_rows = Qm * G;
   const int row0 = blockIdx.x * kRowsPerBlock;
@@ -226,8 +247,8 @@ template <typename scalar_t, typename kv_t, int D, int T>
 cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
                    const void* pool_ks, const void* pool_vs,
                    const void* table, const void* lengths, const void* q_lens,
-                   void* out, int B, int Qm, int H, int K, int P, int MP,
-                   float scale, cudaStream_t stream) {
+                   void* out, int L, int B, int Qm, int H, int K, int P,
+                   int MP, float scale, cudaStream_t stream) {
   auto kernel = paged_attention_ragged_kernel<scalar_t, kv_t, D, T>;
   const size_t smem = sizeof(float) * (2 * T + kRowsPerBlock) * (D + 1);
   if (smem > 48 * 1024) {
@@ -237,15 +258,17 @@ cudaError_t launch(const void* q, const void* pool_k, const void* pool_v,
     if (err != cudaSuccess) return err;
   }
   const int tiles = (Qm * (H / K) + kRowsPerBlock - 1) / kRowsPerBlock;
-  dim3 grid(tiles, K, B);
+  dim3 grid(tiles, K, L * B);
+  const int64_t q_ls = static_cast<int64_t>(B) * Qm * H * D;
+  const int64_t scale_ls = static_cast<int64_t>(P) * T * K;
   kernel<<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const scalar_t*>(q), static_cast<const kv_t*>(pool_k),
       static_cast<const kv_t*>(pool_v),
       static_cast<const __nv_bfloat16*>(pool_ks),
       static_cast<const __nv_bfloat16*>(pool_vs),
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(lengths),
-      static_cast<const int32_t*>(q_lens), static_cast<scalar_t*>(out), Qm, H,
-      K, P, MP, scale);
+      static_cast<const int32_t*>(q_lens), static_cast<scalar_t*>(out), B, Qm,
+      H, K, P, MP, q_ls, scale_ls * D, scale_ls, scale);
   return cudaGetLastError();
 }
 
@@ -254,13 +277,13 @@ cudaError_t dispatch(int D, int T, const void* q, const void* pool_k,
                      const void* pool_v, const void* pool_ks,
                      const void* pool_vs, const void* table,
                      const void* lengths, const void* q_lens, void* out,
-                     int B, int Qm, int H, int K, int P, int MP, float scale,
-                     cudaStream_t stream) {
+                     int L, int B, int Qm, int H, int K, int P, int MP,
+                     float scale, cudaStream_t stream) {
 #define PA_CASE(DD, TT)                                                      \
   if (D == DD && T == TT)                                                    \
     return launch<scalar_t, kv_t, DD, TT>(q, pool_k, pool_v, pool_ks,        \
                                           pool_vs, table, lengths, q_lens,   \
-                                          out, B, Qm, H, K, P, MP, scale,    \
+                                          out, L, B, Qm, H, K, P, MP, scale, \
                                           stream);
   PA_CASE(32, 8) PA_CASE(32, 16) PA_CASE(32, 32)
   PA_CASE(64, 8) PA_CASE(64, 16) PA_CASE(64, 32)
@@ -270,51 +293,53 @@ cudaError_t dispatch(int D, int T, const void* q, const void* pool_k,
   return cudaErrorInvalidValue;
 }
 
-bool bad_shape(int H, int K, int P, int MP) {
-  return K <= 0 || H % K != 0 || P <= 0 || MP <= 0;
+bool bad_shape(int L, int B, int H, int K, int P, int MP) {
+  return K <= 0 || H % K != 0 || P <= 0 || MP <= 0 ||
+         static_cast<int64_t>(L) * B > 65535;     // gridDim.z
 }
 
 }  // namespace
 
-// dtype (q's and the output's): 0 = float32, 1 = bfloat16; the pool has
-// q's type. Returns a cudaError_t (0 = launched).
-extern "C" int paged_attention_ragged_launch(
+// q (L, B, Qm, H, D) and out of q's dtype (0 = float32, 1 = bfloat16),
+// pools (L, P, T, K, D) of q's type; table (B, MP), lengths and q_lens (B,)
+// int32, shared by every layer. Returns a cudaError_t (0 = launched).
+extern "C" int paged_attention_layers_ragged_launch(
     const void* q, const void* pool_k, const void* pool_v, const void* table,
-    const void* lengths, const void* q_lens, void* out, int B, int Qm, int H,
-    int K, int D, int P, int T, int MP, float scale, int dtype,
+    const void* lengths, const void* q_lens, void* out, int L, int B, int Qm,
+    int H, int K, int D, int P, int T, int MP, float scale, int dtype,
     void* stream) {
-  if (B <= 0 || Qm <= 0) return cudaSuccess;
-  if (bad_shape(H, K, P, MP)) return cudaErrorInvalidValue;
+  if (L <= 0 || B <= 0 || Qm <= 0) return cudaSuccess;
+  if (bad_shape(L, B, H, K, P, MP)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float, float>(D, T, q, pool_k, pool_v, nullptr, nullptr,
-                                  table, lengths, q_lens, out, B, Qm, H, K, P,
-                                  MP, scale, s);
+                                  table, lengths, q_lens, out, L, B, Qm, H, K,
+                                  P, MP, scale, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16, __nv_bfloat16>(
         D, T, q, pool_k, pool_v, nullptr, nullptr, table, lengths, q_lens,
-        out, B, Qm, H, K, P, MP, scale, s);
+        out, L, B, Qm, H, K, P, MP, scale, s);
   return cudaErrorInvalidValue;
 }
 
-// The int8 pool: pool_k/pool_v (P, T, K, D) int8, pool_ks/pool_vs (P, T, K)
-// bf16 scales; dtype as above, for q and the output.
-extern "C" int paged_attention_ragged_q8_launch(
+// The int8 pool: pool_k/pool_v (L, P, T, K, D) int8, pool_ks/pool_vs
+// (L, P, T, K) bf16 scales; dtype as above, for q and the output.
+extern "C" int paged_attention_layers_ragged_q8_launch(
     const void* q, const void* pool_k, const void* pool_v,
     const void* pool_ks, const void* pool_vs, const void* table,
-    const void* lengths, const void* q_lens, void* out, int B, int Qm, int H,
-    int K, int D, int P, int T, int MP, float scale, int dtype,
+    const void* lengths, const void* q_lens, void* out, int L, int B, int Qm,
+    int H, int K, int D, int P, int T, int MP, float scale, int dtype,
     void* stream) {
-  if (B <= 0 || Qm <= 0) return cudaSuccess;
-  if (bad_shape(H, K, P, MP)) return cudaErrorInvalidValue;
+  if (L <= 0 || B <= 0 || Qm <= 0) return cudaSuccess;
+  if (bad_shape(L, B, H, K, P, MP)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return dispatch<float, int8_t>(D, T, q, pool_k, pool_v, pool_ks, pool_vs,
-                                   table, lengths, q_lens, out, B, Qm, H, K,
-                                   P, MP, scale, s);
+                                   table, lengths, q_lens, out, L, B, Qm, H,
+                                   K, P, MP, scale, s);
   if (dtype == 1)
     return dispatch<__nv_bfloat16, int8_t>(
         D, T, q, pool_k, pool_v, pool_ks, pool_vs, table, lengths, q_lens,
-        out, B, Qm, H, K, P, MP, scale, s);
+        out, L, B, Qm, H, K, P, MP, scale, s);
   return cudaErrorInvalidValue;
 }

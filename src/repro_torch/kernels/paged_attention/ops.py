@@ -15,7 +15,13 @@ integer attribute, ``<entry>.launches``.
 Each single-token decode entry (``paged_attention``,
 ``paged_attention_q8``, ``mla_paged_attention``) launches its ragged
 kernel with ``Qmax = 1`` and ``q_lens = 1``, so at ``q_len == 1`` the two
-agree bit for bit by construction.
+agree bit for bit by construction. The multi-layer entries
+(``paged_attention_layers``, ``paged_attention_layers_ragged``,
+``paged_attention_layers_ragged_q8``, ``mla_paged_attention_layers_ragged``)
+take every layer's queries and ``(L, P, T, ...)`` pool planes at once, with
+one block table, ``lengths`` and ``q_lens`` for all layers, and launch the
+same kernels once with a layer axis in the grid; a single-layer entry is
+that launch at ``L = 1``.
 """
 from __future__ import annotations
 
@@ -24,9 +30,11 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import c_entry, check_launch, require_cuda
 from repro_torch.kernels.paged_attention.ref import (
-    mla_paged_attention_ragged_ref, mla_paged_attention_ref,
+    mla_paged_attention_layers_ragged_ref, mla_paged_attention_ragged_ref,
+    mla_paged_attention_ref, paged_attention_layers_ragged_q8_ref,
+    paged_attention_layers_ragged_ref, paged_attention_layers_ref,
     paged_attention_q8_ref, paged_attention_ragged_q8_ref,
     paged_attention_ragged_ref, paged_attention_ref)
 
@@ -41,20 +49,10 @@ _C = ctypes.c_void_p
 
 
 def _fn(source, name, n_ptrs, n_ints):
-    """The C entry ``name`` of ``source``'s library with its argtypes:
-    ``n_ptrs`` pointers, ``n_ints`` ints, the scale, a dtype code and the
-    stream."""
-    fn = getattr(load_library(source), name)
-    if fn.argtypes is None:
-        fn.argtypes = ([_C] * n_ptrs + [ctypes.c_int] * n_ints
-                       + [ctypes.c_float, ctypes.c_int, _C])
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_cuda(entry, t):
-    if t.device.type != "cuda":
-        raise ValueError(f"no {entry} kernel for {t.device}")
+    """The C entry ``name`` of ``source``: ``n_ptrs`` pointers, ``n_ints``
+    ints, the scale, a dtype code and the stream."""
+    return c_entry(source, name, [_C] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float, ctypes.c_int, _C])
 
 
 def _same_device(dev, *ts):
@@ -78,18 +76,14 @@ def _row_args(B, dev, block_table, lengths, q_lens):
                  for t in (block_table, lengths, q_lens))
 
 
-def _raise_on(rc, entry):
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: cudaError {rc}")
-
-
 def _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
             scales=None):
     """Validate and launch the dense (``scales is None``) or int8 kernel
-    on ``q``'s device and current stream; returns the (B, Qmax, H, D)
-    output in q's dtype."""
-    B, Qm, H, D = q.shape
-    P, T, K, Dk = pool_k.shape
+    over every layer on ``q``'s device and current stream: q (L, B, Qmax,
+    H, D), pools (L, P, T, K, D), scales (L, P, T, K). Returns the
+    (L, B, Qmax, H, D) output in q's dtype."""
+    L, B, Qm, H, D = q.shape
+    _, P, T, K, Dk = pool_k.shape
     dev = q.device
     planes = (pool_k, pool_v) + (scales or ())
     _same_device(dev, *planes)
@@ -99,14 +93,15 @@ def _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
         raise TypeError(f"the kernel takes float32 or bfloat16 q and "
                         f"{'int8' if scales else 'same-dtype'} pools; got q "
                         f"{q.dtype}, pools {pool_k.dtype}/{pool_v.dtype}")
-    if pool_v.shape != pool_k.shape or Dk != D or H % K:
+    if pool_v.shape != pool_k.shape or pool_k.shape[0] != L or Dk != D \
+            or H % K:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pool_k "
                          f"{tuple(pool_k.shape)}, pool_v "
                          f"{tuple(pool_v.shape)}")
-    if scales and any(s.dtype != torch.bfloat16 or s.shape != (P, T, K)
+    if scales and any(s.dtype != torch.bfloat16 or s.shape != (L, P, T, K)
                       for s in scales):
         raise ValueError(f"scale planes must be bfloat16 of shape "
-                         f"{(P, T, K)}")
+                         f"{(L, P, T, K)}")
     if D not in _HEAD_DIMS or T not in _PAGE_TOKENS:
         raise ValueError(f"the kernel is built for head_dim in {_HEAD_DIMS} "
                          f"and page_tokens in {_PAGE_TOKENS}; got D={D}, "
@@ -118,28 +113,30 @@ def _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    dims = (B, Qm, H, K, D, P, T, table.shape[1], float(scale),
+    dims = (L, B, Qm, H, K, D, P, T, table.shape[1], float(scale),
             _DTYPE_CODE[q.dtype], stream)
     if scales:
-        rc = _fn(SOURCE, "paged_attention_ragged_q8_launch", 9, 8)(
+        rc = _fn(SOURCE, "paged_attention_layers_ragged_q8_launch", 9, 9)(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             scales[0].data_ptr(), scales[1].data_ptr(), table.data_ptr(),
             lens.data_ptr(), qls.data_ptr(), out.data_ptr(), *dims)
     else:
-        rc = _fn(SOURCE, "paged_attention_ragged_launch", 7, 8)(
+        rc = _fn(SOURCE, "paged_attention_layers_ragged_launch", 7, 9)(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             table.data_ptr(), lens.data_ptr(), qls.data_ptr(),
             out.data_ptr(), *dims)
-    _raise_on(rc, "paged_attention_ragged" + ("_q8" if scales else ""))
+    check_launch(rc, "paged_attention_ragged" + ("_q8" if scales else ""))
     return out
 
 
 def _launch_mla(q_c, q_r, pool_c, pool_kr, block_table, lengths, q_lens,
                 scale):
-    """Validate and launch the MLA kernel; returns (B, Qmax, H, dc) fp32."""
-    B, Qm, H, dc = q_c.shape
+    """Validate and launch the MLA kernel over every layer: q_c (L, B,
+    Qmax, H, dc), q_r (L, B, Qmax, H, dr), pool_c (L, P, T, dc), pool_kr
+    (L, P, T, dr). Returns (L, B, Qmax, H, dc) fp32."""
+    L, B, Qm, H, dc = q_c.shape
     dr = q_r.shape[-1]
-    P, T, dc_p = pool_c.shape
+    _, P, T, dc_p = pool_c.shape
     dev = q_c.device
     _same_device(dev, q_r, pool_c, pool_kr)
     if q_c.dtype != torch.float32 or q_r.dtype != torch.float32 \
@@ -149,8 +146,8 @@ def _launch_mla(q_c, q_r, pool_c, pool_kr, block_table, lengths, q_lens,
                         f"or bfloat16 pools of one dtype; got q_c "
                         f"{q_c.dtype}, q_r {q_r.dtype}, pools "
                         f"{pool_c.dtype}/{pool_kr.dtype}")
-    if q_r.shape != (B, Qm, H, dr) or dc_p != dc \
-            or pool_kr.shape != (P, T, dr):
+    if q_r.shape != (L, B, Qm, H, dr) or pool_c.shape[0] != L \
+            or dc_p != dc or pool_kr.shape != (L, P, T, dr):
         raise ValueError(f"shape mismatch: q_c {tuple(q_c.shape)}, q_r "
                          f"{tuple(q_r.shape)}, pool_c {tuple(pool_c.shape)},"
                          f" pool_kr {tuple(pool_kr.shape)}")
@@ -163,19 +160,25 @@ def _launch_mla(q_c, q_r, pool_c, pool_kr, block_table, lengths, q_lens,
     q_c, q_r = q_c.contiguous(), q_r.contiguous()
     out = torch.empty_like(q_c)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _fn(MLA_SOURCE, "mla_paged_attention_ragged_launch", 8, 8)(
+    rc = _fn(MLA_SOURCE, "mla_paged_attention_layers_ragged_launch", 8, 9)(
         q_c.data_ptr(), q_r.data_ptr(), pool_c.data_ptr(),
         pool_kr.data_ptr(), table.data_ptr(), lens.data_ptr(),
-        qls.data_ptr(), out.data_ptr(), B, Qm, H, dc, dr, P, T,
+        qls.data_ptr(), out.data_ptr(), L, B, Qm, H, dc, dr, P, T,
         table.shape[1], float(scale), _DTYPE_CODE[pool_c.dtype], stream)
-    _raise_on(rc, "mla_paged_attention_ragged")
+    check_launch(rc, "mla_paged_attention_ragged")
     return out
 
 
 def _ones(q):
-    return torch.ones(q.shape[0], dtype=torch.int32, device=q.device)
+    return torch.ones(q.shape[-3], dtype=torch.int32, device=q.device)
 
 
+def _one(*ts):
+    """Single-layer tensors as a one-layer stack (views, no copy)."""
+    return tuple(t[None] for t in ts)
+
+
+# ------------------------------------------------------------ dense pool
 def paged_attention_ragged(q, pool_k, pool_v, block_table, lengths, q_lens,
                            *, scale: float | None = None):
     """Ragged-query attention over a paged KV pool.
@@ -188,8 +191,9 @@ def paged_attention_ragged(q, pool_k, pool_v, block_table, lengths, q_lens,
     if q.device.type == "cpu":
         return paged_attention_ragged_ref(q, pool_k, pool_v, block_table,
                                           lengths, q_lens, scale=scale)
-    _check_cuda("paged-attention", q)
-    out = _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale)
+    require_cuda("paged-attention", q)
+    out = _launch(*_one(q, pool_k, pool_v), block_table, lengths, q_lens,
+                  scale)[0]
     paged_attention_ragged.launches += 1
     return out
 
@@ -201,13 +205,45 @@ def paged_attention(q, pool_k, pool_v, block_table, lengths, *,
     if q.device.type == "cpu":
         return paged_attention_ref(q, pool_k, pool_v, block_table, lengths,
                                    scale=scale)
-    _check_cuda("paged-attention", q)
-    out = _launch(q[:, None], pool_k, pool_v, block_table, lengths, _ones(q),
-                  scale)
+    require_cuda("paged-attention", q)
+    out = _launch(*_one(q[:, None], pool_k, pool_v), block_table, lengths,
+                  _ones(q), scale)[0]
     paged_attention.launches += 1
     return out[:, 0]
 
 
+def paged_attention_layers_ragged(q, pool_k, pool_v, block_table, lengths,
+                                  q_lens, *, scale: float | None = None):
+    """Ragged-query attention over every layer in one launch: q (L, B,
+    Qmax, H, D); pool_k/v (L, P, T, K, D); one block_table (B, MP),
+    lengths and q_lens (B,) for all layers. Layer ``l`` of the output is
+    :func:`paged_attention_ragged` on layer ``l`` bit for bit."""
+    if q.device.type == "cpu":
+        return paged_attention_layers_ragged_ref(
+            q, pool_k, pool_v, block_table, lengths, q_lens, scale=scale)
+    require_cuda("paged-attention", q)
+    out = _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale)
+    paged_attention_layers_ragged.launches += 1
+    return out
+
+
+def paged_attention_layers(q, pool_k, pool_v, block_table, lengths, *,
+                           scale: float | None = None):
+    """Single-token decode over every layer in one launch: q (L, B, H, D);
+    pool_k/v (L, P, T, K, D). The multi-layer ragged kernel at Qmax = 1,
+    so :func:`paged_attention_layers_ragged` at ``q_len == 1`` equals it
+    bit for bit."""
+    if q.device.type == "cpu":
+        return paged_attention_layers_ref(q, pool_k, pool_v, block_table,
+                                          lengths, scale=scale)
+    require_cuda("paged-attention", q)
+    out = _launch(q[:, :, None], pool_k, pool_v, block_table, lengths,
+                  _ones(q), scale)
+    paged_attention_layers.launches += 1
+    return out[:, :, 0]
+
+
+# ------------------------------------------------------------- int8 pool
 def paged_attention_ragged_q8(q, pool_k, pool_v, pool_ks, pool_vs,
                               block_table, lengths, q_lens, *,
                               scale: float | None = None):
@@ -218,9 +254,11 @@ def paged_attention_ragged_q8(q, pool_k, pool_v, pool_ks, pool_vs,
         return paged_attention_ragged_q8_ref(q, pool_k, pool_v, pool_ks,
                                              pool_vs, block_table, lengths,
                                              q_lens, scale=scale)
-    _check_cuda("paged-attention", q)
+    require_cuda("paged-attention", q)
+    q, pool_k, pool_v, pool_ks, pool_vs = _one(q, pool_k, pool_v, pool_ks,
+                                               pool_vs)
     out = _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
-                  scales=(pool_ks, pool_vs))
+                  scales=(pool_ks, pool_vs))[0]
     paged_attention_ragged_q8.launches += 1
     return out
 
@@ -232,13 +270,34 @@ def paged_attention_q8(q, pool_k, pool_v, pool_ks, pool_vs, block_table,
     if q.device.type == "cpu":
         return paged_attention_q8_ref(q, pool_k, pool_v, pool_ks, pool_vs,
                                       block_table, lengths, scale=scale)
-    _check_cuda("paged-attention", q)
-    out = _launch(q[:, None], pool_k, pool_v, block_table, lengths, _ones(q),
-                  scale, scales=(pool_ks, pool_vs))
+    require_cuda("paged-attention", q)
+    q1, pool_k, pool_v, pool_ks, pool_vs = _one(q[:, None], pool_k, pool_v,
+                                                pool_ks, pool_vs)
+    out = _launch(q1, pool_k, pool_v, block_table, lengths, _ones(q), scale,
+                  scales=(pool_ks, pool_vs))[0]
     paged_attention_q8.launches += 1
     return out[:, 0]
 
 
+def paged_attention_layers_ragged_q8(q, pool_k, pool_v, pool_ks, pool_vs,
+                                     block_table, lengths, q_lens, *,
+                                     scale: float | None = None):
+    """int8 ragged attention over every layer in one launch: q (L, B,
+    Qmax, H, D); pool_k/v (L, P, T, K, D) int8; pool_ks/vs (L, P, T, K)
+    bf16. Layer ``l`` is :func:`paged_attention_ragged_q8` on layer ``l``
+    bit for bit."""
+    if q.device.type == "cpu":
+        return paged_attention_layers_ragged_q8_ref(
+            q, pool_k, pool_v, pool_ks, pool_vs, block_table, lengths,
+            q_lens, scale=scale)
+    require_cuda("paged-attention", q)
+    out = _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
+                  scales=(pool_ks, pool_vs))
+    paged_attention_layers_ragged_q8.launches += 1
+    return out
+
+
+# -------------------------------------------------------------- MLA pool
 def mla_paged_attention_ragged(q_c, q_r, pool_c, pool_kr, block_table,
                                lengths, q_lens, *, scale: float):
     """Weight-absorbed MLA over the paged latent pool. q_c: (B, Qmax, H,
@@ -249,9 +308,9 @@ def mla_paged_attention_ragged(q_c, q_r, pool_c, pool_kr, block_table,
         return mla_paged_attention_ragged_ref(q_c, q_r, pool_c, pool_kr,
                                               block_table, lengths, q_lens,
                                               scale=scale)
-    _check_cuda("MLA paged-attention", q_c)
-    out = _launch_mla(q_c, q_r, pool_c, pool_kr, block_table, lengths,
-                      q_lens, scale)
+    require_cuda("MLA paged-attention", q_c)
+    out = _launch_mla(*_one(q_c, q_r, pool_c, pool_kr), block_table, lengths,
+                      q_lens, scale)[0]
     mla_paged_attention_ragged.launches += 1
     return out
 
@@ -263,16 +322,35 @@ def mla_paged_attention(q_c, q_r, pool_c, pool_kr, block_table, lengths, *,
     if q_c.device.type == "cpu":
         return mla_paged_attention_ref(q_c, q_r, pool_c, pool_kr,
                                        block_table, lengths, scale=scale)
-    _check_cuda("MLA paged-attention", q_c)
-    out = _launch_mla(q_c[:, None], q_r[:, None], pool_c, pool_kr,
-                      block_table, lengths, _ones(q_c), scale)
+    require_cuda("MLA paged-attention", q_c)
+    out = _launch_mla(*_one(q_c[:, None], q_r[:, None], pool_c, pool_kr),
+                      block_table, lengths, _ones(q_c), scale)[0]
     mla_paged_attention.launches += 1
     return out[:, 0]
 
 
+def mla_paged_attention_layers_ragged(q_c, q_r, pool_c, pool_kr, block_table,
+                                      lengths, q_lens, *, scale: float):
+    """MLA over every layer in one launch: q_c (L, B, Qmax, H, dc); q_r
+    (L, B, Qmax, H, dr); pool_c (L, P, T, dc); pool_kr (L, P, T, dr).
+    Layer ``l`` is :func:`mla_paged_attention_ragged` on layer ``l`` bit
+    for bit."""
+    if q_c.device.type == "cpu":
+        return mla_paged_attention_layers_ragged_ref(
+            q_c, q_r, pool_c, pool_kr, block_table, lengths, q_lens,
+            scale=scale)
+    require_cuda("MLA paged-attention", q_c)
+    out = _launch_mla(q_c, q_r, pool_c, pool_kr, block_table, lengths,
+                      q_lens, scale)
+    mla_paged_attention_layers_ragged.launches += 1
+    return out
+
+
 ENTRIES = (paged_attention_ragged, paged_attention, paged_attention_ragged_q8,
            paged_attention_q8, mla_paged_attention_ragged,
-           mla_paged_attention)
+           mla_paged_attention, paged_attention_layers,
+           paged_attention_layers_ragged, paged_attention_layers_ragged_q8,
+           mla_paged_attention_layers_ragged)
 
 
 def reset_launch_counts() -> None:

@@ -4,7 +4,9 @@ The counterparts of the JAX package's ``paged_attention_ragged_ref``,
 ``paged_attention_ref``, ``paged_attention_ragged_q8_ref`` and
 ``mla_paged_attention_ragged_ref``: gather the pool through the clamped
 block table, mask, softmax in fp32, and zero the rows the kernel contract
-zeroes. The CPU path of :mod:`~repro_torch.kernels.paged_attention.ops`
+zeroes. The multi-layer versions (``*_layers_*``) apply the single-layer
+ones layer by layer, with one block table, ``lengths`` and ``q_lens``
+shared by every layer, as the JAX oracles ``vmap`` them. The CPU path of :mod:`~repro_torch.kernels.paged_attention.ops`
 runs these, and the card's parity checks hold the CUDA kernels against
 them.
 """
@@ -146,3 +148,46 @@ def mla_paged_attention_ref(q_c, q_r, pool_c, pool_kr, block_table, lengths,
     return mla_paged_attention_ragged_ref(q_c[:, None], q_r[:, None], pool_c,
                                           pool_kr, block_table, lengths, ones,
                                           scale=scale)[:, 0]
+
+
+def _layers(fn, layered, *shared, **kw):
+    """``fn`` on layer ``l`` of every tensor in ``layered`` (with the
+    ``shared`` arguments), stacked over the layers."""
+    return torch.stack([fn(*(t[i] for t in layered), *shared, **kw)
+                        for i in range(layered[0].shape[0])])
+
+
+def paged_attention_layers_ref(q, pool_k, pool_v, block_table, lengths, *,
+                               scale: float | None = None):
+    """Decode over every layer: q (L, B, H, D); pool_k/v (L, P, T, K, D).
+    Returns (L, B, H, D)."""
+    return _layers(paged_attention_ref, (q, pool_k, pool_v), block_table,
+                   lengths, scale=scale)
+
+
+def paged_attention_layers_ragged_ref(q, pool_k, pool_v, block_table,
+                                      lengths, q_lens, *,
+                                      scale: float | None = None):
+    """Ragged attention over every layer: q (L, B, Qmax, H, D); pool_k/v
+    (L, P, T, K, D). Returns (L, B, Qmax, H, D)."""
+    return _layers(paged_attention_ragged_ref, (q, pool_k, pool_v),
+                   block_table, lengths, q_lens, scale=scale)
+
+
+def paged_attention_layers_ragged_q8_ref(q, pool_k, pool_v, pool_ks, pool_vs,
+                                         block_table, lengths, q_lens, *,
+                                         scale: float | None = None):
+    """int8 ragged attention over every layer: q (L, B, Qmax, H, D); pools
+    (L, P, T, K, D) int8 with (L, P, T, K) bf16 scales."""
+    return _layers(paged_attention_ragged_q8_ref,
+                   (q, pool_k, pool_v, pool_ks, pool_vs), block_table,
+                   lengths, q_lens, scale=scale)
+
+
+def mla_paged_attention_layers_ragged_ref(q_c, q_r, pool_c, pool_kr,
+                                          block_table, lengths, q_lens, *,
+                                          scale: float):
+    """MLA over every layer: q_c (L, B, Qmax, H, dc); q_r (L, B, Qmax, H,
+    dr); pool_c (L, P, T, dc); pool_kr (L, P, T, dr)."""
+    return _layers(mla_paged_attention_ragged_ref, (q_c, q_r, pool_c, pool_kr),
+                   block_table, lengths, q_lens, scale=scale)

@@ -2,8 +2,12 @@
 an int8 cache, and DeepSeek-V2 multi-head latent attention (MLA).
 
 The counterparts of the JAX package's ``models/attention.py`` for these
-three cache families. Prefill attention (``full_attention``) is plain
-torch, as it is XLA code there; the paged steps call the hand-written
+three cache families. Prefill attention up to ``chunk_size`` tokens
+(``full_attention``) is plain torch, as it is XLA code there; a longer
+prefill runs the hand-written flash-attention kernel
+(:mod:`~repro_torch.kernels.flash_attention`), which computes the function
+of the JAX package's ``chunked_attention``/``chunked_attention_tri`` at
+positions ``arange(S)``. The paged steps call the hand-written
 paged-attention kernels through
 :mod:`~repro_torch.kernels.paged_attention.ops` (dense, int8 with
 in-kernel dequant, MLA over the latent plane). The projections around the
@@ -24,6 +28,7 @@ import math
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention.ops import (
     mla_paged_attention, mla_paged_attention_ragged, paged_attention,
     paged_attention_q8, paged_attention_ragged, paged_attention_ragged_q8)
@@ -64,18 +69,26 @@ def _project_qkv(p, cfg, x, positions):
 
 
 def attn_train(p, cfg, x, positions, *, chunk_size=512):
-    """Causal self-attention over a full sequence (prefill compute).
-    Returns ``(out, (k, v))``."""
+    """Causal self-attention over a full sequence (prefill compute). Up to
+    ``chunk_size`` tokens one plain einsum; past it the flash-attention
+    kernel (the JAX package's chunked branches compute the same function),
+    whose causal mask is the token order: it takes only ``positions`` that
+    rise along S, as ``arange(S)`` and any offset of it do. Returns
+    ``(out, (k, v))``."""
     B, S, _ = x.shape
-    if S > chunk_size:
-        raise NotImplementedError(
-            f"prompt of {S} tokens > chunk_size={chunk_size}: chunked "
-            f"prefill attention is not ported yet (ROADMAP.md, modules to "
-            f"port, item 3); split the prompt with prefill_chunk_tokens")
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = full_attention(q, k, v, scale=1.0 / math.sqrt(cfg.head_dim),
-                         q_positions=positions, kv_positions=positions,
-                         causal=True)
+    scale = 1.0 / math.sqrt(cfg.head_dim)
+    if S <= chunk_size:
+        out = full_attention(q, k, v, scale=scale, q_positions=positions,
+                             kv_positions=positions, causal=True)
+    else:
+        if not bool((positions.diff(dim=-1) > 0).all()):
+            raise ValueError(
+                f"attn_train past chunk_size={chunk_size} takes positions "
+                f"that rise along the sequence (the flash kernel's causal "
+                f"mask is the token order)")
+        out = flash_attention(q.flatten(2, 3), k, v, causal=True,
+                              scale=scale)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return out @ p.wo, (k, v)
 
@@ -292,9 +305,13 @@ def mla_train(p, cfg, x, positions, *, chunk_size=512):
     H = cfg.num_heads
     if S > chunk_size:
         raise NotImplementedError(
-            f"prompt of {S} tokens > chunk_size={chunk_size}: chunked "
-            f"prefill attention is not ported yet (ROADMAP.md, modules to "
-            f"port, item 9); split the prompt with prefill_chunk_tokens")
+            f"MLA prompt of {S} tokens > chunk_size={chunk_size}: MLA "
+            f"prefill over chunk_size is not ported (ROADMAP.md, modules to "
+            f"port, item 9) — the flash-attention kernel takes one head "
+            f"width for q, k and v, and MLA's qk width "
+            f"({m.qk_nope_head_dim + m.qk_rope_head_dim}) is not its v "
+            f"width ({m.v_head_dim}); split the prompt with "
+            f"prefill_chunk_tokens")
     q_nope, q_rope = _mla_queries(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     k_nope = torch.einsum("btc,chd->bthd", c_kv, p.w_uk)

@@ -1,6 +1,7 @@
 """The port on the card: the hand-written CUDA kernels (dense, int8 and MLA
-paged attention) against their plain PyTorch versions, and the pooled
-serving path through them.
+paged attention, one layer or all layers; flash attention; log patch)
+against their plain PyTorch versions, and the pooled serving path through
+them, long prompts included.
 
 Every test here is marked ``cuda`` and skips when torch sees no GPU (the
 decision is taken inside the ``cuda_device`` fixture, never at import).
@@ -11,16 +12,34 @@ import numpy as np
 import pytest
 import torch
 
+import repro_torch.kernels as kernels
 from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.log_patch.ref import log_patch_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
-    mla_paged_attention_ragged_ref, paged_attention_ragged_q8_ref,
-    paged_attention_ragged_ref)
+    mla_paged_attention_layers_ragged_ref, mla_paged_attention_ragged_ref,
+    paged_attention_layers_ragged_q8_ref, paged_attention_layers_ragged_ref,
+    paged_attention_ragged_q8_ref, paged_attention_ragged_ref)
 from repro_torch.models import LM
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 # tests/test_kernels.py: atol 5·_RTOL, rtol 2·_RTOL
 _TOL = {torch.float32: (1e-4, 4e-5), torch.bfloat16: (1e-1, 4e-2)}
+# a bf16 output of fp32 math against the plain fp32 version on the same
+# values: only the output's rounding (half a bf16 ulp, 2^-8 relative)
+_TOL_BF16_VS_FP32 = (1e-5, 2 ** -8)
+# tests/test_kernels.py's FLASH_CASES (that file imports JAX), plus a
+# causal Sq > Skv case whose first 32 query rows see no key
+# (B, Sq, Skv, H, K, D, causal, block_q, block_k)
+FLASH_CASES = [
+    (2, 128, 128, 8, 2, 64, True, 64, 64),
+    (1, 100, 260, 4, 4, 32, True, 32, 64),
+    (2, 64, 192, 6, 2, 128, False, 64, 64),
+    (1, 256, 256, 4, 1, 128, True, 128, 128),
+    (1, 37, 129, 2, 2, 256, True, 16, 32),
+    (1, 48, 16, 2, 1, 32, True, 16, 16),
+]
 
 
 def _edge_inputs(seed=14):
@@ -269,3 +288,149 @@ def test_pooled_serving_on_card_matches_sequential(cuda_device):
         cfg.num_layers * s["step_calls"]
     unfused, _ = run("generate", prefill_chunk_tokens=5, fuse_ticks=False)
     assert unfused == ref and ops.paged_attention.launches > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version(cuda_device, case, dtype):
+    """The flash kernel against its plain version on the same card inputs
+    (a bf16 output also against the plain fp32 version, to half an ulp);
+    rows that see no key are exactly 0."""
+    B, Sq, Skv, H, K, D, causal, bq, bk = case
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+    before = kernels.flash_attention.launches
+    out = kernels.flash_attention(q, k, v, causal=causal, block_q=bq,
+                                  block_k=bk)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    atol, rtol = _TOL[dtype]
+    ref = flash_attention_ref(q, k, v, causal=causal)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    ref32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                causal=causal)
+    atol, rtol = _TOL_BF16_VS_FP32 if dtype == torch.bfloat16 \
+        else _TOL[torch.float32]
+    torch.testing.assert_close(out.float(), ref32, atol=atol, rtol=rtol)
+    if causal and Sq > Skv:
+        assert torch.all(out[:, :Sq - Skv] == 0)
+    assert torch.equal(kernels.flash_attention(q, k, v, causal=causal), out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pay_dtype", [torch.float32, torch.bfloat16])
+def test_log_patch_kernel_is_plain_version(cuda_device, pool_dtype,
+                                           pay_dtype):
+    """Colliding targets (the later record wins), skipped records and
+    out-of-range indices (clamped): bit for bit the plain version."""
+    P, T, C, N = 6, 8, 40, 50
+    rng = np.random.default_rng(4)
+    pool = torch.from_numpy(rng.standard_normal((P, T, C)).astype(
+        np.float32)).to(cuda_device, pool_dtype)
+    pays = torch.from_numpy(rng.standard_normal((N, C)).astype(
+        np.float32)).to(cuda_device, pay_dtype)
+    pg = torch.from_numpy(rng.integers(0, 3, N).astype(np.int32))
+    sl = torch.from_numpy(rng.integers(0, 3, N).astype(np.int32))
+    pg[7], sl[9] = P + 3, -2
+    valid = torch.from_numpy(rng.integers(0, 2, N).astype(np.int32))
+    args = (pool, pays, pg.to(cuda_device), sl.to(cuda_device),
+            valid.to(cuda_device))
+    before = kernels.log_patch.launches
+    out = kernels.log_patch(*args)
+    torch.cuda.synchronize()
+    assert kernels.log_patch.launches == before + 1
+    assert torch.equal(out, log_patch_ref(*args))
+    assert torch.equal(kernels.log_patch(*args[:4]), log_patch_ref(*args[:4]))
+
+
+def _layered(family, L=3):
+    """Per-layer edge inputs of a family stacked into an L-layer batch:
+    (entry, plain version, layered args, shared args, kwargs, decode
+    entry at Qmax = 1 or None)."""
+    if family == "mla":
+        per = [_mla_edge_inputs(seed=40 + l) for l in range(L)]
+        *_, tbl, lens, qls, scale = per[0]
+        layered = tuple(torch.stack([p[i] for p in per]) for i in range(4))
+        return (kernels.mla_paged_attention_layers_ragged,
+                mla_paged_attention_layers_ragged_ref, layered,
+                (tbl, lens, qls), {"scale": scale}, None)
+    if family == "int8":
+        per = [_q8_edge_inputs(seed=40 + l) for l in range(L)]
+        *_, tbl, lens, qls = per[0]
+        layered = tuple(torch.stack([p[i] for p in per]) for i in range(5))
+        return (kernels.paged_attention_layers_ragged_q8,
+                paged_attention_layers_ragged_q8_ref, layered,
+                (tbl, lens, qls), {}, None)
+    per = [_edge_inputs(seed=40 + l) for l in range(L)]
+    *_, tbl, lens, qls = per[0]
+    layered = tuple(torch.stack([p[i] for p in per]) for i in range(3))
+    return (kernels.paged_attention_layers_ragged,
+            paged_attention_layers_ragged_ref, layered, (tbl, lens, qls), {},
+            kernels.paged_attention_layers)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["dense", "int8", "mla"])
+def test_layers_kernels_are_the_single_layer_kernels(cuda_device, family):
+    """Each multi-layer entry against its plain version, then the pins:
+    layer l is bit for bit the single-layer entry on layer l, padding
+    slots are 0, and (dense) the ragged entry at q_len == 1 is the
+    multi-layer decode entry."""
+    entry, plain, layered, shared, kw, decode = _layered(family)
+    layered = tuple(t.to(cuda_device) for t in layered)
+    shared = tuple(t.to(cuda_device) for t in shared)
+    single = {"dense": ops.paged_attention_ragged,
+              "int8": ops.paged_attention_ragged_q8,
+              "mla": ops.mla_paged_attention_ragged}[family]
+    before = entry.launches
+    out = entry(*layered, *shared, **kw)
+    torch.cuda.synchronize()
+    assert entry.launches == before + 1
+    torch.testing.assert_close(out, plain(*layered, *shared, **kw),
+                               atol=1e-4, rtol=4e-5)
+    for l in range(out.shape[0]):
+        assert torch.equal(out[l], single(*(t[l] for t in layered), *shared,
+                                          **kw))
+    qls = shared[2]
+    for b in range(out.shape[1]):
+        assert torch.all(out[:, b, int(qls[b]):] == 0)
+    if decode is not None:
+        q, pk, pv = layered
+        ones = torch.ones_like(qls)
+        r1 = entry(q, pk, pv, shared[0], shared[1], ones)
+        assert torch.equal(r1[:, :, 0], decode(q[:, :, 0], pk, pv,
+                                               shared[0], shared[1]))
+
+
+@pytest.mark.cuda
+def test_long_prompt_serving_on_card_matches_sequential(cuda_device):
+    """Prompts past chunk_size prefill whole through the flash kernel (one
+    launch per layer and long prompt), then decode pooled and fused:
+    token-identical to the sequential reference, mirror-free."""
+    cfg = get_config("internlm2-1.8b-smoke")
+    model = LM(cfg, device=cuda_device, chunk_size=8).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (20, 12, 6)]
+
+    def run(method):
+        reqs = [Request(rid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        eng = ServingEngine(model, ServeConfig(max_len=32, page_tokens=8),
+                            device=cuda_device)
+        getattr(eng, method)(reqs)
+        return [r.generated for r in reqs], eng.stats()
+
+    ref, _ = run("generate_sequential")
+    kernels.reset_launch_counts()
+    got, s = run("generate")
+    assert got == ref and s["mirror_d2h_bytes"] == 0
+    assert kernels.flash_attention.launches == 2 * cfg.num_layers
+    assert ops.paged_attention_ragged.launches == \
+        cfg.num_layers * s["step_calls"]

@@ -1,5 +1,7 @@
 """The port stands alone: serving through it — dense, int8 and MLA cache
-families — loads neither JAX nor any module of the JAX package."""
+families, and a dense prompt longer than ``chunk_size`` (the flash-attention
+prefill) — and every public kernel entry load neither JAX nor any module of
+the JAX package."""
 import os
 import subprocess
 import sys
@@ -32,6 +34,40 @@ _SCRIPT = textwrap.dedent("""
                                    "int8": "int8"}[kd]
         eng.generate(reqs)
         assert all(len(r.generated) == 3 for r in reqs)
+
+    # a prompt past chunk_size: prefill through flash_attention
+    cfg = get_config("internlm2-1.8b-smoke")
+    model = LM(cfg, device="cpu", chunk_size=8).init(
+        torch.Generator().manual_seed(0))
+    reqs = [Request(rid=0, prompt=np.arange(20, dtype=np.int32), max_new=3)]
+    ServingEngine(model, ServeConfig(max_len=32, page_tokens=4),
+                  device="cpu").generate(reqs)
+    assert len(reqs[0].generated) == 3
+
+    # every public kernel entry, on CPU tensors (their plain versions)
+    import repro_torch.kernels as K
+    g = torch.Generator().manual_seed(0)
+    r = lambda *s: torch.randn(*s, generator=g)
+    tbl = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    lens = torch.tensor([3, 6], dtype=torch.int32)
+    qls = torch.tensor([1, 2], dtype=torch.int32)
+    pk, pv = r(2, 4, 4, 2, 32), r(2, 4, 4, 2, 32)
+    ks = torch.rand(2, 4, 4, 2, generator=g).to(torch.bfloat16)
+    k8 = (pk * 40).to(torch.int8)
+    outs = [
+        K.flash_attention(r(1, 6, 4, 32), r(1, 6, 2, 32), r(1, 6, 2, 32)),
+        K.log_patch(r(4, 4, 8), r(3, 8), torch.tensor([0, 1, 5]),
+                    torch.tensor([0, 3, 1])),
+        K.paged_attention_layers(r(2, 2, 4, 32), pk, pv, tbl, lens),
+        K.paged_attention_layers_ragged(r(2, 2, 2, 4, 32), pk, pv, tbl,
+                                        lens, qls),
+        K.paged_attention_layers_ragged_q8(r(2, 2, 2, 4, 32), k8, k8, ks, ks,
+                                           tbl, lens, qls),
+        K.mla_paged_attention_layers_ragged(
+            r(2, 2, 2, 4, 32), r(2, 2, 2, 4, 16), r(2, 4, 4, 32),
+            r(2, 4, 4, 16), tbl, lens, qls, scale=0.2)]
+    assert all(bool(torch.isfinite(o).all()) for o in outs)
+    assert sum(e.launches for e in K.ENTRIES) == 0
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
