@@ -9,7 +9,9 @@ each raises on failure, and any failure ends the run with a traceback:
 
 1. env        — torch/CUDA/nvcc versions and the card; builds every
                 kernel source (one ``nvcc`` per source, all started
-                together).
+                together), keeps each source's ``ptxas -v`` output in
+                ``build/kernels/ptxas/`` and logs the main-path kernels'
+                registers and spills.
 2. kernels    — each kernel at the main paths' shapes in its working
                 dtypes, held against its plain PyTorch version (a bf16
                 output also against the plain fp32 version on the same
@@ -17,7 +19,13 @@ each raises on failure, and any failure ends the run with a traceback:
                 slots and q_len=0 rows are 0, dead slots change nothing,
                 ragged at q_len=1 is the decode entry, layer l of a
                 multi-layer launch is the single-layer launch on layer l),
-                and CUDA-event times beside the bound and a library call.
+                and CUDA-event times beside the bound and a library call
+                (for the dense and int8 paged entries also the whole
+                function in PyTorch calls: gather, dequantize, SDPA, and
+                the split-KV scratch bytes). Each time is taken twice:
+                host-paced (``ms``: the loop enqueued as the card runs
+                it) and card-only (``card_ms``: enqueued while the card
+                sleeps).
                 Dense and int8: B=8, H=16, K=8, D=128, T=16, MP=64, Qmax
                 128 and 1, one layer and L=24; MLA: B=8, H=128, dc=512,
                 dr=64, T=16, MP=64, Qmax 128 (the MLA serve phase's
@@ -78,6 +86,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -132,6 +141,16 @@ FLASH_CHECKS = [(2, 128, 128, 8, 2, 64, True), (1, 100, 260, 4, 4, 32, True),
 # of a 1 GiB pool, one drain batch
 LOG_GEOM = dict(P=682, T=16, C=2048, N=256)
 LONG_PROMPTS = (4096, 3072, 2048, 1100)
+# GPU clock cycles the card sleeps before a timing loop (~25 ms at 1.98
+# GHz): longer than the host takes to enqueue the loop
+SLEEP_CYCLES = 50_000_000
+# mangled names of the kernels the main paths run (bf16 or int8 pages, D
+# 128 or MLA's 512, 16-token pages), whose registers phase 1 logs
+MAIN_PATH_KERNELS = (
+    r"paged_attention_part_kernelI13__nv_bfloat16(S1_|a)Li128ELi16EE"
+    r"|paged_attention_combine_kernelI13__nv_bfloat16Li128EE"
+    r"|flash_attention_mma_kernelILi128EE"
+    r"|mla_paged_attention_ragged_kernelI13__nv_bfloat16Li512ELi16EE")
 
 
 def log(*a):
@@ -170,21 +189,59 @@ def phase_env(torch):
         text, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {src}:\n{text}")
-        regs = [ln.split("ptxas info    :")[-1].strip()
-                for ln in text.splitlines() if "Used" in ln]
-        spills = [ln.strip() for ln in text.splitlines()
-                  if "spill" in ln and " 0 bytes spill stores" not in ln]
-        log(f"[env] built {src.relative_to(ROOT)}: {len(regs)} kernels; "
-            f"{regs[:3]}; spilling: {spills[:3]}")
+        kernels = ptxas_kernels(text)
+        out = library_path(src).parent / "ptxas" / f"{src.stem}.log"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(text)
+        spilling = [k for k in kernels if k["spill_stores"]]
+        log(f"[env] built {src.relative_to(ROOT)}: {len(kernels)} kernels, "
+            f"registers {min(k['regs'] for k in kernels)}-"
+            f"{max(k['regs'] for k in kernels)}, {len(spilling)} spilling "
+            f"(ptxas -v in {out.relative_to(ROOT)})")
+        for k in kernels:        # the main paths' instantiations
+            hit = re.search(MAIN_PATH_KERNELS, k["name"])
+            if hit:
+                log(f"[env]   {hit.group(0)}: {k['regs']} registers, "
+                    f"{k['spill_stores']} B spill stores, "
+                    f"{k['spill_loads']} B spill loads")
     log(f"[env] kernel build {time.time() - t0:.1f} s")
 
 
+def ptxas_kernels(text):
+    """Registers and spill bytes of each kernel in ``nvcc -Xptxas -v``
+    output, by mangled name."""
+    kernels, cur = [], None
+    for ln in text.splitlines():
+        if "Compiling entry function" in ln:
+            cur = {"name": ln.split("'")[1], "regs": 0, "spill_stores": 0,
+                   "spill_loads": 0}
+            kernels.append(cur)
+        elif cur is not None and "spill stores" in ln:
+            words = ln.replace(",", "").split()
+            cur["spill_stores"] = int(words[words.index("spill") - 2])
+            cur["spill_loads"] = int(words[-4])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            words = ln.split()
+            cur["regs"] = int(words[words.index("registers,") - 1]
+                              if "registers," in words
+                              else words[words.index("registers") - 1])
+    return kernels
+
+
 # --------------------------------------------------------------- phase 2
-def cuda_ms(torch, fn, iters):
+def cuda_ms(torch, fn, iters, card_only=False):
+    """Time per call of ``fn``: CUDA events around ``iters`` calls. By
+    default the host enqueues the loop while the card runs it, so a call
+    that the host takes longer to enqueue than the card to run reads as
+    the host's time, as a serving loop feels it. With ``card_only`` the
+    loop is enqueued while the card sleeps, and the events time the card's
+    work alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if card_only:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -261,12 +318,16 @@ class Case:
     """One kernel entry at one shape and dtype: its arguments, kernel and
     plain calls, the plain fp32 version's arguments (``args32``, None when
     the kernel must equal its plain version bit for bit: ``exact``), the
-    pins its output must hold, the work it must do, a library yardstick,
-    and — for an entry no serving path calls — the entry itself, called
-    once more as its public-entry run."""
+    pins its output must hold, the work it must do, a library yardstick
+    (and, for the dense and int8 paged entries, ``library_gather``: the
+    whole function in PyTorch calls, gather included), and — for an entry
+    no serving path calls — the entry itself, called once more as its
+    public-entry run."""
     exact = False
     args32 = None
     entry = None
+    library_gather = None
+    extra = {}                   # more fields for the row, logged as well
     iters = (20, 3, 10)          # kernel, plain, library timing loops
 
     def pins(self, out):
@@ -310,7 +371,7 @@ def dense_case(torch, dev, dtype, qmax, seed, q8=False, layers=None):
     """The dense or int8 paged entries at phase 2's shapes: one layer, or
     ``layers`` layers through the multi-layer entries."""
     import repro_torch.kernels as K
-    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.models.attention import quantize_kv
     B, H, Kh, D, T, MP = (GEOM[k] for k in "B H K D T MP".split())
     P = B * MP + 64
@@ -325,6 +386,8 @@ def dense_case(torch, dev, dtype, qmax, seed, q8=False, layers=None):
     dead = dead_slots(torch, P, T, table, lengths)
     at = (slice(None), dead) if layers else (dead,)
     c = Case()
+    c.extra = {"scratch_bytes": 4 * ops.scratch_floats(L, B, qmax, H, Kh, D,
+                                                       MP)}
     if q8:
         (pk, ks), (pv, vs) = quantize_kv(pk), quantize_kv(pv)
         planes = (pk, pv, ks, vs)
@@ -389,15 +452,29 @@ def dense_case(torch, dev, dtype, qmax, seed, q8=False, layers=None):
             if qmax > 1 or q8 else
             K.paged_attention(q[l][:, 0], *(p[l] for p in planes),
                               *rows)[:, None])
-        kd = torch.stack([gather(kd[l], table) for l in range(L)]).flatten(
-            0, 1)
-        vd = torch.stack([gather(vd[l], table) for l in range(L)]).flatten(
-            0, 1)
-        c.library = sdpa(torch, q.flatten(0, 1), kd, vd, lengths.repeat(L),
-                         q_lens.repeat(L))
-    else:
-        c.library = sdpa(torch, q, gather(kd, table), gather(vd, table),
-                         lengths, q_lens)
+
+    def dense_kv(*xs):
+        """Pool planes gathered through the table, layers folded into the
+        batch: (L * B, S, ...)."""
+        if not layers:
+            return tuple(gather(x, table) for x in xs)
+        return tuple(torch.stack([gather(x[l], table) for l in range(L)])
+                     .flatten(0, 1) for x in xs)
+
+    def full_kv():
+        """The whole function's K/V in PyTorch calls: gather the pages
+        (int8: codes and scales, then dequantize the gathered rows)."""
+        if not q8:
+            return dense_kv(*planes)
+        g = dense_kv(*planes)
+        return (ref.dequant_pool(g[0], g[2]).to(dtype),
+                ref.dequant_pool(g[1], g[3]).to(dtype))
+    qf = q.flatten(0, 1) if layers else q
+    lens_l, qls_l = lengths.repeat(L), q_lens.repeat(L)
+    # SDPA on K/V gathered (and dequantized) beforehand, and the whole
+    # function — gather, dequantize, SDPA — in PyTorch calls
+    c.library = sdpa(torch, qf, *dense_kv(kd, vd), lens_l, qls_l)
+    c.library_gather = lambda: sdpa(torch, qf, *full_kv(), lens_l, qls_l)()
     c.pins = lambda out: paged_pins(torch, c, out)
     c.q_lens, c.out_dtype = q_lens, dtype
     c.rate_dtype = str(dtype).split(".")[-1]
@@ -626,15 +703,31 @@ def measure(torch, name, c, what):
     t_ops = flops / FLOPS_PER_S[c.rate_dtype]
     bound = max(t_bytes, t_ops)
     ki, pi, li = c.iters
-    ms = cuda_ms(torch, lambda: c.kern(*c.args), ki)
+    # host-paced times (ms, plain_ms, library_ms, library_gather_ms) and
+    # card-only times (card_ms, library_card_ms, library_gather_card_ms)
+    kern = lambda: c.kern(*c.args)                      # noqa: E731
+    ms = cuda_ms(torch, kern, ki)
+    fields["card_ms"] = cuda_ms(torch, kern, ki, card_only=True)
     plain_ms = cuda_ms(torch, lambda: c.plain(*c.args), pi)
     lib_ms = cuda_ms(torch, c.library, li)
+    fields["library_card_ms"] = cuda_ms(torch, c.library, li, card_only=True)
+    lib_note = ""
+    if c.library_gather is not None:
+        fields["library_gather_ms"] = cuda_ms(torch, c.library_gather, li)
+        fields["library_gather_card_ms"] = cuda_ms(
+            torch, c.library_gather, li, card_only=True)
+        lib_note = (f" (gather + SDPA {fields['library_gather_ms']:.4f} ms, "
+                    f"card {fields['library_gather_card_ms']:.4f} ms)")
     log(f"[kernels] {name} {what}: max_abs_err {err:.3e} ({check}); kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"{ms:.4f} ms (card {fields['card_ms']:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (card "
+        f"{fields['library_card_ms']:.4f} ms){lib_note}, "
         f"bound {bound * 1e3:.4f} ms ({nbytes} B = {t_bytes * 1e3:.4f} ms, "
         f"{flops} flop = {t_ops * 1e3:.4f} ms at {c.rate_dtype}); "
         f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s, "
-        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s"
+        + "".join(f", {k} {v}" for k, v in c.extra.items()))
+    fields.update(c.extra)
     fields.update({"ms": ms, "plain_ms": plain_ms, "bound_ms": bound * 1e3,
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                    "library_ms": lib_ms})

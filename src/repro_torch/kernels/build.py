@@ -73,14 +73,15 @@ def load_library(source: Path) -> ctypes.CDLL:
     return _LOADED[key]
 
 
-def c_entry(source: Path, name: str, argtypes: list):
+def c_entry(source: Path, name: str, argtypes: list, restype=ctypes.c_int):
     """The C entry ``name`` of ``source``'s library, with ``argtypes`` set
     (``ctypes.c_void_p`` for each pointer and the stream: a bare Python int
-    would be cut to 32 bits) and an ``int`` (``cudaError_t``) result."""
+    would be cut to 32 bits) and, unless ``restype`` says otherwise, an
+    ``int`` (``cudaError_t``) result."""
     fn = getattr(load_library(source), name)
     if fn.argtypes is None:
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
     return fn
 
 

@@ -5,8 +5,8 @@
 // attention of q (B, Sq, H, D) over k, v (B, Skv, K, D), query head h
 // reading KV head h / (H / K). Causal queries are the LAST Sq positions of
 // the Skv keys: query i sits at position i + Skv - Sq and sees the keys at
-// or before it. The math is fp32 whatever the element type (fp32 or bf16, a
-// template parameter; q, k and v of one type), the output has q's type. A
+// or before it. q, k and v are fp32 or bf16 of one type; the softmax and
+// every sum are fp32 (bf16 products are exact), the output has q's type. A
 // query row that sees no key (causal with Sq > Skv) is exactly 0: the
 // Pallas kernel skips every block of such rows (its `live` test) and
 // leaves them 0 at the block sizes the JAX package's tests use; the jnp
@@ -14,30 +14,56 @@
 //
 // Bound: operations. A causal S = 4096, H = 16, D = 128 prefill layer is
 // 4 * D * H * S (S + 1) / 2 = 68.7 GFLOP over 16 MB of q, k, v and output,
-// thousands of flop per byte, far above both ridges. This first kernel runs
-// scalar fp32 FMAs on the CUDA cores with both operands from shared memory,
-// not the tensor cores, so it sits well above its bound; wgmma and TMA are
-// later work.
+// thousands of flop per byte, far above both ridges.
 //
-// Design (the TPU kernel's (B, H, q blocks, kv blocks) grid with VMEM
-// scratch carried across the sequential kv axis becomes a loop inside the
-// block):
-//   * one block = one (b, KV head) and a tile of 32 query rows, row r =
+// Two kernels, one per element type, with one contract (below):
+//
+// bf16 — flash_attention_mma_kernel, FlashAttention-2 on the warp-level
+// tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate):
+//   * one block = one (b, KV head) and a tile of 64 query rows, row r =
 //     query i * G + group g (the G heads of a KV head share each staged K/V
-//     tile); the heaviest causal tiles are scheduled first;
-//   * the block walks the keys in tiles of 32, staged in shared memory as
-//     fp32 rows padded to D + 1 floats (conflict-free column reads), and
-//     stops at its last row's causal diagonal — the Pallas kernel's `live`
-//     block skip; keys past Skv are staged as 0 and masked;
+//     tile); 4 warps of 16 rows; the heaviest causal tiles are scheduled
+//     first;
+//   * K/V tiles of 64 keys are staged as bf16 with 16-byte cp.async into a
+//     two-stage ring (tile n + 1 loads while tile n computes; one
+//     __syncthreads a tile), rows padded by 16 bytes so ldmatrix reads are
+//     conflict-free; keys past Skv are zero-filled (cp.async src-size 0);
+//   * S = Q.K^T on the tensor cores: q and k are bf16, so each product is
+//     exact and only the order of the fp32 sum differs from the plain
+//     version; Q fragments stay in registers for D <= 128 and are re-read
+//     from shared memory at D = 256 (registers: 128 fp32 of output alone);
+//   * the online softmax runs in fp32 registers on the mma accumulator
+//     layout (a row's 4 lanes reduce with two xor shuffles) with kernel.py's
+//     rules: running max from -1e30, masked probabilities forced to 0,
+//     l summed from the fp32 p, finish divides by max(l, 1e-30); scores
+//     are kept in log2 units (scale * log2 e folded into one multiply) so
+//     each probability is one ex2.approx (relative error ~2^-22; a
+//     probability below 2^-126 flushes to 0); only tiles that reach past a
+//     row's last key apply the mask;
+//   * P.V keeps p's fp32 precision: p = hi + lo with hi = bf16(p), lo =
+//     bf16(p - hi) (residual <= 2^-18 p), and two mma's, hi.V and lo.V, go
+//     into one fp32 accumulator: 1.5x plain FA2's products, and a bf16
+//     output stays within half an ulp of the plain fp32 version.
+// Shared memory (64 + 4 * 64 rows of D + 8 bf16): 87 KB at D = 128 (two
+// blocks an SM), 169 KB at D = 256 (one). Registers bound it too: 188 at
+// D = 128; two 16-row tiles a warp (FA2's fragment reuse) need more than
+// 255 and spill.
+//
+// fp32 — flash_attention_kernel, scalar fp32 FMAs on the CUDA cores (the
+// fp32 products have no exact tensor-core form; 3xTF32 is not done):
+//   * one block = one (b, KV head) and a tile of 32 query rows, row r as
+//     above; the block walks the keys in tiles of 32, staged in shared
+//     memory as fp32 rows padded to D + 1 floats (conflict-free column
+//     reads);
 //   * each warp owns 4 rows: lane t scores key t of the tile for all 4 rows
-//     at once (one sequential fp32 dot per row, each key element read once
-//     for the 4 rows), the warp reduces max and sum with xor butterflies,
-//     and lane t owns output features t, t + 32, ...; the online softmax
-//     follows kernel.py's rules (running max from -1e30, masked
-//     probabilities forced to 0, finish divides by max(l, 1e-30)), and p
-//     stays fp32 into the P.V sum.
-// A key tile that is fully masked for a row leaves the row's state bitwise
-// unchanged (every probability 0, correction exp(0) == 1), so a row's
+//     at once (one sequential fp32 dot per row), the warp reduces max and
+//     sum with xor butterflies, and lane t owns output features t, t + 32,
+//     ...; the same online-softmax rules, p stays fp32 into the P.V sum.
+//
+// Both stop each block's key walk at its last row's causal diagonal (the
+// Pallas kernel's `live` block skip). A key tile that is fully masked for a
+// row leaves the row's state bitwise unchanged (every probability 0,
+// correction exp(0) == 1, the accumulator plus zero products), so a row's
 // result does not depend on its tile, on Sq's tiling or on the block sizes
 // the caller passes. No split of the keys across blocks, no atomic.
 #include <cuda_bf16.h>
@@ -53,21 +79,12 @@ constexpr int kRows = kWarps * kRowsPerWarp;     // query rows per block
 constexpr int kKeys = 32;                        // keys per tile: one a lane
 constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename scalar_t, int D>
+template <int D>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_attention_kernel(const scalar_t* __restrict__ q,
-                       const scalar_t* __restrict__ k,
-                       const scalar_t* __restrict__ v,
-                       scalar_t* __restrict__ out, int Sq, int Skv, int H,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       float* __restrict__ out, int Sq, int Skv, int H,
                        int K, int causal, float scale) {
   constexpr int kDPL = D / 32;                   // output features per lane
   constexpr int kDP = D + 1;                     // padded smem row
@@ -98,7 +115,7 @@ flash_attention_kernel(const scalar_t* __restrict__ q,
     float x = 0.f;
     if (row < n_rows) {
       const int qi = row / G, h = kvh * G + row % G;
-      x = to_float(q[((static_cast<int64_t>(b) * Sq + qi) * H + h) * D + d]);
+      x = q[((static_cast<int64_t>(b) * Sq + qi) * H + h) * D + d];
     }
     q_s[r * kDP + d] = x;
   }
@@ -128,8 +145,8 @@ flash_attention_kernel(const scalar_t* __restrict__ q,
       if (k0 + t < Skv) {
         const int64_t off =
             ((static_cast<int64_t>(b) * Skv + k0 + t) * K + kvh) * D + d;
-        kx = to_float(k[off]);
-        vx = to_float(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       k_s[t * kDP + d] = kx;
       v_s[t * kDP + d] = vx;
@@ -198,47 +215,331 @@ flash_attention_kernel(const scalar_t* __restrict__ q,
     const int row = row0 + warp * kRowsPerWarp + p;
     if (row >= n_rows) continue;
     const int qi = row / G, h = kvh * G + row % G;
-    scalar_t* o = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
+    float* o = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
     const float denom = fmaxf(l[p], 1e-30f);     // a row with no key: 0 / .
 #pragma unroll
-    for (int j = 0; j < kDPL; ++j) store(o + lane + 32 * j, acc[p][j] / denom);
+    for (int j = 0; j < kDPL; ++j) o[lane + 32 * j] = acc[p][j] / denom;
   }
 }
 
-template <typename scalar_t, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Skv, int H, int K, int causal,
-                   float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<scalar_t, D>;
-  const size_t smem = sizeof(float) * (2 * kKeys + kRows) * (D + 1);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+// ------------------------------------------------ bf16: tensor cores
+using bf16 = __nv_bfloat16;
+constexpr int kMmaWarps = 4;
+constexpr int kMmaRows = kMmaWarps * 16;         // query rows per block
+constexpr int kMmaKeys = 64;                     // keys per staged tile
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared, asynchronous; zero-filled when !pred (src is
+// then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+// d (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+// (x, y) = hi + lo + r, hi and lo bf16 pairs, |r| <= 2^-18 |x|, |y|
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_attention_mma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, bf16* __restrict__ out,
+                           int Sq, int Skv, int H, int K, int causal,
+                           float scale) {
+  static_assert(D % 32 == 0, "head dim");
+  constexpr int kStride = D + 8;                 // padded smem row (bf16)
+  constexpr int kChunks = D / 8;                 // 16-byte chunks a row
+  constexpr int kNT = kMmaKeys / 8;              // 8-key tiles of S
+  constexpr int kDT = D / 8;                     // 8-feature tiles of O
+  constexpr bool kQRegs = D <= 128;
+  constexpr int kTile = kMmaKeys * kStride;
+
+  extern __shared__ __align__(16) unsigned char fa_smem[];
+  bf16* q_s = reinterpret_cast<bf16*>(fa_smem);  // (kMmaRows, kStride)
+  bf16* kv_s = q_s + kMmaRows * kStride;         // 2 stages of K, V tiles
+
+  const int G = H / K;
+  const int n_rows = Sq * G;
+  const int q_offset = Skv - Sq;
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * kMmaRows;  // heavy first
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  // scores in log2 units: exp(x - m) == exp2(x log2(e) - m log2(e))
+  const float scale_log2 = scale * 1.4426950408889634f;
+
+  int n_keys = Skv;
+  if (causal) {
+    const int r_last = min(row0 + kMmaRows, n_rows) - 1;
+    n_keys = min(Skv, max(r_last / G + q_offset + 1, 0));
   }
+  const int n_tiles = (n_keys + kMmaKeys - 1) / kMmaKeys;
+
+  for (int idx = threadIdx.x; idx < kMmaRows * kChunks; idx += blockDim.x) {
+    const int r = idx / kChunks, c = idx % kChunks;
+    const int row = row0 + r;
+    const bf16* src = q;
+    if (row < n_rows) {
+      const int qi = row / G, h = kvh * G + row % G;
+      src = q + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D + c * 8;
+    }
+    cp_async16(q_s + r * kStride + c * 8, src, row < n_rows);
+  }
+  auto load_tile = [&](int t) {
+    bf16* ks = kv_s + (t & 1) * 2 * kTile;
+    bf16* vs = ks + kTile;
+    const int k0 = t * kMmaKeys;
+    for (int idx = threadIdx.x; idx < kMmaKeys * kChunks;
+         idx += blockDim.x) {
+      const int r = idx / kChunks, c = idx % kChunks;
+      const bool live = k0 + r < Skv;
+      const int64_t off =
+          live ? ((static_cast<int64_t>(b) * Skv + k0 + r) * K + kvh) * D +
+                     c * 8
+               : 0;
+      cp_async16(ks + r * kStride + c * 8, k + off, live);
+      cp_async16(vs + r * kStride + c * 8, v + off, live);
+    }
+  };
+  if (n_tiles > 0) load_tile(0);
+  cp_async_commit();
+
+  // this lane's two rows: gid and gid + 8 of the warp's 16; lim[i] = the
+  // keys below it are the ones the row sees (0 past the queries or for a
+  // row that sees none)
+  int lim[2];
+  float m[2], l[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + warp * 16 + gid + 8 * i;
+    lim[i] = row >= n_rows ? 0
+             : causal      ? min(Skv, max(row / G + q_offset + 1, 0))
+                           : Skv;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  float o[kDT][4];
+#pragma unroll
+  for (int j = 0; j < kDT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  uint32_t qf[kQRegs ? D / 16 : 1][4];
+  // ldmatrix lane addresses: A (16 rows x 16) and B^T (8 keys x 32) tiles
+  const int a_row = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int k_row = lane & 7, k_col = (lane >> 3) * 8;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait_all();             // tile t (and, at t = 0, Q) landed
+    __syncthreads();                 // ... for every thread; tile t - 1 done
+    if (t + 1 < n_tiles) load_tile(t + 1);
+    cp_async_commit();
+    if constexpr (kQRegs) {
+      if (t == 0) {
+#pragma unroll
+        for (int kc = 0; kc < D / 16; ++kc)
+          ldmatrix_x4(qf[kc], q_s + a_row * kStride + kc * 16 + a_col);
+      }
+    }
+    const bf16* ks = kv_s + (t & 1) * 2 * kTile;
+    const bf16* vs = ks + kTile;
+
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kc2 = 0; kc2 < D / 32; ++kc2) {
+      uint32_t qa[4], qb[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[2 * kc2][e];
+          qb[e] = qf[2 * kc2 + 1][e];
+        }
+      } else {
+        ldmatrix_x4(qa, q_s + a_row * kStride + kc2 * 32 + a_col);
+        ldmatrix_x4(qb, q_s + a_row * kStride + kc2 * 32 + 16 + a_col);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        uint32_t kb[4];
+        ldmatrix_x4(kb, ks + (nt * 8 + k_row) * kStride + kc2 * 32 + k_col);
+        mma_bf16(s[nt], qa, kb[0], kb[1]);
+        mma_bf16(s[nt], qb, kb[2], kb[3]);
+      }
+    }
+
+    const int k0 = t * kMmaKeys;
+    // only a tile that reaches past a row's last key needs the mask
+    const bool masked = k0 + kMmaKeys > min(lim[0], lim[1]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int key = k0 + nt * 8 + tig * 2 + j;
+          const float x = !masked || key < lim[i]
+                              ? s[nt][2 * i + j] * scale_log2
+                              : kNegInf;
+          s[nt][2 * i + j] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      const float corr = fast_exp2(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float x = s[nt][2 * i + j];
+          const float p = x > kNegInf * 0.5f ? fast_exp2(x - m_new) : 0.f;
+          s[nt][2 * i + j] = p;
+          sum += p;
+        }
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      l[i] = l[i] * corr + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < kDT; ++dt) {
+        o[dt][2 * i] *= corr;
+        o[dt][2 * i + 1] *= corr;
+      }
+    }
+
+#pragma unroll
+    for (int kc = 0; kc < kMmaKeys / 16; ++kc) {
+      uint32_t ph[4], pl[4];
+      split_bf16(s[2 * kc][0], s[2 * kc][1], ph[0], pl[0]);
+      split_bf16(s[2 * kc][2], s[2 * kc][3], ph[1], pl[1]);
+      split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int dt2 = 0; dt2 < D / 16; ++dt2) {
+        uint32_t vb[4];
+        ldmatrix_x4_trans(vb, vs + (kc * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * kStride +
+                                  dt2 * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dt2], ph, vb[0], vb[1]);
+        mma_bf16(o[2 * dt2 + 1], ph, vb[2], vb[3]);
+        mma_bf16(o[2 * dt2], pl, vb[0], vb[1]);
+        mma_bf16(o[2 * dt2 + 1], pl, vb[2], vb[3]);
+      }
+    }
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + warp * 16 + gid + 8 * i;
+    if (row >= n_rows) continue;
+    const int qi = row / G, h = kvh * G + row % G;
+    bf16* o_row = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
+    const float denom = fmaxf(l[i], 1e-30f);     // a row with no key: 0 / .
+#pragma unroll
+    for (int dt = 0; dt < kDT; ++dt)
+      *reinterpret_cast<__nv_bfloat162*>(o_row + dt * 8 + tig * 2) =
+          __floats2bfloat162_rn(o[dt][2 * i] / denom,
+                                o[dt][2 * i + 1] / denom);
+  }
+}
+
+template <typename Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       void* out, int B, int Sq, int Skv, int H, int K,
+                       int causal, float scale, cudaStream_t stream) {
+  auto kernel = flash_attention_kernel<D>;
+  const size_t smem = sizeof(float) * (2 * kKeys + kRows) * (D + 1);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   const int64_t tiles =
       (static_cast<int64_t>(Sq) * (H / K) + kRows - 1) / kRows;
   if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
   dim3 grid(static_cast<unsigned>(tiles), K, B);
   kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
-      static_cast<const scalar_t*>(v), static_cast<scalar_t*>(out), Sq, Skv,
-      H, K, causal, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), Sq, Skv, H, K,
+      causal, scale);
   return cudaGetLastError();
 }
 
-template <typename scalar_t>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* out, int B, int Sq, int Skv, int H, int K,
-                     int causal, float scale, cudaStream_t stream) {
-#define FA_CASE(DD)                                                        \
-  if (D == DD)                                                             \
-    return launch<scalar_t, DD>(q, k, v, out, B, Sq, Skv, H, K, causal,    \
-                                scale, stream);
-  FA_CASE(32) FA_CASE(64) FA_CASE(128) FA_CASE(256)
-#undef FA_CASE
-  return cudaErrorInvalidValue;
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* out, int B, int Sq, int Skv, int H, int K,
+                        int causal, float scale, cudaStream_t stream) {
+  auto kernel = flash_attention_mma_kernel<D>;
+  const size_t smem = sizeof(bf16) * (kMmaRows + 4 * kMmaKeys) * (D + 8);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles =
+      (static_cast<int64_t>(Sq) * (H / K) + kMmaRows - 1) / kMmaRows;
+  if (tiles > 0x7fffffff) return cudaErrorInvalidValue;
+  dim3 grid(static_cast<unsigned>(tiles), K, B);
+  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), Sq, Skv, H, K,
+      causal, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -255,11 +556,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (Skv < 0 || K <= 0 || H % K != 0 || K > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, out, B, Sq, Skv, H, K, causal, scale,
-                           s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, out, B, Sq, Skv, H, K, causal,
-                                   scale, s);
+#define FA_CASE(DD)                                                          \
+  if (D == DD)                                                               \
+    return dtype == 0 ? launch_f32<DD>(q, k, v, out, B, Sq, Skv, H, K,       \
+                                       causal, scale, s)                     \
+                      : launch_bf16<DD>(q, k, v, out, B, Sq, Skv, H, K,      \
+                                        causal, scale, s);
+  if (dtype == 0 || dtype == 1) {
+    FA_CASE(32) FA_CASE(64) FA_CASE(128) FA_CASE(256)
+  }
+#undef FA_CASE
   return cudaErrorInvalidValue;
 }

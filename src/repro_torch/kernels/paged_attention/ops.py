@@ -6,7 +6,9 @@ CPU tensor runs the plain PyTorch version of
 one to the other. Each entry counts its kernel launches in a plain
 integer attribute, ``<entry>.launches``.
 
-* ``paged_attention_ragged`` — dense pool, ``csrc/paged_attention.cu``;
+* ``paged_attention_ragged`` — dense pool, ``csrc/paged_attention.cu``
+  (two kernels a call: pages split across blocks in fixed partitions, then
+  an ordered combine; ``launches`` counts entry calls);
 * ``paged_attention_ragged_q8`` — int8 pool with bf16 scale planes, the
   same source's int8 instantiation;
 * ``mla_paged_attention_ragged`` — MLA latent pool,
@@ -26,6 +28,7 @@ that launch at ``L = 1``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -76,6 +79,16 @@ def _row_args(B, dev, block_table, lengths, q_lens):
                  for t in (block_table, lengths, q_lens))
 
 
+@functools.lru_cache(maxsize=256)
+def scratch_floats(L, B, Qm, H, K, D, MP):
+    """fp32 elements of split-KV scratch a launch of these shapes takes (at
+    least 1; capped in ``csrc/paged_attention.cu``, which runs the launch
+    in passes past the cap)."""
+    return max(c_entry(SOURCE, "paged_attention_scratch_floats",
+                       [ctypes.c_int] * 7, ctypes.c_int64)(L, B, Qm, H, K, D,
+                                                           MP), 1)
+
+
 def _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
             scales=None):
     """Validate and launch the dense (``scales is None``) or int8 kernel
@@ -110,21 +123,26 @@ def _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
     table, lens, qls = _row_args(B, dev, block_table, lengths, q_lens)
     q = q.contiguous()
     out = torch.empty_like(q)
+    MP = table.shape[1]
+    # the split-KV partitions' (m, l, acc), combined by the second kernel
+    scratch = torch.empty(scratch_floats(L, B, Qm, H, K, D, MP),
+                          dtype=torch.float32, device=dev)
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    dims = (L, B, Qm, H, K, D, P, T, table.shape[1], float(scale),
-            _DTYPE_CODE[q.dtype], stream)
+    dims = (L, B, Qm, H, K, D, P, T, MP, float(scale), _DTYPE_CODE[q.dtype],
+            stream)
     if scales:
-        rc = _fn(SOURCE, "paged_attention_layers_ragged_q8_launch", 9, 9)(
+        rc = _fn(SOURCE, "paged_attention_layers_ragged_q8_launch", 10, 9)(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             scales[0].data_ptr(), scales[1].data_ptr(), table.data_ptr(),
-            lens.data_ptr(), qls.data_ptr(), out.data_ptr(), *dims)
+            lens.data_ptr(), qls.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), *dims)
     else:
-        rc = _fn(SOURCE, "paged_attention_layers_ragged_launch", 7, 9)(
+        rc = _fn(SOURCE, "paged_attention_layers_ragged_launch", 8, 9)(
             q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
             table.data_ptr(), lens.data_ptr(), qls.data_ptr(),
-            out.data_ptr(), *dims)
+            out.data_ptr(), scratch.data_ptr(), *dims)
     check_launch(rc, "paged_attention_ragged" + ("_q8" if scales else ""))
     return out
 

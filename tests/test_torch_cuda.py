@@ -14,6 +14,7 @@ import torch
 
 import repro_torch.kernels as kernels
 from repro_torch.configs import get_config
+from repro_torch.kernels.build import c_entry
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.log_patch.ref import log_patch_ref
 from repro_torch.kernels.paged_attention import ops
@@ -434,3 +435,273 @@ def test_long_prompt_serving_on_card_matches_sequential(cuda_device):
     assert kernels.flash_attention.launches == 2 * cfg.num_layers
     assert ops.paged_attention_ragged.launches == \
         cfg.num_layers * s["step_calls"]
+
+
+# ---------------------------------------------- split-KV paged attention
+def _pages_per_part():
+    """The pages of one split-KV partition, as the built kernel has it."""
+    return c_entry(ops.SOURCE, "paged_attention_pages_per_part", [])()
+
+
+def _split_inputs(family, dtype, ctx, q_lens, *, L=None, H=4, K=2, D=128,
+                  T=16, seed=21):
+    """Pool, table and queries for rows of the given contexts (tokens
+    before the chunk) and chunk lengths; the table is wide enough for the
+    longest row. Returns (q, planes, table, lengths, q_lens)."""
+    rng = np.random.default_rng(seed)
+    B, Qm = len(ctx), max(max(q_lens), 1)
+    lengths = np.asarray(ctx) + np.asarray(q_lens)
+    MP = int(-(-lengths.max() // T)) + 1
+    P = B * MP + 3
+    lead = (L,) if L else ()
+    f = lambda *s: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal(lead + s).astype(np.float32))
+    q = f(B, Qm, H, D).to(dtype)
+    table = torch.from_numpy(rng.permutation(P)[:B * MP].reshape(B, MP)
+                             .astype(np.int32))
+    if family == "int8":
+        codes = lambda: torch.from_numpy(                     # noqa: E731
+            rng.integers(-127, 128, lead + (P, T, K, D), dtype=np.int8))
+        scl = lambda: torch.from_numpy(                       # noqa: E731
+            (rng.random(lead + (P, T, K)) * 0.1 + 0.01).astype(np.float32)
+        ).to(torch.bfloat16)
+        planes = (codes(), codes(), scl(), scl())
+    else:
+        planes = (f(P, T, K, D).to(dtype), f(P, T, K, D).to(dtype))
+    return (q, planes, table, torch.tensor(lengths, dtype=torch.int32),
+            torch.tensor(q_lens, dtype=torch.int32))
+
+
+def _ragged(family, layered=False):
+    if family == "int8":
+        return (kernels.paged_attention_layers_ragged_q8 if layered
+                else ops.paged_attention_ragged_q8)
+    return (kernels.paged_attention_layers_ragged if layered
+            else ops.paged_attention_ragged)
+
+
+def _decode(family):
+    return ops.paged_attention_q8 if family == "int8" else ops.paged_attention
+
+
+def _plain(family):
+    return (paged_attention_ragged_q8_ref if family == "int8"
+            else paged_attention_ragged_ref)
+
+
+def _bits(t):
+    """The raw bits of a float tensor (so -0.0 and +0.0 differ)."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+_FAMILIES = [("dense", torch.float32), ("dense", torch.bfloat16),
+             ("int8", torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,dtype", _FAMILIES)
+def test_split_kv_partition_edges_match_plain_version(cuda_device, family,
+                                                      dtype):
+    """Decode rows whose contexts end exactly on a partition boundary, one
+    page past it, one token past it, and at 258 pages, and a 128-query chunk
+    crossing a boundary: against the plain version, and every decode row bit
+    for bit the ragged launch at q_len == 1."""
+    T = 16
+    edge = _pages_per_part() * T
+    ctx = [edge - 1, edge + T - 1, edge, 2 * edge - 1, 258 * T - 1, 5]
+    q, planes, tbl, lens, qls = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else
+        tuple(x.to(cuda_device) for x in t)
+        for t in _split_inputs(family, dtype, ctx, [1] * len(ctx)))
+    out = _decode(family)(q[:, 0], *planes, tbl, lens)
+    torch.cuda.synchronize()
+    q32 = q.float()
+    ref = _plain(family)(q32 if family == "int8" else q, *planes, tbl, lens,
+                         qls)[:, 0]
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    r1 = _ragged(family)(q, *planes, tbl, lens, qls)
+    assert torch.equal(_bits(r1[:, 0]), _bits(out))
+    # a 128-query chunk whose queries straddle pages 7/8 and 15/16
+    q2, planes2, tbl2, lens2, qls2 = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else
+        tuple(x.to(cuda_device) for x in t)
+        for t in _split_inputs(family, dtype, [edge - 40, 3], [128, 0],
+                               seed=22))
+    out2 = _ragged(family)(q2, *planes2, tbl2, lens2, qls2)
+    ref2 = _plain(family)(q2.float() if family == "int8" else q2, *planes2,
+                          tbl2, lens2, qls2)
+    torch.testing.assert_close(out2.float(), ref2.float(), atol=atol,
+                               rtol=rtol)
+    assert torch.all(out2[1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,dtype", _FAMILIES)
+def test_split_kv_row_is_the_row_alone(cuda_device, family, dtype):
+    """A chunk whose early queries see only the first partition while its
+    last ones reach the second: each query's output is bit for bit the same
+    query decoded alone at its own length (the later partitions are skipped
+    for it, not added with weight 0), and committing one more slot
+    reproduces the chunk as a bitwise prefix."""
+    T = 16
+    edge = _pages_per_part() * T
+    q, planes, tbl, lens, qls = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else
+        tuple(x.to(cuda_device) for x in t)
+        for t in _split_inputs(family, dtype, [edge - 12], [16], seed=23))
+    out = _ragged(family)(q, *planes, tbl, lens, qls)
+    pos0 = int(lens[0]) - int(qls[0])
+    for i in range(int(qls[0])):
+        alone = _decode(family)(q[:, i], *planes, tbl,
+                                torch.full_like(lens, pos0 + i + 1))
+        assert torch.equal(_bits(out[:, i]), _bits(alone)), i
+    shorter = _ragged(family)(q[:, :15], *planes, tbl, lens - 1, qls - 1)
+    assert torch.equal(_bits(out[:, :15]), _bits(shorter))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_kv_negative_zero_values(cuda_device, dtype):
+    """V of -0.0 everywhere over three partitions: every output is 0 and
+    its bits do not depend on the launch (ragged vs decode, a row vs the
+    same row alone)."""
+    T = 16
+    edge = _pages_per_part() * T
+    q, (pk, pv), tbl, lens, qls = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else
+        tuple(x.to(cuda_device) for x in t)
+        for t in _split_inputs("dense", dtype, [2 * edge + 5, 7], [4, 1],
+                               seed=24))
+    pv = torch.full_like(pv, -0.0)
+    out = ops.paged_attention_ragged(q, pk, pv, tbl, lens, qls)
+    assert torch.all(out == 0)
+    for i in range(4):
+        alone = ops.paged_attention(q[:, i], pk, pv, tbl,
+                                    lens - int(qls[0]) + i + 1)
+        assert torch.equal(_bits(out[0, i]), _bits(alone[0]))
+    d1 = ops.paged_attention(q[:, 0], pk, pv, tbl, lens)
+    r1 = ops.paged_attention_ragged(q, pk, pv, tbl, lens,
+                                    torch.ones_like(qls))
+    assert torch.equal(_bits(r1[:, 0]), _bits(d1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmax", [1, 128])
+@pytest.mark.parametrize("family,dtype", _FAMILIES)
+def test_split_kv_pins_over_24_layers(cuda_device, family, dtype, qmax):
+    """The multi-layer entry at L = 24 over rows of 0 to 3 partitions:
+    against its plain version; layer l bit for bit the single-layer
+    launch; padding slots 0; q_len == 1 rows bit for bit the decode
+    entry."""
+    L, T = 24, 16
+    ctx = [0, 40, 130, 300] if qmax > 1 else [0, 17, 128, 300]
+    qls_ = [qmax, 1, 57, 0] if qmax > 1 else [1, 1, 1, 1]
+    q, planes, tbl, lens, qls = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else
+        tuple(x.to(cuda_device) for x in t)
+        for t in _split_inputs(family, dtype, ctx, qls_, L=L, seed=25))
+    entry = _ragged(family, layered=True)
+    out = entry(q, *planes, tbl, lens, qls)
+    torch.cuda.synchronize()
+    plain = (paged_attention_layers_ragged_q8_ref if family == "int8"
+             else paged_attention_layers_ragged_ref)
+    ref = plain(q.float() if family == "int8" else q, *planes, tbl, lens, qls)
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    for l in range(L):
+        single = _ragged(family)(q[l], *(p[l] for p in planes), tbl, lens,
+                                 qls)
+        assert torch.equal(_bits(out[l]), _bits(single)), l
+    for b in range(q.shape[1]):
+        assert torch.all(out[:, b, int(qls[b]):] == 0)
+    ones = (qls == 1).nonzero().flatten()
+    for l in (0, L - 1):
+        d1 = _decode(family)(q[l][:, 0], *(p[l] for p in planes), tbl, lens)
+        assert torch.equal(_bits(out[l][ones, 0]), _bits(d1[ones]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,width", [(1, 1100), (24, 0)])
+@pytest.mark.parametrize("family,dtype", _FAMILIES[1:])
+def test_split_kv_scratch_passes_change_no_bit(cuda_device, family, dtype,
+                                               layers, width):
+    """A launch whose split-KV scratch would pass the cap runs in passes
+    (over row tiles of one row for a 1100-page table, over (layer, row)
+    slices at 24 layers) and gives the bits of a launch that needs one
+    pass: the same rows under a table cut to the live pages, or each
+    layer launched alone."""
+    H, K, D, Qm = 16, 8, 128, 128
+    q, planes, tbl, lens, qls = (
+        t.to(cuda_device) if isinstance(t, torch.Tensor) else
+        tuple(x.to(cuda_device) for x in t)
+        for t in _split_inputs(family, dtype, [300, 1000 if width else 90],
+                               [Qm, 50], L=layers if layers > 1 else None,
+                               H=H, K=K, D=D, seed=26))
+    G, MP = H // K, tbl.shape[1]
+    one_pass = lambda L, mp: (L * len(lens) * K * Qm * G          # noqa: E731
+                              * -(-mp // _pages_per_part()) * (D + 2))
+    if layers > 1:
+        assert ops.scratch_floats(layers, 2, Qm, H, K, D, MP) < \
+            one_pass(layers, MP)
+        out = _ragged(family, layered=True)(q, *planes, tbl, lens, qls)
+        for l in range(layers):
+            single = _ragged(family)(q[l], *(p[l] for p in planes), tbl,
+                                     lens, qls)
+            assert torch.equal(_bits(out[l]), _bits(single)), l
+        return
+    wide = torch.cat([tbl, tbl[:, :1].repeat(1, width - MP)], dim=1)
+    assert ops.scratch_floats(1, 2, Qm, H, K, D, width) < one_pass(1, width)
+    assert ops.scratch_floats(1, 2, Qm, H, K, D, MP) == one_pass(1, MP)
+    out = _ragged(family)(q, *planes, wide, lens, qls)
+    narrow = _ragged(family)(q, *planes, tbl, lens, qls)
+    assert torch.equal(_bits(out), _bits(narrow))
+    ref = _plain(family)(q.float() if family == "int8" else q, *planes, tbl,
+                         lens, qls)
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+# ------------------------------------------------ flash attention, bf16
+# (B, Sq, Skv, H, K, D, causal): Sq * G not a multiple of the 64-row query
+# tile, every head dim, GQA 1 and 8, non-causal, Sq > Skv dead rows
+FLASH_BF16_CASES = [
+    (1, 100, 100, 8, 1, 32, True),
+    (2, 77, 77, 4, 4, 64, True),
+    (1, 130, 200, 8, 1, 128, False),
+    (1, 33, 300, 16, 2, 128, True),
+    (1, 200, 150, 2, 2, 256, True),
+    (1, 96, 40, 8, 1, 64, True),
+    (1, 70, 70, 8, 8, 256, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_flash_bf16_tensor_core_kernel(cuda_device, case):
+    """The bf16 tensor-core kernel against its plain version and, to half
+    a bf16 ulp, the plain fp32 version on the same values; rows that see no
+    key are exactly 0; the last queries' rows are bit for bit the same when
+    fewer queries tile the call differently."""
+    B, Sq, Skv, H, K, D, causal = case
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, torch.bfloat16)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+    out = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    atol, rtol = _TOL[torch.bfloat16]
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=causal).float(),
+        atol=atol, rtol=rtol)
+    ref32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                causal=causal)
+    atol, rtol = _TOL_BF16_VS_FP32
+    torch.testing.assert_close(out.float(), ref32, atol=atol, rtol=rtol)
+    if causal and Sq > Skv:
+        assert torch.all(out[:, :Sq - Skv] == 0)
+    tail = Sq - 29
+    part = kernels.flash_attention(q[:, -tail:].contiguous(), k, v,
+                                   causal=causal)
+    assert torch.equal(_bits(part), _bits(out[:, -tail:]))
