@@ -16,13 +16,19 @@ each raises on failure, and any failure ends the run with a traceback:
                 dtypes, held against its plain PyTorch version (a bf16
                 output also against the plain fp32 version on the same
                 inputs, to half a bf16 ulp), the bitwise pins (padding
-                slots and q_len=0 rows are 0, dead slots change nothing,
+                slots and q_len=0 rows are 0, dead slots change nothing
+                (MLA: NaN-poisoned too, and a route flipped by the table's
+                width — split-KV against the in-block fold — where one
+                flips),
                 ragged at q_len=1 is the decode entry, layer l of a
                 multi-layer launch is the single-layer launch on layer l),
                 and CUDA-event times beside the bound and a library call
                 (for the dense and int8 paged entries also the whole
                 function in PyTorch calls: gather, dequantize, SDPA, and
-                the split-KV scratch bytes). Each time is taken twice:
+                the split-KV scratch bytes; for MLA the scratch bytes and
+                the route, split or in-block, and the bound at the fp32
+                rate beside the bf16 pool's tensor-core bound). Each time
+                is taken twice:
                 host-paced (``ms``: the loop enqueued as the card runs
                 it) and card-only (``card_ms``: enqueued while the card
                 sleeps).
@@ -150,7 +156,8 @@ MAIN_PATH_KERNELS = (
     r"paged_attention_part_kernelI13__nv_bfloat16(S1_|a)Li128ELi16EE"
     r"|paged_attention_combine_kernelI13__nv_bfloat16Li128EE"
     r"|flash_attention_mma_kernelILi128EE"
-    r"|mla_paged_attention_ragged_kernelI13__nv_bfloat16Li512ELi16EE")
+    r"|mla_paged_attention_part_kernelI13__nv_bfloat16Li512EE"
+    r"|mla_paged_attention_combine_kernelILi512EE")
 
 
 def log(*a):
@@ -489,7 +496,7 @@ def mla_case(torch, dev, pool_dtype, qmax, seed, layers=None):
     """The MLA entries at phase 2's shapes: one layer, or ``layers`` layers
     through the multi-layer entry."""
     import repro_torch.kernels as K
-    from repro_torch.kernels.paged_attention import ref
+    from repro_torch.kernels.paged_attention import ops, ref
     B, H, dc, dr, T, MP = (MLA_GEOM[k] for k in "B H dc dr T MP".split())
     P = B * MP + 64
     L = layers or 1
@@ -538,7 +545,34 @@ def mla_case(torch, dev, pool_dtype, qmax, seed, layers=None):
     c.args = (q_c, q_r, pc, pkr) + rows
     c.args32 = (q_c, q_r, pc.float(), pkr.float()) + rows
     c.poisoned = (q_c, q_r, pc2, pkr2) + rows
-    c.pins = lambda out: paged_pins(torch, c, out)
+    pc3, pkr3 = pc.clone(), pkr.clone()
+    pc3[at], pkr3[at] = float("nan"), float("nan")
+    # the same rows through the other route (split-KV scratch and a
+    # combine, or the in-block fold): a table wide enough that the scratch
+    # would pass the cap, or one cut to the live pages; None where no
+    # table of these rows flips the route
+    route_of = lambda mp: ops.mla_scratch_floats(  # noqa: E731
+        L, B, qmax, H, dc, mp) > 0
+    live = -(-int(lengths.max()) // T)
+    other = None
+    if route_of(MP):
+        width = MP
+        while route_of(width):
+            width *= 2
+        other = torch.cat([table, table[:, :1].repeat(1, width - MP)], 1)
+    elif route_of(live):
+        other = table[:, :live].contiguous()
+
+    def pins(out):
+        paged_pins(torch, c, out)
+        if not torch.equal(c.kern(q_c, q_r, pc3, pkr3, *rows), out):
+            raise AssertionError(f"{c.label}: NaN in dead slots changed "
+                                 f"the output")
+        if other is not None and not torch.equal(
+                c.kern(q_c, q_r, pc, pkr, other, *rows[1:]), out):
+            raise AssertionError(f"{c.label}: the split route is not the "
+                                 f"in-block fold")
+    c.pins = pins
     # SDPA: one KV head holding [c, kr], values c, gathered beforehand
     kc = torch.stack([gather(pc.reshape((L, P, T, dc))[l], table)
                       for l in range(L)]).flatten(0, 1).float()
@@ -548,13 +582,26 @@ def mla_case(torch, dev, pool_dtype, qmax, seed, layers=None):
     q = torch.cat([q_c, q_r], dim=-1).reshape((L * B, qmax, H, dc + dr))
     c.library = sdpa(torch, q, k, kc[:, :, None], lengths.repeat(L),
                      q_lens.repeat(L), scale=scale)
-    c.q_lens, c.out_dtype, c.rate_dtype = q_lens, torch.float32, "float32"
+    # a bf16 pool runs on the tensor cores (exact bf16 operands, fp32
+    # queries as bf16 terms), so its bound takes the bf16 rate; an fp32
+    # pool's products stay on the CUDA cores
+    c.q_lens, c.out_dtype = q_lens, torch.float32
+    c.rate_dtype = str(pool_dtype).split(".")[-1]
     c.work = paged_work(
         lengths, q_lens, T, T * (dc + dr) * pc.element_size(),
         lambda n, ql: sum((2 * (dc + dr) + 2 * dc) * (n - ql + i + 1)
                           for i in range(ql)) * H,
         (q_c.numel() * 2 + q_r.numel()) * 4 + table.numel() * 4 + 2 * B * 4,
         L)
+    scratch = ops.mla_scratch_floats(L, B, qmax, H, dc, MP)
+    nbytes, flops = c.work
+    c.extra = {"scratch_bytes": 4 * scratch,
+               "fold_route": "split" if scratch else "in-block",
+               "other_route_pin": other is not None,
+               # the bound as PRs 12-14 stated it (fp32 rate), for reading
+               # the rows across PRs
+               "bound_ms_fp32_rate": 1e3 * max(
+                   nbytes / HBM_BYTES_PER_S, flops / FLOPS_PER_S["float32"])}
     return c
 
 
@@ -1292,6 +1339,8 @@ def main(argv=None) -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    if any(r["route"] not in ("cuda", "triton") for r in rows.values()):
+        raise AssertionError("a row's route is neither cuda nor triton")
     print(smi_line())
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys},

@@ -12,7 +12,10 @@ integer attribute, ``<entry>.launches``.
 * ``paged_attention_ragged_q8`` — int8 pool with bf16 scale planes, the
   same source's int8 instantiation;
 * ``mla_paged_attention_ragged`` — MLA latent pool,
-  ``csrc/mla_paged_attention.cu``.
+  ``csrc/mla_paged_attention.cu`` (a bf16 pool on the tensor cores; pages
+  split across blocks in fixed partitions, folded in order either by a
+  combine kernel over scratch or inside the block, as the shapes allow —
+  :func:`mla_scratch_floats`).
 
 Each single-token decode entry (``paged_attention``,
 ``paged_attention_q8``, ``mla_paged_attention``) launches its ragged
@@ -47,6 +50,7 @@ MLA_SOURCE = CSRC / "mla_paged_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _LATENT_DIMS = (32, 64, 128, 256, 512)
+_ROPE_DIMS = (16, 32, 64)
 _PAGE_TOKENS = (8, 16, 32)
 _C = ctypes.c_void_p
 
@@ -87,6 +91,16 @@ def scratch_floats(L, B, Qm, H, K, D, MP):
     return max(c_entry(SOURCE, "paged_attention_scratch_floats",
                        [ctypes.c_int] * 7, ctypes.c_int64)(L, B, Qm, H, K, D,
                                                            MP), 1)
+
+
+@functools.lru_cache(maxsize=256)
+def mla_scratch_floats(L, B, Qm, H, dc, MP):
+    """fp32 elements of split-KV scratch an MLA launch of these shapes
+    takes: 0 when the launch folds its partitions inside the block (one
+    partition, or scratch past the 128 MiB cap), else the split route's
+    (m, l, acc) of every (layer, b, row, partition). Shapes only."""
+    return c_entry(MLA_SOURCE, "mla_paged_attention_scratch_floats",
+                   [ctypes.c_int] * 6, ctypes.c_int64)(L, B, Qm, H, dc, MP)
 
 
 def _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
@@ -169,20 +183,26 @@ def _launch_mla(q_c, q_r, pool_c, pool_kr, block_table, lengths, q_lens,
         raise ValueError(f"shape mismatch: q_c {tuple(q_c.shape)}, q_r "
                          f"{tuple(q_r.shape)}, pool_c {tuple(pool_c.shape)},"
                          f" pool_kr {tuple(pool_kr.shape)}")
-    if dc not in _LATENT_DIMS or T not in _PAGE_TOKENS:
+    if dc not in _LATENT_DIMS or dr not in _ROPE_DIMS \
+            or T not in _PAGE_TOKENS:
         raise ValueError(f"the MLA kernel is built for kv_lora_rank in "
-                         f"{_LATENT_DIMS} and page_tokens in {_PAGE_TOKENS};"
-                         f" got dc={dc}, T={T}")
+                         f"{_LATENT_DIMS}, qk_rope_head_dim in {_ROPE_DIMS} "
+                         f"and page_tokens in {_PAGE_TOKENS}; got dc={dc}, "
+                         f"dr={dr}, T={T}")
     _contiguous(pool_c, pool_kr)
     table, lens, qls = _row_args(B, dev, block_table, lengths, q_lens)
     q_c, q_r = q_c.contiguous(), q_r.contiguous()
     out = torch.empty_like(q_c)
+    MP = table.shape[1]
+    # the split route's partition states, folded by the combine kernel
+    scratch = torch.empty(max(mla_scratch_floats(L, B, Qm, H, dc, MP), 1),
+                          dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _fn(MLA_SOURCE, "mla_paged_attention_layers_ragged_launch", 8, 9)(
+    rc = _fn(MLA_SOURCE, "mla_paged_attention_layers_ragged_launch", 9, 9)(
         q_c.data_ptr(), q_r.data_ptr(), pool_c.data_ptr(),
         pool_kr.data_ptr(), table.data_ptr(), lens.data_ptr(),
-        qls.data_ptr(), out.data_ptr(), L, B, Qm, H, dc, dr, P, T,
-        table.shape[1], float(scale), _DTYPE_CODE[pool_c.dtype], stream)
+        qls.data_ptr(), out.data_ptr(), scratch.data_ptr(), L, B, Qm, H, dc,
+        dr, P, T, MP, float(scale), _DTYPE_CODE[pool_c.dtype], stream)
     check_launch(rc, "mla_paged_attention_ragged")
     return out
 

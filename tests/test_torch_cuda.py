@@ -705,3 +705,142 @@ def test_flash_bf16_tensor_core_kernel(cuda_device, case):
     part = kernels.flash_attention(q[:, -tail:].contiguous(), k, v,
                                    causal=causal)
     assert torch.equal(_bits(part), _bits(out[:, -tail:]))
+
+
+# ------------------------------------ MLA: tensor cores, split-KV routes
+def _mla_pages_per_part():
+    """The pages of one MLA split-KV partition, as the built kernel has it."""
+    return c_entry(ops.MLA_SOURCE, "mla_paged_attention_pages_per_part", [])()
+
+
+def _mla_split_inputs(ctx, q_lens, *, H, dc, dr, T=16, L=None, seed=31):
+    """A latent pool, table and queries for rows of the given contexts and
+    chunk lengths; the table is one page wider than the longest row.
+    Returns (q_c, q_r, pool_c, pool_kr, table, lengths, q_lens, scale)."""
+    rng = np.random.default_rng(seed)
+    B, Qm = len(ctx), max(max(q_lens), 1)
+    lengths = np.asarray(ctx) + np.asarray(q_lens)
+    MP = int(-(-lengths.max() // T)) + 1
+    P = B * MP + 3
+    lead = (L,) if L else ()
+    f = lambda *s: torch.from_numpy(                          # noqa: E731
+        rng.standard_normal(lead + s).astype(np.float32))
+    table = torch.from_numpy(rng.permutation(P)[:B * MP].reshape(B, MP)
+                             .astype(np.int32))
+    return (f(B, Qm, H, dc), f(B, Qm, H, dr), f(P, T, dc), f(P, T, dr),
+            table, torch.tensor(lengths, dtype=torch.int32),
+            torch.tensor(q_lens, dtype=torch.int32),
+            float(1.0 / np.sqrt(dc + dr)))
+
+
+def _on(dev, pool_dtype, inputs):
+    q_c, q_r, pc, pkr, *rows, scale = inputs
+    return (q_c.to(dev), q_r.to(dev), pc.to(dev, pool_dtype),
+            pkr.to(dev, pool_dtype), *(t.to(dev) for t in rows), scale)
+
+
+def _mla_check(out, q_c, q_r, pc, pkr, tbl, lens, qls, scale):
+    """Against the plain fp32 version on the same pool values, padding
+    slots 0, and q_len == 1 rows bit for bit the decode entry."""
+    ref = mla_paged_attention_ragged_ref(q_c, q_r, pc.float(), pkr.float(),
+                                         tbl, lens, qls, scale=scale)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=4e-5)
+    for b in range(q_c.shape[0]):
+        assert torch.all(out[b, int(qls[b]):] == 0)
+    ones = (qls == 1).nonzero().flatten()
+    if len(ones):
+        d1 = ops.mla_paged_attention(q_c[:, 0], q_r[:, 0], pc, pkr, tbl,
+                                     lens, scale=scale)
+        assert torch.equal(_bits(out[ones, 0]), _bits(d1[ones]))
+
+
+# (dc, dr, H, Qmax): at H 128, dc 512 a split-route scratch holds 8 queries
+_MLA_WIDTHS = [(64, 32, 16, 128), (512, 64, 128, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dc,dr,H,Qm", _MLA_WIDTHS)
+def test_mla_split_route_is_the_in_block_fold(cuda_device, pool_dtype, dc,
+                                              dr, H, Qm):
+    """The same rows under a narrow table (the split route: scratch and a
+    combine kernel) and a table wide enough that the scratch would pass
+    the 128 MiB cap (the in-block fold): identical bits, and both hold
+    the plain version. Rows of one to four partitions, a q_len == 1 row
+    and a q_len == 0 row."""
+    edge = _mla_pages_per_part() * 16
+    inputs = _on(cuda_device, pool_dtype, _mla_split_inputs(
+        [3 * edge + 7, edge - 9, 40, 5], [Qm, min(50, Qm - 3), 1, 0], H=H,
+        dc=dc, dr=dr))
+    q_c, q_r, pc, pkr, tbl, lens, qls, scale = inputs
+    B, MP = tbl.shape
+    width = MP
+    while ops.mla_scratch_floats(1, B, Qm, H, dc, width) > 0:
+        width += 64
+    assert ops.mla_scratch_floats(1, B, Qm, H, dc, MP) > 0      # split
+    wide = torch.cat([tbl, tbl[:, :1].repeat(1, width - MP)], dim=1)
+    split = ops.mla_paged_attention_ragged(q_c, q_r, pc, pkr, tbl, lens, qls,
+                                           scale=scale)
+    folded = ops.mla_paged_attention_ragged(q_c, q_r, pc, pkr, wide, lens,
+                                            qls, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(split), _bits(folded))
+    _mla_check(split, *inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qmax", [1, 128])
+def test_mla_dead_slots_nan_inf_change_no_bit(cuda_device, pool_dtype,
+                                              qmax):
+    """Dead slots (past each row's length in its last page, whole pages
+    past its live ones) poisoned with NaN, +inf and -inf, and stale table
+    tails: no output bit moves, on either route."""
+    edge = _mla_pages_per_part() * 16
+    q_lens = [1, 1, 1] if qmax == 1 else [qmax, 57, 0]
+    inputs = _on(cuda_device, pool_dtype, _mla_split_inputs(
+        [2 * edge + 3, 70, 11], q_lens, H=128, dc=512, dr=64, seed=32))
+    q_c, q_r, pc, pkr, tbl, lens, qls, scale = inputs
+    out = ops.mla_paged_attention_ragged(q_c, q_r, pc, pkr, tbl, lens, qls,
+                                         scale=scale)
+    T = pc.shape[1]
+    dead = torch.zeros(pc.shape[:2], dtype=torch.bool)
+    tbl2 = tbl.clone()
+    for b, n in enumerate(lens.tolist()):
+        live = -(-n // T)
+        if n % T:
+            dead[int(tbl[b, live - 1]), n % T:] = True
+        for lp in range(live, tbl.shape[1]):
+            dead[int(tbl[b, lp])] = True
+            tbl2[b, lp] = (-7, 10 ** 6, 3, 0)[lp % 4]    # stale tails
+    for poison in (float("nan"), float("inf"), float("-inf")):
+        pc2, pkr2 = pc.clone(), pkr.clone()
+        pc2[dead.to(cuda_device)], pkr2[dead.to(cuda_device)] = poison, poison
+        got = ops.mla_paged_attention_ragged(q_c, q_r, pc2, pkr2, tbl2, lens,
+                                             qls, scale=scale)
+        assert torch.equal(_bits(got), _bits(out)), poison
+    _mla_check(out, *inputs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dc,dr", [(64, 32), (512, 64)])
+@pytest.mark.parametrize("H", [128, 20])
+def test_mla_row_tile_tails(cuda_device, pool_dtype, dc, dr, H):
+    """Qmax * H tails: q_len 57 at Qmax 128 with H = 128, and an H that is
+    no multiple of the 64-row tile (rows of two queries share a tile);
+    against the plain version, padding 0, and each query of the chunk bit
+    for bit the same query decoded alone at its own length."""
+    inputs = _on(cuda_device, pool_dtype, _mla_split_inputs(
+        [300, 90, 0], [57, 128, 3], H=H, dc=dc, dr=dr, seed=33))
+    q_c, q_r, pc, pkr, tbl, lens, qls, scale = inputs
+    out = ops.mla_paged_attention_ragged(q_c, q_r, pc, pkr, tbl, lens, qls,
+                                         scale=scale)
+    torch.cuda.synchronize()
+    _mla_check(out, *inputs)
+    pos0 = int(lens[0]) - int(qls[0])
+    for i in (0, 29, 56):
+        alone = ops.mla_paged_attention(
+            q_c[:, i], q_r[:, i], pc, pkr, tbl,
+            torch.full_like(lens, pos0 + i + 1), scale=scale)
+        assert torch.equal(_bits(out[0, i]), _bits(alone[0])), i

@@ -197,6 +197,40 @@ def test_plain_mla_matches_jax_kernel(layer):
     assert torch.equal(r1[:, 0], dec_t)
 
 
+# DeepSeek-V2's MLA widths (128 heads share each latent page: the shape the
+# CUDA kernel's 64-row tiles are cut for), a few 16-token pages, ragged
+# q_lens including 0
+@pytest.mark.parametrize("pool_dtype", ["float32", "bfloat16"])
+def test_plain_mla_matches_jax_kernel_at_deepseek_widths(pool_dtype):
+    B, Qm, H, dc, dr, T, MP = 3, 3, 128, 512, 64, 16, 3
+    P = B * MP + 2
+    rng = np.random.default_rng(35)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    (q_c_j, q_c), (q_r_j, q_r) = _both(f(B, Qm, H, dc), "float32"), \
+        _both(f(B, Qm, H, dr), "float32")
+    (pc_j, pc), (pkr_j, pkr) = _both(f(P, T, dc), pool_dtype), \
+        _both(f(P, T, dr), pool_dtype)
+    tbl = rng.permutation(P)[:B * MP].reshape(B, MP).astype(np.int32)
+    lens = np.array([40, 17, 9], np.int32)
+    qls = np.array([3, 0, 2], np.int32)
+    scale = float(1.0 / np.sqrt(128 + 64))
+    out_j = jax_mla_ragged(q_c_j, q_r_j, pc_j, pkr_j, jnp.asarray(tbl),
+                           jnp.asarray(lens), jnp.asarray(qls), scale=scale,
+                           force_pallas=True)
+    rows = tuple(torch.from_numpy(a) for a in (tbl, lens, qls))
+    out_t = mla_paged_attention_ragged_ref(q_c, q_r, pc, pkr, *rows,
+                                           scale=scale)
+    _close(out_t, out_j, "float32")
+    for b in range(B):
+        assert torch.all(out_t[b, int(qls[b]):] == 0.0), b
+    dec_j = jax_mla_paged_attention(q_c_j[:, 0], q_r_j[:, 0], pc_j, pkr_j,
+                                    jnp.asarray(tbl), jnp.asarray(lens),
+                                    scale=scale, force_pallas=True)
+    dec_t = mla_paged_attention_ref(q_c[:, 0], q_r[:, 0], pc, pkr, rows[0],
+                                    rows[1], scale=scale)
+    _close(dec_t, dec_j, "float32")
+
+
 def test_plain_q8_contract_edges():
     """int8 pool: padding slots and q_len == 0 rows exactly zero; dead
     codes at ±127 with scales at 1e6 and stale table tails change nothing;
