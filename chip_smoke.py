@@ -68,12 +68,36 @@ each raises on failure, and any failure ends the run with a traceback:
                 phase 3's requests.
 9. parity-mla — 4 layers of it at full width in fp32: fused and unfused
                 runs token-identical to ``generate_sequential()``.
-10. serve-long — full-width InternLM2-1.8B in bf16, whole-prompt prefill
+10. serve-spec — phase 3 with speculative decode: ``speculate_k = 4``
+                draft tokens a decode row from the n-gram proposer, so
+                decode rows run the ragged kernel at Qmax 8.
+11. parity-spec — 4 layers at full width in fp32, dense, int8 and MLA:
+                speculative ``generate()`` (drafts from the reference's
+                own continuation, corrupted from the third on, so every
+                decode tick accepts some drafts and rolls the rest back)
+                token-identical to the sequential reference (int8: the
+                chunk-aware one).
+12. serve-prefix — full-width InternLM2-1.8B in bf16: 8 requests share a
+                384-token prefix, each with its own 32–256-token tail;
+                the first publishes the prefix, the other 7 splice it
+                from the prefix cache (4096 tokens) and prefill only
+                their tails; the same requests without the cache for
+                comparison. Then a 4-layer fp32 run on a pool tight
+                enough to preempt, with duplicates that copy-on-write
+                their shared boundary page: token-identical.
+13. crash-recover — 4 layers at full width in fp32: a journaled run
+                crashed at a mid-run tick by a scripted fault plan and
+                recovered by a fresh engine sharing the journal; then an
+                unfused run on a tight pool whose spilled pages come back
+                lost (``page_loss_rate``) and whose transfers fail and
+                stall (async tiering). Both token-identical to the
+                uninterrupted sequential reference.
+14. serve-long — full-width InternLM2-1.8B in bf16, whole-prompt prefill
                 (no prefill chunks) of prompts of 4096, 3072, 2048 and
                 1100 tokens through the flash-attention kernel, 32 new
                 tokens each, 2 GiB pool: one flash launch per layer and
                 prompt.
-11. parity-long — full width in fp32, prompts of 1100 and 2048 tokens, 8
+15. parity-long — full width in fp32, prompts of 1100 and 2048 tokens, 8
                 new tokens: ``generate()`` against
                 ``generate_sequential()``; then ``LM.prefill`` of the
                 2048-token prompt through the flash kernel against the
@@ -134,6 +158,9 @@ KERNELS = {
 GEOM = dict(B=8, H=16, K=8, D=128, T=16, MP=64)
 MLA_GEOM = dict(B=8, H=128, dc=512, dr=64, T=16, MP=64)
 CHUNK = 128                  # serve phases' prefill chunk = kernel Qmax
+SPEC_K = 4                   # draft tokens a decode row: Qmax bucket 8
+PREFIX_TOKENS = 384          # serve-prefix's shared prompt head
+PREFIX_MAX_LEN = 688         # the head, a 256-token tail and 32 new tokens
 LAYERS, MLA_LAYERS = 24, 8   # depth of the multi-layer kernel cases
 # one InternLM2-1.8B layer of a 4096-token prefill
 FLASH_GEOM = dict(B=1, S=4096, H=16, K=8, D=128)
@@ -880,13 +907,18 @@ def requests_of(lens, max_new, vocab, seed):
                     max_new=max_new) for i, n in enumerate(lens)]
 
 
-def engine(model, dev, *, hbm, fuse=True, max_len=560, chunk=CHUNK):
+def engine(model, dev, *, hbm, fuse=True, max_len=560, chunk=CHUNK,
+           prefix_tokens=0, async_tiering=False, **features):
+    """The serve phases' engine; ``features`` go to ``ServeConfig``
+    (``speculate_k``, ``draft_proposer``, ``journal``, ``fault_plan``)."""
     from repro_torch.core.engines import EngineSpec
     from repro_torch.serving import ServeConfig, ServingEngine
     return ServingEngine(model, ServeConfig(
         max_len=max_len, page_tokens=16, max_batch_seqs=8,
         prefill_chunk_tokens=chunk, fuse_ticks=fuse,
-        engine_spec=EngineSpec(engine="paged", kv_hbm_bytes=hbm)),
+        engine_spec=EngineSpec(engine="paged", kv_hbm_bytes=hbm,
+                               prefix_cache_tokens=prefix_tokens,
+                               async_tiering=async_tiering), **features),
         device=dev)
 
 
@@ -1220,6 +1252,329 @@ def unfused(torch, dev, seed, what, model4, ref4, entry, ragged,
     return counts
 
 
+# ---------------------------------------------------------- phases 10-13
+class ReferenceDrafts:
+    """Draft proposer of the parity phases: the sequential reference's own
+    greedy continuation, every draft from the ``wrong_at``-th on
+    corrupted, so each decode tick accepts some drafts and rolls the rest
+    back. Whether a draft is accepted is still decided by the pooled
+    run's own argmax."""
+
+    def __init__(self, ref, wrong_at, vocab):
+        self.full = {r.rid: [int(t) for t in r.prompt] + list(r.generated)
+                     for r in ref}
+        self.wrong_at, self.vocab = wrong_at, vocab
+
+    def propose(self, seq, tokens, k):
+        full, n = self.full[seq], len(tokens)
+        return [(full[n + j] + (j >= self.wrong_at)) % self.vocab
+                for j in range(min(k, len(full) - n))]
+
+    def drop(self, seq):
+        pass
+
+
+def qmax_launches(entry, qmax):
+    return entry.launches_by_qmax.get(qmax, 0)
+
+
+def serve_spec(torch, dev, seed, model):
+    """Phase 10: phase 3's workload with ``speculate_k = SPEC_K`` drafts
+    from the n-gram proposer, with the launch counts set to 0 just before
+    and read just after. Returns (every entry's launches, #1's launches
+    at Qmax 8)."""
+    import repro_torch.kernels as ops
+    cfg = model.cfg
+    reqs = requests(8, 64, 512, 32, cfg.vocab_size, seed)
+    eng = engine(model, dev, hbm=1 << 30, speculate_k=SPEC_K)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(ops)
+    entry = ops.paged_attention_ragged
+    q8 = qmax_launches(entry, 8)
+    others = {k: n for k, n in counts.items() if k != entry.__name__ and n}
+    s = eng.stats()
+    if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
+        raise AssertionError("serve-spec: a request did not finish in vocab")
+    if s["mirror_d2h_bytes"] != 0 or s["step_calls"] != s["sched_ticks"]:
+        raise AssertionError(f"serve-spec: mirror bytes "
+                             f"{s['mirror_d2h_bytes']}, step_calls "
+                             f"{s['step_calls']} for {s['sched_ticks']} ticks")
+    if entry.launches != cfg.num_layers * s["step_calls"] or others \
+            or s["spec_proposed"] <= 0 or q8 <= 0:
+        raise AssertionError(f"serve-spec: {entry.launches} launches ({q8} "
+                             f"at Qmax 8) for {s['step_calls']} steps, "
+                             f"{s['spec_proposed']} drafts; others {others}")
+    new = sum(len(r.generated) for r in reqs)
+    log(f"[serve-spec] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
+        f"speculate_k {SPEC_K} (n-gram drafts): {new} new tokens in "
+        f"{wall:.3f} s = {new / wall:.2f} tok/s (incl. prefill); ticks "
+        f"{s['sched_ticks']}, decode row-steps {s['sched_decode_rows']}, "
+        f"spec_proposed {s['spec_proposed']}, spec_accepted "
+        f"{s['spec_accepted']}, rejected "
+        f"{s['spec_proposed'] - s['spec_accepted']}; {entry.__name__} "
+        f"launches {entry.launches} by Qmax {entry.launches_by_qmax}, "
+        f"mirror_d2h_bytes {s['mirror_d2h_bytes']}")
+    return counts, q8
+
+
+def parity_spec(torch, dev, seed, what, cfg, entry, *,
+                kv_cache_dtype="native", first=None):
+    """Phase 11, one family: 4 layers at full width in fp32, speculative
+    ``generate()`` (``ReferenceDrafts``) against the sequential reference
+    (``first`` selects the chunk-aware one); needs accepted AND rejected
+    drafts and ``entry`` launched at Qmax 8. Returns (every entry's
+    launches, ``entry``'s launches at Qmax 8)."""
+    import repro_torch.kernels as ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    model4 = make_model(torch, cfg4, torch.float32, dev, seed, kv_cache_dtype)
+    ref = reference(torch, model4, dev,
+                    requests(4, 64, 400, 16, cfg.vocab_size, seed + 2), first)
+    got = requests(4, 64, 400, 16, cfg.vocab_size, seed + 2)
+    eng = engine(model4, dev, hbm=1 << 30, speculate_k=SPEC_K,
+                 draft_proposer=ReferenceDrafts(ref, 2, cfg.vocab_size))
+    ops.reset_launch_counts()
+    eng.generate(got)
+    torch.cuda.synchronize()
+    counts = launch_counts(ops)
+    q8 = qmax_launches(entry, 8)
+    others = {k: n for k, n in counts.items() if n and k != entry.__name__}
+    s = eng.stats()
+    if not 0 < s["spec_accepted"] < s["spec_proposed"] or q8 <= 0 \
+            or entry.launches != 4 * s["step_calls"] or others:
+        raise AssertionError(
+            f"{what}: spec_accepted {s['spec_accepted']} of "
+            f"{s['spec_proposed']}, {entry.launches} launches ({q8} at Qmax "
+            f"8) for {s['step_calls']} steps; others {others}")
+    check_identical(torch, model4, got, ref, what, first)
+    ref_name = ("generate_sequential()" if first is None
+                else "the chunk-aware sequential reference")
+    log(f"[{what}] 4-layer fp32 {eng.desc.family} pool, speculate_k "
+        f"{SPEC_K}: generate() == {ref_name}"
+        f" on {len(got)} requests x 16 tokens; spec_proposed "
+        f"{s['spec_proposed']}, spec_accepted {s['spec_accepted']}, ticks "
+        f"{s['sched_ticks']}, {entry.__name__} launches {entry.launches} by "
+        f"Qmax {entry.launches_by_qmax}")
+    del model4, eng
+    free(torch)
+    return counts, q8
+
+
+def prefix_requests(n, max_new, vocab, seed, tails=(32, 256)):
+    """``n`` requests that share a ``PREFIX_TOKENS``-token head, each with
+    its own tail of ``tails[0]``–``tails[1]`` tokens."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, vocab, PREFIX_TOKENS, dtype=np.int32)
+    return [Request(rid=i, prompt=np.concatenate([head, rng.integers(
+        0, vocab, int(rng.integers(tails[0], tails[1] + 1)),
+        dtype=np.int32)]), max_new=max_new) for i in range(n)]
+
+
+def serve_prefix(torch, dev, seed, model):
+    """Phase 12, full width: the first request publishes the shared head,
+    the other 7 splice it from the prefix cache; then the same requests
+    through an engine without the cache. Each run with the launch counts
+    set to 0 just before and read just after. Returns every entry's
+    launches over both runs."""
+    import repro_torch.kernels as ops
+    cfg = model.cfg
+    served = collections.Counter()
+    walls = {}
+    for cache in (4096, 0):
+        reqs = prefix_requests(8, 32, cfg.vocab_size, seed + 5)
+        eng = engine(model, dev, hbm=1 << 30, max_len=PREFIX_MAX_LEN,
+                     prefix_tokens=cache)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        eng.generate(reqs[:1])
+        eng.generate(reqs[1:])
+        torch.cuda.synchronize()
+        walls[cache] = time.perf_counter() - t0
+        counts = launch_counts(ops)
+        served.update(counts)
+        s = eng.stats()
+        launches = counts["paged_attention_ragged"]
+        others = {k: n for k, n in counts.items()
+                  if n and k != "paged_attention_ragged"}
+        hits = 7 if cache else 0
+        if s["prefix_hits"] != hits \
+                or s["prefix_tokens_reused"] != hits * PREFIX_TOKENS \
+                or s["prefill_calls"] != (1 if cache else 8) \
+                or s["mirror_d2h_bytes"] != 0 or others \
+                or launches != cfg.num_layers * s["step_calls"] \
+                or not all(r.done and len(r.generated) == 32 for r in reqs):
+            raise AssertionError(
+                f"serve-prefix (cache {cache}): hits {s['prefix_hits']}, "
+                f"reused {s['prefix_tokens_reused']}, prefill_calls "
+                f"{s['prefill_calls']}, {launches} launches for "
+                f"{s['step_calls']} steps, others {others}")
+        new = sum(len(r.generated) for r in reqs)
+        log(f"[serve-prefix] {cfg.name} {cfg.num_layers} layers, "
+            f"{model.dtype}, prefix_cache_tokens {cache}: prompts "
+            f"{[len(r.prompt) for r in reqs]} ({PREFIX_TOKENS}-token shared "
+            f"head), {new} new tokens in {walls[cache]:.3f} s = "
+            f"{new / walls[cache]:.2f} tok/s (incl. prefill); prefix_hits "
+            f"{s['prefix_hits']}, prefix_tokens_reused "
+            f"{s['prefix_tokens_reused']}, prefill_calls "
+            f"{s['prefill_calls']}, sched_prefill_chunks "
+            f"{s['sched_prefill_chunks']}, ticks {s['sched_ticks']}, "
+            f"paged_attention_ragged launches {launches}")
+        del eng
+    log(f"[serve-prefix] wall with the cache / without: "
+        f"{walls[4096]:.3f} / {walls[0]:.3f} s")
+    return served
+
+
+# the 4-layer prefix parity run: 16-token pages, a pool of 44 pages
+# (max_pages 43 + 1), 128-token chunks; requests 0, 1, 3 and 5 are one
+# 424-token prompt (the head and a 40-token tail: a splice covers 423
+# tokens, so its boundary page is shared mid-page), 2 and 4 other tails
+PREFIX_PARITY = dict(pages=44, dups=(0, 1, 3, 5), dup_tail=40,
+                     tails=(40, 200))
+
+
+def prefix_parity(torch, dev, seed, cfg):
+    """Phase 12, parity: 4 layers at full width in fp32 on a pool tight
+    enough to preempt. Request 0 publishes the shared head and its own
+    tail; the other 5 then splice it, and the duplicates of request 0 share
+    its mid-page boundary page and copy it on their first write. Needs
+    prefix hits, copies, preemption and spills, and token-identical
+    output. Returns every entry's launches."""
+    import repro_torch.kernels as ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    model4 = make_model(torch, cfg4, torch.float32, dev, seed)
+
+    def reqs():
+        rs = prefix_requests(6, 16, cfg.vocab_size, seed + 6,
+                             PREFIX_PARITY["tails"])
+        dup = rs[0].prompt[:PREFIX_TOKENS + PREFIX_PARITY["dup_tail"]]
+        for i in PREFIX_PARITY["dups"]:
+            rs[i].prompt = dup.copy()
+        return rs
+    ref = engine(model4, dev, hbm=1 << 30, max_len=PREFIX_MAX_LEN
+                 ).generate_sequential(reqs())
+    got = reqs()
+    group = model4.cache_descriptor(16).page_group_bytes
+    eng = engine(model4, dev, hbm=PREFIX_PARITY["pages"] * group,
+                 max_len=PREFIX_MAX_LEN, prefix_tokens=4096)
+    ops.reset_launch_counts()
+    eng.generate(got[:1])
+    eng.generate(got[1:])
+    torch.cuda.synchronize()
+    counts = launch_counts(ops)
+    s = eng.stats()
+    if s["prefix_hits"] <= 0 or s["cow_copies"] <= 0 or s["preempts"] <= 0 \
+            or s["pool_page_spills"] <= 0:
+        raise AssertionError(
+            f"prefix-parity: hits {s['prefix_hits']}, cow_copies "
+            f"{s['cow_copies']}, preempts {s['preempts']}, spills "
+            f"{s['pool_page_spills']}")
+    check_identical(torch, model4, got, ref, "prefix-parity",
+                    max_len=PREFIX_MAX_LEN)
+    log(f"[serve-prefix] 4-layer fp32 tight pool ({eng.tiered.pool_pages} "
+        f"pages) with the prefix cache: token-identical to "
+        f"generate_sequential(), prefix_hits {s['prefix_hits']}, "
+        f"prefix_tokens_reused {s['prefix_tokens_reused']}, cow_copies "
+        f"{s['cow_copies']}, shared_pages {s['shared_pages']}, preempts "
+        f"{s['preempts']}, pool_page_spills {s['pool_page_spills']}")
+    del model4, eng
+    free(torch)
+    return counts
+
+
+CRASH_TICK = 8              # mid-run: after the prompts, inside decode
+# the lossy run: unfused ticks on a 50-page pool (max_pages 35 + 15) spill
+# pages of running rows; every fault-in is lost or slowed with this rate
+LOSS = dict(pages=50, rate=0.5, seed=0)
+
+
+def crash_recover(torch, dev, seed, cfg):
+    """Phase 13: 4 layers at full width in fp32. A journaled run crashed at
+    ``CRASH_TICK`` and recovered by a fresh engine sharing the journal;
+    then an unfused lossy run (lost spilled pages, failing and stalled
+    async transfers). Both against the sequential reference. Returns every
+    entry's launches over both runs."""
+    import repro_torch.kernels as ops
+    from repro_torch.serving.faults import CrashFault, FaultEvent, FaultPlan
+    from repro_torch.serving.journal import ServingJournal
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg4 = dataclasses.replace(cfg, num_layers=4)
+    model4 = make_model(torch, cfg4, torch.float32, dev, seed)
+    ref = reference(torch, model4, dev,
+                    requests(4, 64, 400, 16, cfg.vocab_size, seed + 2), None)
+    served = collections.Counter()
+    journal = ServingJournal()
+    plan = FaultPlan(script=(FaultEvent(CRASH_TICK, "crash"),))
+    ops.reset_launch_counts()
+    try:
+        engine(model4, dev, hbm=1 << 30, journal=journal,
+               fault_plan=plan).generate(
+            requests(4, 64, 400, 16, cfg.vocab_size, seed + 2))
+    except CrashFault:
+        pass
+    else:
+        raise AssertionError("crash-recover: the fault plan did not crash")
+    state, tick = journal.replay()
+    if tick != CRASH_TICK or not any(0 < len(t) < 16
+                                     for t in state.values()):
+        raise AssertionError(f"crash-recover: journal at tick {tick} holds "
+                             f"{ {r: len(t) for r, t in state.items()} }")
+    got = requests(4, 64, 400, 16, cfg.vocab_size, seed + 2)
+    eng = engine(model4, dev, hbm=1 << 30, journal=journal)
+    eng.recover(got)
+    torch.cuda.synchronize()
+    served.update(launch_counts(ops))
+    check_identical(torch, model4, got, ref, "crash-recover")
+    s = eng.stats()
+    log(f"[crash-recover] 4-layer fp32: crashed at tick {tick} with "
+        f"{ {r: len(t) for r, t in sorted(state.items())} } tokens "
+        f"journaled; a fresh engine recovered to generate_sequential()'s "
+        f"tokens (journal_appends {s['journal_appends']}, journal_bytes "
+        f"{s['journal_bytes']}, resumed ticks {s['sched_ticks']})")
+    got = requests(4, 64, 400, 16, cfg.vocab_size, seed + 2)
+    group = model4.cache_descriptor(16).page_group_bytes
+    rate = LOSS["rate"]
+    eng = engine(model4, dev, hbm=LOSS["pages"] * group, fuse=False,
+                 async_tiering=True, fault_plan=FaultPlan(
+                     seed=LOSS["seed"], page_loss_rate=rate,
+                     transfer_fail_rate=rate, transfer_delay_rate=rate,
+                     script=(FaultEvent(3, "shard_stall", 1, 1e-3),)))
+    ops.reset_launch_counts()
+    eng.generate(got)
+    torch.cuda.synchronize()
+    served.update(launch_counts(ops))
+    s = eng.stats()
+    if s["host_pages_lost"] <= 0 or s["sched_rows_shed"] <= 0:
+        raise AssertionError(f"crash-recover: no page lost "
+                             f"({s['host_pages_lost']}, shed "
+                             f"{s['sched_rows_shed']}, spills "
+                             f"{s['pool_page_spills']})")
+    check_identical(torch, model4, got, ref, "crash-recover-lossy")
+    log(f"[crash-recover] 4-layer fp32 unfused, {eng.tiered.pool_pages}-page "
+        f"pool, fault rate {rate}: token-identical with host_pages_lost "
+        f"{s['host_pages_lost']}, rows shed {s['sched_rows_shed']}, "
+        f"pool_faults {s['pool_faults']}, transfer_retries "
+        f"{s['transfer_retries']}, transfer_failures "
+        f"{s['transfer_failures']}, degraded ticks "
+        f"{s['sched_degraded_ticks']}, preempts {s['preempts']}")
+    del model4, eng
+    free(torch)
+    return served
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1316,6 +1671,35 @@ def main(argv=None) -> int:
     del model4
     free(torch)
     stamp("parity-mla")
+
+    # speculative decode: decode rows at Qmax 8 through #1, #5 and #7
+    model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
+    counts, q8 = serve_spec(torch, dev, args.seed, model)
+    rows["paged_attention_ragged"]["qmax8_launches"] = {"serve-spec": q8}
+    served.update(counts)
+    del model
+    free(torch)
+    stamp("serve-spec")
+    for what, cfg, kd, entry, first in (
+            ("parity-spec", dense, "native", ops.paged_attention_ragged,
+             None),
+            ("parity-spec-int8", dense, "int8",
+             ops.paged_attention_ragged_q8, CHUNK),
+            ("parity-spec-mla", mla, "native",
+             ops.mla_paged_attention_ragged, None)):
+        counts, q8 = parity_spec(torch, dev, args.seed, what, cfg, entry,
+                                 kv_cache_dtype=kd, first=first)
+        rows[entry.__name__].setdefault("qmax8_launches", {})[what] = q8
+        served.update(counts)
+    stamp("parity-spec")
+    model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
+    served.update(serve_prefix(torch, dev, args.seed, model))
+    del model
+    free(torch)
+    served.update(prefix_parity(torch, dev, args.seed, dense))
+    stamp("serve-prefix")
+    served.update(crash_recover(torch, dev, args.seed, dense))
+    stamp("crash-recover")
 
     model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
     counts = serve_long(torch, dev, args.seed, model)

@@ -146,11 +146,11 @@ def _mla_planes(cfg, kv_cache_dtype, compute_dtype):
             (), "mla")
 
 
-def _not_ported(family: str, item: str):
+def _not_ported(family: str, entry: str):
     def build(cfg, kv_cache_dtype, compute_dtype):
         raise NotImplementedError(
             f"the {family} cache family is not ported yet (ROADMAP.md, "
-            f"modules to port, item {item})")
+            f"queue 1: {entry})")
     return build
 
 
@@ -165,7 +165,8 @@ _FAMILY_BUILDERS: tuple = (
      and kd == "int8" and cfg.family != "moe", _int8_planes),
     ("dense", lambda cfg, kd: _is_attn(cfg) and cfg.mla is None,
      _dense_planes),
-    ("ssm", lambda cfg, kd: cfg.family == "ssm", _not_ported("SSM", "10")),
+    ("ssm", lambda cfg, kd: cfg.family == "ssm", _not_ported(
+        "SSM", "Families: the other dense configs, MoE and SSM")),
     # hybrid and encdec have no pooled layout: no entry → None
 )
 

@@ -188,6 +188,11 @@ class KVCacheEngine(abc.ABC):
     # async pipeline (log, kvhybrid — no tier transfers to fail) keep the
     # no-op defaults; pooled engines forward them to their TransferPipeline.
 
+    def set_fault_injector(self, injector) -> None:
+        """Attach a :class:`~repro_torch.serving.faults.FaultInjector` so
+        tier transfers (and spilled-host-page reads) can fail
+        deterministically. No-op on engines without a transfer pipeline."""
+
     def abort_step(self, seqs: Sequence[int]) -> None:
         """Roll back an in-flight prepared step for ``seqs`` (exception
         between ``prepare_step`` and ``commit_step``): unpin the batch and
@@ -314,6 +319,59 @@ class KVCacheEngine(abc.ABC):
         ``(k, v)`` special case of :meth:`commit_prefill_planes`."""
         raise RuntimeError(
             f"KV engine {self.engine_name!r} has no paged pool")
+
+    # --------------------------------------------------------- prefix sharing
+    # Cross-request KV reuse: a prefix index (the token radix trie in
+    # repro_torch.serving.prefix_cache) maps shared token prefixes to pool
+    # pages; admission of a cache-hit prompt splices the new sequence's
+    # block table onto those pages (adopt_pages — zero prefill compute for
+    # the covered prefix), the first divergent write triggers copy-on-write
+    # of the boundary page, and eviction/spill becomes refcount-aware: a
+    # page is freed only when no sequence references it AND the index has
+    # unpinned it. The index object registered through set_share_index must
+    # provide: ``reclaim_one() -> Optional[int]`` (evict one idle indexed
+    # page, freeing it), ``forget_phys(phys)`` (drop the index entry for a
+    # page the engine is about to spill), ``on_seq_dropped(seq)`` and
+    # ``on_cow(seq, phys)`` (refcount bookkeeping callbacks).
+
+    def supports_sharing(self) -> bool:
+        """True when block tables may alias pool pages across sequences
+        (refcounted pages + copy-on-write divergence)."""
+        return False
+
+    def set_share_index(self, index) -> None:
+        """Register the prefix index that pins shared pages (see above)."""
+        raise RuntimeError(
+            f"KV engine {self.engine_name!r} does not support prefix "
+            f"sharing; check supports_sharing() first")
+
+    def adopt_pages(self, seq: int, pages: Sequence[int],
+                    covered_tokens: int) -> None:
+        """Admission splice: point ``seq``'s (empty) block table at shared
+        pool pages covering its first ``covered_tokens`` prompt tokens.
+        Pure metadata — refcounts go up, no KV moves, no compute runs."""
+        raise RuntimeError(
+            f"KV engine {self.engine_name!r} does not support prefix "
+            f"sharing")
+
+    def pin_page(self, phys: int) -> None:
+        """Index pin: keep ``phys`` alive (and never spilled) even after
+        every referencing sequence releases."""
+        raise RuntimeError(
+            f"KV engine {self.engine_name!r} does not support prefix "
+            f"sharing")
+
+    def unpin_page(self, phys: int) -> None:
+        """Drop the index pin on ``phys``; frees the page if no sequence
+        references it anymore."""
+        raise RuntimeError(
+            f"KV engine {self.engine_name!r} does not support prefix "
+            f"sharing")
+
+    def page_refs(self, phys: int) -> int:
+        """Live referents of a pool page: sequences whose block tables
+        contain it, plus 1 if the prefix index pins it."""
+        return 0
 
     # ------------------------------------------- descriptor plane surface
     # Cache descriptors: a pooled engine built from a KVSpec

@@ -14,9 +14,15 @@ with the same tier constants the JAX package charges (``HOST_LINK`` and
 ``HBM`` below), so byte counters and simulated-time counters compare 1:1
 with the reference. They are a simulation's inputs, not a GPU's speed.
 
-The ``log`` and ``kvhybrid`` designs, the paged engine's host mode, fault
-injection and the per-sequence state rows of the SSM family wait for later
-slices of the port.
+Pages may be shared: a prefix index (``serving/prefix_cache.py``) pins
+pages, admission splices them into a new sequence's block table, and the
+first write inside a page other live sequences still read copies it
+(copy-on-write). A fault injector (``serving/faults.py``) may fail tier
+transfers and lose spilled host pages.
+
+The ``log`` and ``kvhybrid`` designs, the paged engine's host mode and the
+per-sequence state rows of the SSM family wait for later slices of the
+port.
 """
 from __future__ import annotations
 
@@ -84,9 +90,9 @@ class _TieredKV(KVCacheEngine):
         self._preempted: dict = {}
         self.stats: dict = {"preempts": 0, "restores": 0, "releases": 0,
                             "preempt_out_bytes": 0, "restore_in_bytes": 0,
-                            # prefix-sharing counters — zero until the
-                            # prefix cache is ported; the stats key set
-                            # stays the reference's
+                            # prefix-sharing counters — zero without a
+                            # prefix cache; the stats key set stays the
+                            # reference's
                             "prefix_hits": 0, "prefix_tokens_reused": 0,
                             "cow_copies": 0, "shared_pages": 0,
                             # async-tiering counters — zero without a
@@ -175,6 +181,8 @@ class PagedKVCache(_TieredKV):
         self._pooled = False
         self.async_tiering = bool(async_tiering)
         self._pipeline = None          # TransferPipeline once pooled + async
+        self._share_index = None       # prefix index (set_share_index)
+        self._injector = None          # FaultInjector (set_fault_injector)
         self._xfer_retries = transfer_max_retries
         self._xfer_backoff = transfer_backoff_s
 
@@ -220,7 +228,7 @@ class PagedKVCache(_TieredKV):
         if not desc.has_pages:
             raise NotImplementedError(
                 "state-row descriptors (SSM) are not ported yet (ROADMAP.md, "
-                "modules to port, item 10)")
+                "queue 1: Families: the other dense configs, MoE and SSM)")
         self.desc = desc
         self.device = torch.device(device)
         self._plane_names = tuple(p.name for p in desc.paged_planes)
@@ -240,9 +248,11 @@ class PagedKVCache(_TieredKV):
                                                   device=self.device)
         self.free_pages: list[int] = list(range(self.pool_pages - 1, -1, -1))
         self.pool_lru = LRUList()                    # resident phys pages
-        # page users: phys → {seq: logical}. With prefix sharing (not
-        # ported yet) a page may have several; here each has one
+        # refcounted page users: phys → {seq: logical}. A page may appear in
+        # several sequences' block tables at once (prefix sharing); it is
+        # freed only when its user dict empties AND no index pin remains.
         self.page_users: dict[int, dict[int, int]] = {}
+        self.trie_refs: set[int] = set()             # index-pinned pages
         # spilled pages: (seq, logical) → {plane → (L, T, *shape)} on the host
         self.host_pages: dict[tuple[int, int], dict] = {}
         self._pooled = True
@@ -253,7 +263,8 @@ class PagedKVCache(_TieredKV):
         from repro_torch.serving.tiering import PageHeat, TransferPipeline
         if self.async_tiering:
             self._pipeline = TransferPipeline(
-                self.clock, stats=self.stats, max_retries=self._xfer_retries,
+                self.clock, stats=self.stats, injector=self._injector,
+                max_retries=self._xfer_retries,
                 backoff_s=self._xfer_backoff)
         self._heat = PageHeat()
         self._alloc_seq = 0            # allocation counter (logical time)
@@ -302,7 +313,10 @@ class PagedKVCache(_TieredKV):
         spill); returns the freed physical index.
 
         Only a page with exactly ONE live user — and that user outside the
-        pinned batch — can spill coherently. Eligible candidates rank by
+        pinned batch — can spill coherently; pages aliased by several
+        sequences never spill. A single-user page the prefix index also
+        pins is forgotten from the index first (a pin with no index behind
+        it is dropped). Eligible candidates rank by
         ``(recently_faulted, hotness, LRU rank)``: the coldest page by the
         :class:`~repro_torch.serving.tiering.PageHeat` re-reference model
         first, LRU order breaking ties, just-faulted pages last."""
@@ -310,7 +324,8 @@ class PagedKVCache(_TieredKV):
         for rank, phys in enumerate(self.pool_lru.lru_order()):
             users = self.page_users.get(phys)
             if not users or len(users) > 1:
-                continue               # shared between live sequences
+                continue               # index-only (reclaimed, not spilled)
+                                       # or shared between live sequences
             (seq, logical), = users.items()
             if seq in pinned:
                 continue
@@ -320,9 +335,15 @@ class PagedKVCache(_TieredKV):
                 best = (key, phys, seq, logical)
         if best is None:
             raise RuntimeError(
-                "paged pool exhausted: every resident page is pinned or "
-                "shared — the HBM budget is too small for the running batch")
+                "paged pool exhausted: every resident page is pinned, "
+                "shared, or index-held — the HBM budget is too small for "
+                "the running batch")
         _, phys, seq, logical = best
+        if phys in self.trie_refs:
+            if self._share_index is not None:
+                self._share_index.forget_phys(phys)
+            else:
+                self.trie_refs.discard(phys)
         page = self._page_planes_host(phys)
         nbytes = sum(_nbytes(a) for a in page.values())
         self.host_pages[(seq, logical)] = page
@@ -346,6 +367,23 @@ class PagedKVCache(_TieredKV):
         self._alloc_seq += 1
         if self.free_pages:
             return self.free_pages.pop()
+        # reclaim before spilling: an idle index-held page (no live user)
+        # frees without any D2H traffic — dropping cached prefix KV is
+        # cheaper than spilling a live sequence's page
+        if self._share_index is not None:
+            if self._share_index.reclaim_one() is not None:
+                return self.free_pages.pop()
+        else:
+            # pins without an index object free an idle one directly, so
+            # the headroom the pressure surface counted exists here
+            idle = next((p for p in sorted(self.trie_refs)
+                         if not self.page_users.get(p)), None)
+            if idle is not None:
+                self.trie_refs.discard(idle)
+                self.page_users.pop(idle, None)
+                if idle in self.pool_lru:
+                    self.pool_lru.remove(idle)
+                return idle
         return self._spill_lru_page(pinned)
 
     def _extend_table(self, seq: int, pinned: set) -> None:
@@ -359,7 +397,18 @@ class PagedKVCache(_TieredKV):
     def _fault_page(self, seq: int, logical: int, pinned: set) -> None:
         """Demand fault: bring spilled page ``(seq, logical)`` back from
         the host into a freshly allocated pool slot (H2D one page group),
-        written in place into the device planes."""
+        written in place into the device planes. A page the fault injector
+        declares lost raises :class:`LostPageError` before any allocation,
+        so there is nothing to unwind: the scheduler sheds the row."""
+        if self._injector is not None \
+                and self._injector.page_lost(seq, logical):
+            from repro_torch.serving.faults import LostPageError
+            if self._pipeline is not None:
+                self._pipeline.cancel(("d2h", seq, logical), reclaim=True)
+                self._pipeline.cancel(("h2d", seq, logical), reclaim=True)
+            self.host_pages.pop((seq, logical), None)
+            self.stats["host_pages_lost"] += 1
+            raise LostPageError(seq, logical)
         phys = self._alloc_page(pinned)
         prefetched = False
         retried = False
@@ -496,7 +545,8 @@ class PagedKVCache(_TieredKV):
     def _rewind_step_pages(self, seq: int) -> None:
         """Rollback: drop trailing block-table pages past the committed
         length. Such pages are this step's fresh allocations — sole-user,
-        unpinned — so they return straight to the free list; a trailing
+        unpinned (``_extend_table`` never hands out a shared or index-held
+        page) — so they return straight to the free list; a trailing
         page spilled between prepare and commit drops its dead host copy
         (cancelling its in-flight transfers). The D2H byte counters are
         not rewound: the spill moved real bytes."""
@@ -516,7 +566,7 @@ class PagedKVCache(_TieredKV):
                                           reclaim=True)
                 continue
             users = self.page_users.get(phys, {})
-            if users.keys() - {seq}:
+            if phys in self.trie_refs or users.keys() - {seq}:
                 break
             table.pop()
             users.pop(seq, None)
@@ -559,11 +609,24 @@ class PagedKVCache(_TieredKV):
         self.clock.charge(HBM, "write", n_tokens * self._token_group_bytes())
         self.stats["pool_appends"] += n_tokens
 
+    def _idle_index_pages(self) -> int:
+        """Index-pinned pages with no live user that allocation can actually
+        free on demand. With an index registered, an idle pin reclaims
+        through ``reclaim_one`` only while its trie node is unreferenced,
+        so the count caps at the index's own reclaimable total; with no
+        index object, idle pins free directly in ``_alloc_page``."""
+        idle = sum(1 for p in self.trie_refs if not self.page_users.get(p))
+        if idle == 0 or self._share_index is None:
+            return idle
+        cap = getattr(self._share_index, "reclaimable_pages", None)
+        return idle if cap is None else min(idle, cap())
+
     def can_admit_tokens(self, n_tokens: int) -> bool:
         if not self._pooled:
             return True
         pages_needed = -(-n_tokens // self.spec.page_tokens)
-        return pages_needed + self._reserve_pages() <= len(self.free_pages)
+        return (pages_needed + self._reserve_pages()
+                <= len(self.free_pages) + self._idle_index_pages())
 
     def can_place_step(self, seqs: Sequence[int],
                        n_tokens: Sequence[int]) -> bool:
@@ -572,7 +635,9 @@ class PagedKVCache(_TieredKV):
         spilled page of a batch sequence, plus a possible boundary COW per
         row) must be coverable by free pages plus pages spillable from
         sequences OUTSIDE the batch — because ``prepare_step`` pins the
-        whole batch while allocating."""
+        whole batch while allocating. Shared pages (several live users)
+        never spill, so they don't count; idle index-held pages reclaim
+        for free, so they do."""
         if not self._pooled:
             return True
         T = self.spec.page_tokens
@@ -592,7 +657,8 @@ class PagedKVCache(_TieredKV):
         spillable = sum(
             1 for phys, users in self.page_users.items()
             if len(users) == 1 and next(iter(users)) not in batch)
-        return needed <= len(self.free_pages) + spillable
+        return needed <= (len(self.free_pages) + self._idle_index_pages()
+                          + spillable)
 
     def _reserve_pages(self) -> int:
         """Pages the next decode step will claim: one per active sequence
@@ -631,6 +697,16 @@ class PagedKVCache(_TieredKV):
         if self._pooled and self._pipeline is not None:
             self._pipeline.flush()
 
+    # ------------------------------------------------- faults & recovery
+    def set_fault_injector(self, injector) -> None:
+        """Attach the serving tier's deterministic injector. Transfer
+        fail/delay decisions live in the pipeline; the spilled host-page
+        loss check lives in ``_fault_page``. Placement never consults the
+        injector, so transfer faults stay timing-only."""
+        self._injector = injector
+        if self._pipeline is not None:
+            self._pipeline.injector = injector
+
     def abort_step(self, seqs: Sequence[int]) -> None:
         """Roll back a prepared-but-uncommitted step: ``seq_len`` never
         advanced, so rewinding each row to its committed length returns
@@ -641,11 +717,75 @@ class PagedKVCache(_TieredKV):
             if seq in self.block_table:
                 self._rewind_step_pages(seq)
 
-    # ------------------------------------------- sharing and state rows
+    def stall_transfers(self, direction: int, seconds: float) -> None:
+        if self._pooled and self._pipeline is not None:
+            self._pipeline.stall_channel(direction, seconds)
+
+    # ------------------------------------------------------- prefix sharing
+    def supports_sharing(self) -> bool:
+        return self._pooled
+
+    def set_share_index(self, index) -> None:
+        self._require_pool()
+        self._share_index = index
+
+    def page_refs(self, phys: int) -> int:
+        if not self._pooled:
+            return 0
+        return (len(self.page_users.get(phys, ()))
+                + (1 if phys in self.trie_refs else 0))
+
+    def adopt_pages(self, seq: int, pages: Sequence[int],
+                    covered_tokens: int) -> None:
+        """Splice-on-admit: alias ``seq``'s block table onto shared pool
+        pages covering its first ``covered_tokens`` prompt tokens. Pure
+        metadata — page refcounts go up, zero KV moves, zero compute."""
+        self._require_pool()
+        self._check_active(seq)
+        if self.block_table.get(seq) or self.seq_len.get(seq):
+            raise RuntimeError(
+                f"sequence {seq} already holds pages; prefix splice is "
+                f"admission-only")
+        if len(pages) != -(-covered_tokens // self.spec.page_tokens):
+            raise ValueError(
+                f"{len(pages)} pages cannot cover {covered_tokens} tokens "
+                f"at {self.spec.page_tokens} tokens/page")
+        table = self.block_table[seq] = []
+        for logical, phys in enumerate(pages):
+            users = self.page_users.setdefault(phys, {})
+            if len(users) == 1:
+                self.stats["shared_pages"] += 1   # gained a 2nd live user
+            users[seq] = logical
+            table.append(phys)
+            self._touch_page(phys)
+        self.seq_len[seq] = covered_tokens
+        self.stats["prefix_hits"] += 1
+        self.stats["prefix_tokens_reused"] += covered_tokens
+
+    def pin_page(self, phys: int) -> None:
+        if phys in self.trie_refs:
+            return
+        if self.page_users.get(phys):
+            self.stats["shared_pages"] += 1       # index + live user(s)
+        self.trie_refs.add(phys)
+
+    def unpin_page(self, phys: int) -> None:
+        self.trie_refs.discard(phys)
+        if not self.page_users.get(phys):
+            # the index was the last referent: free the page
+            self.page_users.pop(phys, None)
+            if phys in self.pool_lru:
+                self.pool_lru.remove(phys)
+                self.free_pages.append(phys)
+
     def _maybe_cow_boundary(self, seq: int, pinned: set) -> None:
         """Copy-on-write before a write lands mid-page: if the page holding
         ``seq``'s next slot is aliased by OTHER live sequences, the writer
-        gets a private copy first and readers keep the original."""
+        gets a private copy first and readers keep the original. A page
+        whose only other referent is the prefix index needs no copy:
+        splicers trust only the first ``covered`` slots (the kernel masks
+        beyond each row's length), and those slots are never rewritten with
+        different values."""
         T = self.spec.page_tokens
         pos = self.seq_len.get(seq, 0)
         if pos % T == 0:
@@ -660,14 +800,32 @@ class PagedKVCache(_TieredKV):
         self._cow_page(seq, logical, pinned)
 
     def _cow_page(self, seq: int, logical: int, pinned: set) -> None:
-        raise NotImplementedError(
-            "copy-on-write of shared pool pages needs the prefix cache, "
-            "which is not ported yet (ROADMAP.md, modules to port, item 9)")
+        """Duplicate ``seq``'s view of a shared page into a fresh physical
+        page (one on-device copy over every paged plane) and retarget its
+        block table; every other referent — sequences and the prefix index
+        — keeps the original."""
+        # lazy import: the serving package imports this module through its
+        # engine
+        from repro_torch.serving.batching import copy_pool_page_planes
+        phys = self.block_table[seq][logical]
+        new = self._alloc_page(set(pinned) | {seq})
+        copy_pool_page_planes(
+            tuple(self.dev_planes[n] for n in self._plane_names), phys, new)
+        self.page_users[phys].pop(seq, None)
+        self.page_users[new] = {seq: logical}
+        self.block_table[seq][logical] = new
+        self._heat.assign(new)
+        self._touch_page(new)
+        self.clock.charge(HBM, "read", self._group_bytes)
+        self.clock.charge(HBM, "write", self._group_bytes)
+        self.stats["cow_copies"] += 1
+        if self._share_index is not None:
+            self._share_index.on_cow(seq, phys)
 
     def state_views(self, seqs: Sequence[int]):
         raise NotImplementedError(
             "per-sequence state rows (SSM) are not ported yet (ROADMAP.md, "
-            "modules to port, item 10)")
+            "queue 1: Families: the other dense configs, MoE and SSM)")
 
     # --------------------------------------------- pooled preempt / restore
     def preempt(self, seq: int) -> None:
@@ -828,22 +986,27 @@ class PagedKVCache(_TieredKV):
         return blobs
 
     def _drop_seq(self, seq: int) -> None:
-        """Release ``seq``'s pages: a page returns to the free list when
-        its last user leaves; spilled pages drop their host copy."""
+        """Release ``seq``'s pages: shared pages only lose this sequence's
+        refcount; a page returns to the free list when its last live user
+        leaves AND the prefix index does not pin it. Spilled pages drop
+        their host copy."""
         for logical, phys in enumerate(self.block_table.pop(seq, [])):
             if phys >= 0:
                 users = self.page_users.get(phys, {})
                 users.pop(seq, None)
                 if not users:
                     self.page_users.pop(phys, None)
-                    self.pool_lru.remove(phys)
-                    self.free_pages.append(phys)
+                    if phys not in self.trie_refs:
+                        self.pool_lru.remove(phys)
+                        self.free_pages.append(phys)
             else:
                 self.host_pages.pop((seq, logical), None)
         if self._pipeline is not None:
             # a later sequence may reuse this id: its (dir, seq, logical)
             # keys must not inherit this sequence's in-flight transfers
             self._pipeline.cancel_seq(seq)
+        if self._share_index is not None:
+            self._share_index.on_seq_dropped(seq)
 
     # -------------------------------------------------------------- pressure
     def hbm_used_bytes(self) -> int:
@@ -861,9 +1024,10 @@ class PagedKVCache(_TieredKV):
             return 0.0
         # count the pages the NEXT decode step will claim, so the scheduler
         # preempts one tick before allocation would have to spill pages of
-        # the running batch itself
+        # the running batch itself; pages held only by the prefix index are
+        # reclaimable on demand, so they count as headroom rather than load
         used = (self.pool_pages - len(self.free_pages)
-                + self._reserve_pages())
+                - self._idle_index_pages() + self._reserve_pages())
         return min(used / self.pool_pages, 1.0)
 
     def resident_bytes(self, seq: int) -> int:
@@ -874,7 +1038,8 @@ class PagedKVCache(_TieredKV):
 
     def victim_hint(self, candidates: Iterable[int]) -> Optional[int]:
         """Preempt the candidate whose eviction actually FREES the most
-        device pool pages (only sole-user pages count); ties rank
+        device pool pages (only sole-user pages the prefix index does not
+        pin count); ties rank
         by the hot/cold model (least re-reference mass), then by LRU
         coldness."""
         if not self._pooled:
@@ -887,7 +1052,8 @@ class PagedKVCache(_TieredKV):
         def key(seq):
             pages = [p for p in self.block_table.get(seq, ()) if p >= 0]
             freeable = [p for p in pages
-                        if len(self.page_users.get(p, ())) == 1]
+                        if len(self.page_users.get(p, ())) == 1
+                        and p not in self.trie_refs]
             heat = sum(self._heat.hotness(p) for p in freeable)
             coldest = min((order.get(p, len(order)) for p in pages),
                           default=len(order))

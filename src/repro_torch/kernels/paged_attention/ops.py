@@ -4,7 +4,8 @@ A CUDA tensor runs a hand-written Hopper kernel (or the call raises); a
 CPU tensor runs the plain PyTorch version of
 :mod:`~repro_torch.kernels.paged_attention.ref`. There is no fallback from
 one to the other. Each entry counts its kernel launches in a plain
-integer attribute, ``<entry>.launches``.
+integer attribute, ``<entry>.launches``, and by the launch's Qmax in
+``<entry>.launches_by_qmax`` (a dict).
 
 * ``paged_attention_ragged`` — dense pool, ``csrc/paged_attention.cu``
   (two kernels a call: pages split across blocks in fixed partitions, then
@@ -232,7 +233,7 @@ def paged_attention_ragged(q, pool_k, pool_v, block_table, lengths, q_lens,
     require_cuda("paged-attention", q)
     out = _launch(*_one(q, pool_k, pool_v), block_table, lengths, q_lens,
                   scale)[0]
-    paged_attention_ragged.launches += 1
+    _count(paged_attention_ragged, q.shape[1])
     return out
 
 
@@ -246,7 +247,7 @@ def paged_attention(q, pool_k, pool_v, block_table, lengths, *,
     require_cuda("paged-attention", q)
     out = _launch(*_one(q[:, None], pool_k, pool_v), block_table, lengths,
                   _ones(q), scale)[0]
-    paged_attention.launches += 1
+    _count(paged_attention, 1)
     return out[:, 0]
 
 
@@ -261,7 +262,7 @@ def paged_attention_layers_ragged(q, pool_k, pool_v, block_table, lengths,
             q, pool_k, pool_v, block_table, lengths, q_lens, scale=scale)
     require_cuda("paged-attention", q)
     out = _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale)
-    paged_attention_layers_ragged.launches += 1
+    _count(paged_attention_layers_ragged, q.shape[2])
     return out
 
 
@@ -277,7 +278,7 @@ def paged_attention_layers(q, pool_k, pool_v, block_table, lengths, *,
     require_cuda("paged-attention", q)
     out = _launch(q[:, :, None], pool_k, pool_v, block_table, lengths,
                   _ones(q), scale)
-    paged_attention_layers.launches += 1
+    _count(paged_attention_layers, 1)
     return out[:, :, 0]
 
 
@@ -297,7 +298,7 @@ def paged_attention_ragged_q8(q, pool_k, pool_v, pool_ks, pool_vs,
                                                pool_vs)
     out = _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
                   scales=(pool_ks, pool_vs))[0]
-    paged_attention_ragged_q8.launches += 1
+    _count(paged_attention_ragged_q8, q.shape[2])   # q: (1, B, Qmax, H, D)
     return out
 
 
@@ -313,7 +314,7 @@ def paged_attention_q8(q, pool_k, pool_v, pool_ks, pool_vs, block_table,
                                                 pool_ks, pool_vs)
     out = _launch(q1, pool_k, pool_v, block_table, lengths, _ones(q), scale,
                   scales=(pool_ks, pool_vs))[0]
-    paged_attention_q8.launches += 1
+    _count(paged_attention_q8, 1)
     return out[:, 0]
 
 
@@ -331,7 +332,7 @@ def paged_attention_layers_ragged_q8(q, pool_k, pool_v, pool_ks, pool_vs,
     require_cuda("paged-attention", q)
     out = _launch(q, pool_k, pool_v, block_table, lengths, q_lens, scale,
                   scales=(pool_ks, pool_vs))
-    paged_attention_layers_ragged_q8.launches += 1
+    _count(paged_attention_layers_ragged_q8, q.shape[2])
     return out
 
 
@@ -349,7 +350,7 @@ def mla_paged_attention_ragged(q_c, q_r, pool_c, pool_kr, block_table,
     require_cuda("MLA paged-attention", q_c)
     out = _launch_mla(*_one(q_c, q_r, pool_c, pool_kr), block_table, lengths,
                       q_lens, scale)[0]
-    mla_paged_attention_ragged.launches += 1
+    _count(mla_paged_attention_ragged, q_c.shape[1])
     return out
 
 
@@ -363,7 +364,7 @@ def mla_paged_attention(q_c, q_r, pool_c, pool_kr, block_table, lengths, *,
     require_cuda("MLA paged-attention", q_c)
     out = _launch_mla(*_one(q_c[:, None], q_r[:, None], pool_c, pool_kr),
                       block_table, lengths, _ones(q_c), scale)[0]
-    mla_paged_attention.launches += 1
+    _count(mla_paged_attention, 1)
     return out[:, 0]
 
 
@@ -380,7 +381,7 @@ def mla_paged_attention_layers_ragged(q_c, q_r, pool_c, pool_kr, block_table,
     require_cuda("MLA paged-attention", q_c)
     out = _launch_mla(q_c, q_r, pool_c, pool_kr, block_table, lengths,
                       q_lens, scale)
-    mla_paged_attention_layers_ragged.launches += 1
+    _count(mla_paged_attention_layers_ragged, q_c.shape[2])
     return out
 
 
@@ -391,9 +392,16 @@ ENTRIES = (paged_attention_ragged, paged_attention, paged_attention_ragged_q8,
            mla_paged_attention_layers_ragged)
 
 
+def _count(entry, qmax: int) -> None:
+    """One launch of ``entry``'s kernel, in total and at its Qmax."""
+    entry.launches += 1
+    entry.launches_by_qmax[qmax] = entry.launches_by_qmax.get(qmax, 0) + 1
+
+
 def reset_launch_counts() -> None:
     for entry in ENTRIES:
         entry.launches = 0
+        entry.launches_by_qmax = {}
 
 
 reset_launch_counts()

@@ -12,6 +12,16 @@ printed stats; ``--sequential`` runs the one-at-a-time dense reference
 instead (same tokens). ``--arch deepseek-v2-236b-noexperts`` serves the
 MLA latent pool. Weights are random, drawn from ``--seed``. Runs on the GPU
 unless ``--device cpu``.
+
+``--prefix-cache-tokens`` turns on the prefix cache (``--shared-prefix-
+tokens`` gives every prompt the same head to hit it); ``--speculate-k``
+turns on self-drafted speculative decode; ``--fault-rate``/``--fault-seed``
+inject transfer faults, ``--crash-at-tick`` a crash, and ``--journal``
+keeps the token journal a crashed run recovers from:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --shared-prefix-tokens 16 --prefix-cache-tokens 4096 \
+        --speculate-k 4 --journal --crash-at-tick 3
 """
 from __future__ import annotations
 
@@ -24,6 +34,8 @@ from repro_torch.configs import REGISTRY, get_config
 from repro_torch.core.engines import EngineSpec
 from repro_torch.models import LM
 from repro_torch.serving import Request, ServeConfig, ServingEngine
+from repro_torch.serving.faults import CrashFault, FaultPlan
+from repro_torch.serving.journal import ServingJournal
 
 
 def main(argv=None):
@@ -54,33 +66,90 @@ def main(argv=None):
     ap.add_argument("--sequential", action="store_true",
                     help="run the batch=1 dense reference loop instead of "
                          "the continuous-batching scheduler")
+    ap.add_argument("--prefix-cache-tokens", type=int, default=0,
+                    help="cross-request prefix cache capacity in tokens "
+                         "(0 = off): cache-hit admissions splice shared "
+                         "pool pages instead of prefilling")
+    ap.add_argument("--shared-prefix-tokens", type=int, default=0,
+                    help="prepend this many identical tokens to every "
+                         "prompt (exercises the prefix cache)")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="speculative decode: up to k self-drafted tokens "
+                         "per decode row per fused tick, verified in the "
+                         "same launch (0 = off; tokens are identical "
+                         "either way)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for deterministic fault injection (the same "
+                         "seed replays the same faults)")
+    ap.add_argument("--fault-rate", type=float, default=0.0,
+                    help="per-attempt transfer fail AND delay probability "
+                         "(>0 turns on the injector; retries/degradation "
+                         "show up in the printed stats)")
+    ap.add_argument("--crash-at-tick", type=int, default=None,
+                    help="inject a CrashFault at this scheduler tick; with "
+                         "--journal the run then recovers from the journal "
+                         "and prints both halves")
+    ap.add_argument("--journal", action="store_true",
+                    help="append committed tokens to a crash-consistent "
+                         "NVMM journal every tick (required for recovery "
+                         "after --crash-at-tick)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
     model = LM(cfg, dtype=getattr(torch, args.dtype), device=args.device)
     model.init(torch.Generator(model.device).manual_seed(args.seed))
-    max_len = args.prompt_len + args.max_new + 1
+    prompt_len = args.prompt_len + args.shared_prefix_tokens
+    max_len = prompt_len + args.max_new + 1
     max_len += -max_len % args.page_tokens     # pool wants page alignment
-    engine = ServingEngine(model, ServeConfig(
-        max_len=max_len, page_tokens=args.page_tokens,
-        engine_spec=EngineSpec(engine="paged",
-                               kv_hbm_bytes=args.hbm_budget_bytes),
-        max_batch_seqs=args.max_batch_seqs,
-        max_batch_tokens=args.max_batch_tokens,
-        prefill_chunk_tokens=args.prefill_chunk_tokens,
-        fuse_ticks=args.fuse_ticks), device=args.device)
 
+    journal = ServingJournal() if args.journal else None
+    fault_plan = None
+    if args.fault_rate > 0.0 or args.crash_at_tick is not None:
+        fault_plan = FaultPlan(seed=args.fault_seed,
+                               transfer_fail_rate=args.fault_rate,
+                               transfer_delay_rate=args.fault_rate,
+                               crash_at_tick=args.crash_at_tick)
+
+    def mk_engine(plan):
+        return ServingEngine(model, ServeConfig(
+            max_len=max_len, page_tokens=args.page_tokens,
+            engine_spec=EngineSpec(
+                engine="paged", kv_hbm_bytes=args.hbm_budget_bytes,
+                prefix_cache_tokens=args.prefix_cache_tokens),
+            max_batch_seqs=args.max_batch_seqs,
+            max_batch_tokens=args.max_batch_tokens,
+            prefill_chunk_tokens=args.prefill_chunk_tokens,
+            fuse_ticks=args.fuse_ticks, speculate_k=args.speculate_k,
+            journal=journal, fault_plan=plan), device=args.device)
+
+    engine = mk_engine(fault_plan)
     rng = np.random.default_rng(args.seed)
-    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                               args.prompt_len,
-                                               dtype=np.int32),
+    shared = rng.integers(0, cfg.vocab_size, args.shared_prefix_tokens,
+                          dtype=np.int32)
+    reqs = [Request(rid=i,
+                    prompt=np.concatenate([
+                        shared,
+                        rng.integers(0, cfg.vocab_size, args.prompt_len,
+                                     dtype=np.int32)]),
                     max_new=args.max_new)
             for i in range(args.requests)]
     if args.sequential:
         engine.generate_sequential(reqs)
     else:
-        engine.generate(reqs)
+        try:
+            engine.generate(reqs)
+        except CrashFault as e:
+            print(f"CRASH: {e} (journal stats: "
+                  f"{journal.stats if journal else None})")
+            if journal is None:
+                raise SystemExit(
+                    "crashed without --journal: nothing durable to recover")
+            # a fresh engine sharing the SAME journal resumes exactly where
+            # the last durable tick stopped
+            engine = mk_engine(None)
+            engine.recover(reqs)
+            print("RECOVERED: journal replayed, unfinished rows resumed")
     for r in reqs:
         print(f"req {r.rid}: generated {len(r.generated)} tokens "
               f"{r.generated[:8]}...")

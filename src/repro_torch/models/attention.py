@@ -306,8 +306,8 @@ def mla_train(p, cfg, x, positions, *, chunk_size=512):
     if S > chunk_size:
         raise NotImplementedError(
             f"MLA prompt of {S} tokens > chunk_size={chunk_size}: MLA "
-            f"prefill over chunk_size is not ported (ROADMAP.md, modules to "
-            f"port, item 9) — the flash-attention kernel takes one head "
+            f"prefill over chunk_size is not ported (ROADMAP.md, queue 1: "
+            f"MLA prefill past chunk_size) — the flash-attention kernel takes one head "
             f"width for q, k and v, and MLA's qk width "
             f"({m.qk_nope_head_dim + m.qk_rope_head_dim}) is not its v "
             f"width ({m.v_head_dim}); split the prompt with "

@@ -41,7 +41,7 @@ class LM(nn.Module):
         if cfg.family != "attn_dense":
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-                f"modules to port)")
+                f"queue 1: modules to port)")
         if kv_cache_dtype not in ("native", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'native' or 'int8', "
                              f"got {kv_cache_dtype!r}")

@@ -85,3 +85,13 @@ def scatter_prefill_planes(pools, caches, phys, n: int):
         c = cache[:, 0, :npages * T].reshape((L, npages, T) + pool.shape[3:])
         pool[:, phys] = c.to(pool.dtype)
     return tuple(pools)
+
+
+def copy_pool_page_planes(pools, src: int, dst: int):
+    """Duplicate one physical page group on device across every plane, IN
+    PLACE (prefix-sharing copy-on-write: the writer takes the copy at
+    ``dst``, readers keep ``src``). One device read + write of a page
+    group, zero host traffic. Returns ``pools``."""
+    for p in pools:
+        p[:, dst].copy_(p[:, src])
+    return tuple(pools)

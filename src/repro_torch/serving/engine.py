@@ -21,10 +21,23 @@ over the dense cache as the reference the scheduler must match token for
 token. ``fuse_ticks=False`` keeps the unfused baseline: prefill chunks run
 token by token through the single-token decode kernel (``extend_one``).
 
+The serving features around the tick are the reference's:
+
+* **prefix cache** (``EngineSpec.prefix_cache_tokens``): a token radix
+  index over shared pool pages; a cache-hit admission splices the block
+  table instead of prefilling, and the first write inside a still-shared
+  page copies it on device (copy-on-write);
+* **speculative decode** (``speculate_k``): decode rows carry ``1 + k``
+  query slots in the same ragged launch, the launch's per-slot argmax
+  verifies the drafts (one device→host copy a tick), and rejected slots
+  roll back;
+* **faults and the journal** (``fault_plan``, ``journal``): deterministic
+  fault injection, and a crash-consistent token journal over the NVMM log
+  tier from which :meth:`ServingEngine.recover` resumes a crashed run.
+
 Not ported yet, and refused at construction rather than ignored: the
-dense-mirror path (``paged_decode=False``, the ``log``/``kvhybrid``
-engines), speculative decode, the prefix cache, fault plans and the token
-journal (ROADMAP.md, modules to port, items 9 and 11).
+dense-mirror path (``paged_decode=False``; the ``log``/``kvhybrid``
+engines are not registered).
 """
 from __future__ import annotations
 
@@ -39,6 +52,9 @@ from repro_torch.core.clock import SimClock
 from repro_torch.core.engines import EngineSpec, create_kv_engine
 from repro_torch.core.kvcache import KVSpec
 from repro_torch.serving import batching
+from repro_torch.serving.faults import FaultInjector
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.speculative import NGramProposer
 
 
 @dataclass
@@ -65,10 +81,22 @@ class ServeConfig:
     # forward-progress guard: a running row must advance within this many
     # consecutive running ticks, else the scheduler raises
     progress_tick_limit: int = 4
-    # not ported yet: must stay at their defaults
+    # speculative multi-token decode: each running decode row proposes up
+    # to k draft tokens per fused tick, verified by the same ragged
+    # forward; accepted runs commit, rejected tails roll back. 0 = off.
+    # Greedy outputs stay token-identical either way.
     speculate_k: int = 0
+    # proposer override: any DraftProposer (serving/speculative.py); None →
+    # the self-drafting NGramProposer
     draft_proposer: Optional[object] = None
+    # a FaultPlan (serving/faults.py) turns on deterministic fault
+    # injection — failed/delayed transfers, lost host pages, transfer
+    # stalls, a crash at a tick boundary. None = no injection.
     fault_plan: Optional[object] = None
+    # crash-consistent token journal (serving/journal.py): every scheduler
+    # tick appends its committed tokens through the NVMM log tier; after a
+    # CrashFault a fresh engine sharing the SAME journal object calls
+    # recover() to rebuild and resume. None = no journal.
     journal: Optional[object] = None
 
 
@@ -81,21 +109,12 @@ class Request:
     done: bool = False
 
 
-def _refuse_unported(cfg: ServeConfig, spec: EngineSpec) -> None:
-    asked = [(name, item) for name, set_, item in (
-        ("paged_decode=False (the dense-mirror path)",
-         cfg.paged_decode is False, "11"),
-        ("speculate_k", cfg.speculate_k != 0, "9"),
-        ("draft_proposer", cfg.draft_proposer is not None, "9"),
-        ("fault_plan", cfg.fault_plan is not None, "9"),
-        ("journal", cfg.journal is not None, "9"),
-        ("prefix_cache_tokens", spec.prefix_cache_tokens > 0, "9"),
-    ) if set_]
-    if asked:
+def _refuse_unported(cfg: ServeConfig) -> None:
+    if cfg.paged_decode is False:
         raise NotImplementedError(
-            "not ported yet: " + ", ".join(
-                f"{n} (ROADMAP.md, modules to port, item {i})"
-                for n, i in asked))
+            "not ported yet: paged_decode=False, the dense-mirror path "
+            "(ROADMAP.md, queue 1: Mirror paths and the log/kvhybrid KV "
+            "engines)")
 
 
 class ServingEngine:
@@ -108,7 +127,7 @@ class ServingEngine:
         if not isinstance(spec_cfg, EngineSpec):
             raise TypeError(f"engine_spec must be an EngineSpec, got "
                             f"{type(spec_cfg).__name__}: {spec_cfg!r}")
-        _refuse_unported(cfg, spec_cfg)
+        _refuse_unported(cfg)
         self.model = model
         self.cfg = cfg
         mcfg = model.cfg
@@ -121,6 +140,18 @@ class ServingEngine:
                       head_dim=mcfg.head_dim, page_tokens=cfg.page_tokens,
                       desc=self.desc)
         self.tiered = create_kv_engine(spec_cfg, spec, self.clock)
+        # deterministic fault injection + crash-consistent journal. The
+        # injector attaches BEFORE init_pool so the transfer pipeline is
+        # constructed with it; the journal's WAL region survives a
+        # simulated crash (the object outlives the engine), only its clock
+        # is re-attached to this engine's fresh one.
+        self.injector = None
+        if cfg.fault_plan is not None:
+            self.injector = FaultInjector(cfg.fault_plan)
+            self.tiered.set_fault_injector(self.injector)
+        self.journal = cfg.journal
+        if self.journal is not None:
+            self.journal.attach_clock(self.clock)
         self.mirror_d2h_bytes = 0      # device→host mirror traffic (exact)
         self.sched_stats: dict = {}    # last generate()'s scheduler counters
         self.fused = bool(cfg.fuse_ticks) and model.supports_ragged_step()
@@ -153,12 +184,28 @@ class ServingEngine:
         # mirror bytes but skips the tiered append (generate() never
         # mirrors)
         self._mirror_appends_ok = self.desc.kernel == "dense"
-        # hooks the scheduler reads; their features are not ported yet
-        self.speculate_k = 0
+        # speculative decode: decode rows carry 1 + k query slots, the
+        # per-slot logits of the SAME fused forward verify the drafts, and
+        # rejected tails roll back (partial commit)
+        self.speculate_k = max(int(cfg.speculate_k), 0)
+        if self.speculate_k and not self.fused:
+            raise ValueError(
+                f"speculate_k={self.speculate_k} needs fused ragged ticks "
+                f"(fuse_ticks=True); got fuse_ticks={cfg.fuse_ticks}")
         self.proposer = None
-        self.injector = None
-        self.journal = None
+        if self.speculate_k:
+            if cfg.draft_proposer is not None:
+                self.proposer = cfg.draft_proposer
+            else:
+                self.proposer = NGramProposer()
         self.spec_stats = {"spec_proposed": 0, "spec_accepted": 0}
+        # cross-request prefix cache: token-keyed radix index over shared
+        # pool pages; a cache-hit admission splices the block table instead
+        # of prefilling
+        self.prefix_cache = None
+        if spec_cfg.prefix_cache_tokens > 0:
+            self.prefix_cache = PrefixCache(
+                self.tiered, capacity_tokens=spec_cfg.prefix_cache_tokens)
 
     # -------------------------------------------------------------- mirroring
     def _mirror_kv(self, rid: int, cache, pos: int):
@@ -204,13 +251,24 @@ class ServingEngine:
         return logits, self._pool_admit(req.rid, cache, toks.shape[0])
 
     def admit_prefix(self, req: Request):
-        """Prefix-cache splice: the prefix cache is not ported, so every
-        admission misses."""
-        return None
+        """Try a prefix-cache splice for ``req``: on a hit the sequence
+        adopts the shared pool pages covering its longest cached prefix —
+        ZERO prefill compute for the covered tokens — and returns
+        ``(cache_row, covered)``; the scheduler prefills only
+        ``prompt[covered:]``. None on a miss or when sharing is off."""
+        if self.prefix_cache is None:
+            return None
+        covered = self.prefix_cache.match_and_splice(req.rid, req.prompt)
+        if covered <= 0:
+            return None
+        return {"pos": torch.tensor([covered], dtype=torch.int32,
+                                    device=self.device)}, covered
 
     def on_prompt_complete(self, rid: int, prompt: np.ndarray) -> None:
-        """A request's full prompt is in the pool (a prefix-cache hook;
-        nothing to publish without the prefix cache)."""
+        """A request's FULL prompt is now in the pool: publish its pages
+        into the prefix index so later admissions can splice them."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.insert(rid, prompt)
 
     def _pool_admit(self, rid: int, cache, n: int) -> dict:
         """Move a fresh prompt's prefilled cache into the engine-owned pool
@@ -256,24 +314,59 @@ class ServingEngine:
         """Can this tick's mixed batch be placed in one fused step?"""
         return self.tiered.can_place_step(rids, n_tokens)
 
+    def _verify_drafts(self, logits, tok_rows, q_lens, spec) -> list:
+        """Greedy draft verification against the SAME fused forward's
+        per-slot logits. Row ``i``'s tokens are ``[t0, d1..ds]``
+        (``s = spec[i]`` trailing drafts): slot ``j``'s argmax is the
+        greedy token after consuming token ``j``, so draft ``d_{j+1}`` is
+        accepted iff it equals ``argmax(slot j)`` AND every earlier draft
+        was — the longest accepted prefix is exactly the sequential greedy
+        run. The ``(B, Qmax)`` argmax crosses to the host in ONE copy a
+        tick. Returns per-row committed counts (``1 + accepted``; chunk and
+        plain decode rows commit everything)."""
+        B = len(tok_rows)
+        committed = list(q_lens)
+        need = [i for i in range(B) if spec[i] > 0]
+        if not need:
+            return committed
+        args = torch.argmax(logits[:B], dim=-1).cpu().numpy()   # (B, Qb)
+        for i in need:
+            q, s = q_lens[i], spec[i]
+            acc = 0
+            for j in range(s):
+                if int(tok_rows[i][q - s + j]) != int(args[i, q - s + j - 1]):
+                    break
+                acc += 1
+            committed[i] = q - s + acc
+            self.spec_stats["spec_proposed"] += s
+            self.spec_stats["spec_accepted"] += acc
+        return committed
+
     def step_batch(self, rids: list, caches: list, tok_rows: list,
                    mirrored: bool, fused: bool = True,
                    spec_lens: Optional[list] = None):
         """ONE fused forward over a mixed ragged batch: decode rows carry 1
-        new token, prefill-chunk rows up to ``chunk_tokens``, and all of
-        them attend in the same step over the device pool. Batch width and
-        Qmax pad up the power-of-two ladder; padding rows ride with
+        new token (plus up to ``speculate_k`` draft tokens when speculation
+        is on), prefill-chunk rows up to ``chunk_tokens``, and all of them
+        attend in the same step over the device pool. Batch width and Qmax
+        pad up the power-of-two ladder; padding rows ride with
         ``q_len = 0`` and are masked end to end.
 
-        Returns ``(logit_rows, new_rows, committed)``: per-row logits
-        ``(1, q_len, V)`` (the LAST slot is what the next tick's argmax
-        reads), the new per-row caches, and the per-row token counts."""
-        if spec_lens is not None and any(spec_lens):
-            raise NotImplementedError(
-                "speculative draft slots are not ported yet (ROADMAP.md, "
-                "modules to port, item 9)")
+        ``spec_lens[i]`` marks how many TRAILING tokens of ``tok_rows[i]``
+        are unverified drafts: they scatter into the pool with the rest,
+        are verified against this forward's own per-slot logits, and the
+        rejected tail rolls back before anything else sees it (a partial
+        commit: ``seq_len`` advances by the accepted count, pages only the
+        tail used go back to the free list, and the next tick's lengths
+        mask the stale slots until its writes overwrite them).
+
+        Returns ``(logit_rows, new_rows, committed)``: per-row logits for
+        each row's committed slots (``(1, committed[i], V)`` — the LAST
+        slot is what the next tick's argmax reads), the new per-row
+        caches, and the per-row committed token counts."""
         B = len(rids)
         q_lens = [len(t) for t in tok_rows]
+        spec = [0] * B if spec_lens is None else [int(s) for s in spec_lens]
         Bb = batching.bucket_pow2(B)
         Qb = batching.bucket_pow2(max(q_lens))
         tokens = np.zeros((Bb, Qb), np.int64)
@@ -305,16 +398,21 @@ class ServingEngine:
                 cache, torch.from_numpy(tokens).to(self.device),
                 torch.from_numpy(ctx_p).to(self.device),
                 torch.from_numpy(qarr).to(self.device))
+            committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
             # the step scattered in place into the engine's own planes:
             # handing them back stores the same tensors
             self.tiered.commit_step_planes(
-                tuple(out["pool_" + n] for n in names), rids, q_lens)
+                tuple(out["pool_" + n] for n in names), rids, committed,
+                prepared=q_lens)
         except Exception:
             self.tiered.abort_step(rids)
             raise
-        new_rows = [{"pos": out["pos"][i:i + 1]} for i in range(B)]
-        logit_rows = [logits[i:i + 1, :q_lens[i]] for i in range(B)]
-        return logit_rows, new_rows, q_lens
+        # a row with rejected drafts rewinds its position on device
+        new_rows = [{"pos": out["pos"][i:i + 1] - (q_lens[i] - committed[i])}
+                    if committed[i] != q_lens[i]
+                    else {"pos": out["pos"][i:i + 1]} for i in range(B)]
+        logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
+        return logit_rows, new_rows, committed
 
     def extend_one(self, rid: int, cache, toks: np.ndarray, start: int,
                    mirrored: bool):
@@ -355,9 +453,36 @@ class ServingEngine:
         try:
             sched.run()
         finally:
+            # a CrashFault abandons the run mid-tick, but the scheduler
+            # counters gathered so far are still what the caller inspects
             self.sched_stats = sched.stats.as_dict()
         self.tiered.flush_transfers()   # run-end drain: sim_time_s includes
         return requests                 # in-flight transfer tails
+
+    def recover(self, requests: list[Request]) -> list[Request]:
+        """Crash recovery: replay the journal this engine shares with the
+        crashed one, rebuild each request's committed stream, and resume
+        decoding the unfinished rows through the normal scheduler —
+        re-admission prefills ``prompt + committed`` so greedy decode
+        continues exactly where the last durable tick stopped.
+        ``requests`` must be fresh Request objects carrying the original
+        prompts/rids; their ``generated`` fields are overwritten from the
+        journal."""
+        if self.journal is None:
+            raise RuntimeError(
+                "recover() needs the crashed run's journal: construct this "
+                "engine with ServeConfig(journal=<same ServingJournal>)")
+        state, _last_tick = self.journal.replay()
+        pending = []
+        for req in requests:
+            toks = state.get(req.rid, [])
+            req.generated = [int(t) for t in toks[:req.max_new]]
+            req.done = len(req.generated) >= req.max_new
+            if not req.done:
+                pending.append(req)
+        if pending:
+            self.generate(pending)
+        return requests
 
     @torch.no_grad()
     def generate_sequential(self, requests: list[Request]) -> list[Request]:
@@ -379,7 +504,8 @@ class ServingEngine:
         return requests
 
     def stats(self) -> dict:
+        journal = {} if self.journal is None else dict(self.journal.stats)
         return {"sim_time_s": self.clock.now,
                 "mirror_d2h_bytes": self.mirror_d2h_bytes,
                 **self.jit_stats, **self.spec_stats, **self.sched_stats,
-                **self.tiered.stats}
+                **journal, **self.tiered.stats}

@@ -5,9 +5,12 @@ them, long prompts included.
 
 Every test here is marked ``cuda`` and skips when torch sees no GPU (the
 decision is taken inside the ``cuda_device`` fixture, never at import).
-The file imports only torch, numpy and the port, so it runs on a machine
-without JAX: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+The file imports only torch, numpy, the port and ``chip_smoke.py``, so it
+runs on a machine without JAX: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +27,9 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ragged_q8_ref, paged_attention_ragged_ref)
 from repro_torch.models import LM
 from repro_torch.serving import Request, ServeConfig, ServingEngine
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 # tests/test_kernels.py: atol 5·_RTOL, rtol 2·_RTOL
 _TOL = {torch.float32: (1e-4, 4e-5), torch.bfloat16: (1e-1, 4e-2)}
@@ -844,3 +850,77 @@ def test_mla_row_tile_tails(cuda_device, pool_dtype, dc, dr, H):
             q_c[:, i], q_r[:, i], pc, pkr, tbl,
             torch.full_like(lens, pos0 + i + 1), scale=scale)
         assert torch.equal(_bits(out[0, i]), _bits(alone[0])), i
+
+
+_FAMILY_ENTRY = {
+    ("internlm2-1.8b-smoke", "native"): "paged_attention_ragged",
+    ("internlm2-1.8b-smoke", "int8"): "paged_attention_ragged_q8",
+    ("deepseek-v2-236b-noexperts-smoke", "native"):
+        "mla_paged_attention_ragged"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_cache_dtype", sorted(_FAMILY_ENTRY))
+def test_speculative_serving_on_card_matches_sequential(cuda_device, arch,
+                                                        kv_cache_dtype):
+    """Decode rows with 1 + 4 slots (Qmax 8) through the family's ragged
+    kernel, drafts accepted and rolled back: token-identical to the
+    sequential reference, one launch a layer and tick."""
+    cfg = get_config(arch)
+    model = LM(cfg, device=cuda_device, kv_cache_dtype=kv_cache_dtype).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    entry = getattr(ops, _FAMILY_ENTRY[arch, kv_cache_dtype])
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (8, 12, 8)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new=8)
+                for i, p in enumerate(prompts)]
+    ref = ServingEngine(model, ServeConfig(max_len=32, page_tokens=8),
+                        device=cuda_device).generate_sequential(reqs())
+    eng = ServingEngine(model, ServeConfig(
+        max_len=32, page_tokens=8, speculate_k=4,
+        draft_proposer=chip_smoke.ReferenceDrafts(ref, 1, cfg.vocab_size)),
+        device=cuda_device)
+    ops.reset_launch_counts()
+    got = eng.generate(reqs())
+    s = eng.stats()
+    assert [r.generated for r in got] == [r.generated for r in ref]
+    assert 0 < s["spec_accepted"] < s["spec_proposed"]
+    assert entry.launches == cfg.num_layers * s["step_calls"]
+    assert entry.launches_by_qmax.get(8, 0) > 0
+    assert s["mirror_d2h_bytes"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_cache_dtype", sorted(_FAMILY_ENTRY))
+def test_prefix_splice_and_cow_on_card(cuda_device, arch, kv_cache_dtype):
+    """Three copies of a 13-token prompt and another prompt in one batch
+    (8-token pages): the copies splice the first one's pages and copy the
+    shared mid-page boundary page (every plane) on their first write. The
+    copies' streams are one stream; dense and MLA equal the sequential
+    reference (an int8 splice attends quantized K/V of the covered
+    tokens, another function than one-shot prefill)."""
+    cfg = get_config(arch)
+    model = LM(cfg, device=cuda_device, kv_cache_dtype=kv_cache_dtype).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    from repro_torch.core.engines import EngineSpec
+    rng = np.random.default_rng(2)
+    p, q = (rng.integers(0, cfg.vocab_size, 13, dtype=np.int32)
+            for _ in range(2))
+
+    def reqs():
+        return [Request(rid=i, prompt=x, max_new=6)
+                for i, x in enumerate((p, p, p, q))]
+    eng = ServingEngine(model, ServeConfig(
+        max_len=32, page_tokens=8, engine_spec=EngineSpec(
+            engine="paged", prefix_cache_tokens=1024)), device=cuda_device)
+    got = eng.generate(reqs())
+    s = eng.stats()
+    assert s["prefix_hits"] >= 2 and s["cow_copies"] >= 1
+    assert got[1].generated == got[2].generated
+    if kv_cache_dtype != "int8":
+        ref = ServingEngine(model, ServeConfig(max_len=32, page_tokens=8),
+                            device=cuda_device).generate_sequential(reqs())
+        assert [r.generated for r in got] == [r.generated for r in ref]

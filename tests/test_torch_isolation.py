@@ -1,7 +1,8 @@
 """The port stands alone: serving through it — dense, int8 and MLA cache
-families, and a dense prompt longer than ``chunk_size`` (the flash-attention
-prefill) — and every public kernel entry load neither JAX nor any module of
-the JAX package."""
+families, with speculative decode, a prefix cache, a token journal and a
+fault plan (a crash, then recovery), and a dense prompt longer than
+``chunk_size`` (the flash-attention prefill) — and every public kernel entry
+load neither JAX nor any module of the JAX package."""
 import os
 import subprocess
 import sys
@@ -34,6 +35,31 @@ _SCRIPT = textwrap.dedent("""
                                    "int8": "int8"}[kd]
         eng.generate(reqs)
         assert all(len(r.generated) == 3 for r in reqs)
+
+    # speculation, the prefix cache, the journal and a crash + recovery
+    from repro_torch.core.engines import EngineSpec
+    from repro_torch.serving import NGramProposer
+    from repro_torch.serving.faults import CrashFault, FaultPlan
+    from repro_torch.serving.journal import ServingJournal
+    journal = ServingJournal()
+
+    def features(plan=None):
+        return ServingEngine(model, ServeConfig(
+            max_len=16, page_tokens=4, speculate_k=2,
+            draft_proposer=NGramProposer(), journal=journal,
+            fault_plan=plan, engine_spec=EngineSpec(
+                engine="paged", prefix_cache_tokens=64)), device="cpu")
+
+    prompt = np.arange(6, dtype=np.int32)
+    reqs = [Request(rid=i, prompt=prompt, max_new=4) for i in range(2)]
+    try:
+        features(FaultPlan(crash_at_tick=2)).generate(reqs)
+    except CrashFault:
+        reqs = [Request(rid=i, prompt=prompt, max_new=4) for i in range(2)]
+        features().recover(reqs)
+    else:
+        raise AssertionError("the fault plan did not crash the run")
+    assert all(len(r.generated) == 4 for r in reqs)
 
     # a prompt past chunk_size: prefill through flash_attention
     cfg = get_config("internlm2-1.8b-smoke")

@@ -162,11 +162,12 @@ def test_attn_train_past_chunk_size_takes_rising_positions(S):
 def test_mla_prefill_past_chunk_size_still_raises():
     """MLA's qk width (192 at full size) is not its v width (128), which
     the flash kernel does not take: MLA prefill past ``chunk_size`` raises
-    and names its ROADMAP item."""
+    and names its ROADMAP queue entry by title."""
     cfg = get_config("deepseek-v2-236b-noexperts-smoke")
     model = LM(cfg, device="cpu", chunk_size=CHUNK).init(
         torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="queue 1: MLA prefill past chunk_size"):
         model.prefill(torch.zeros((1, CHUNK + 1), dtype=torch.int32), 32)
     logits, _ = model.prefill(torch.zeros((1, CHUNK), dtype=torch.int32), 32)
     assert logits.shape[:2] == (1, 1)

@@ -250,17 +250,10 @@ def test_unfused_pooled_path_matches_reference(models, jax_reference):
 
 def test_unported_features_refuse_at_construction(models):
     _, _, tmodel = models
-    for kwargs in ({"paged_decode": False}, {"speculate_k": 2},
-                   {"journal": object()}):
-        with pytest.raises(NotImplementedError):
-            ServingEngine(tmodel, ServeConfig(max_len=MAX_LEN,
-                                              page_tokens=PAGE_TOKENS,
-                                              **kwargs), device="cpu")
     with pytest.raises(NotImplementedError):
-        ServingEngine(tmodel, ServeConfig(
-            max_len=MAX_LEN, page_tokens=PAGE_TOKENS,
-            engine_spec=EngineSpec(engine="paged", prefix_cache_tokens=64)),
-            device="cpu")
+        ServingEngine(tmodel, ServeConfig(max_len=MAX_LEN,
+                                          page_tokens=PAGE_TOKENS,
+                                          paged_decode=False), device="cpu")
     with pytest.raises(ValueError):           # the log engine is not ported
         ServingEngine(tmodel, ServeConfig(
             max_len=MAX_LEN, engine_spec=EngineSpec(engine="log")),

@@ -1,0 +1,169 @@
+"""Shared harness of the serving-feature parity tests: the JAX package's
+``ServingEngine`` and the port's, on the same weights and the same
+schedule.
+
+A scenario is a function of one package's :class:`Side` (engine, request,
+fault-plan and journal factories) that drives that package's serving
+surface and returns what it observed. :func:`pair` runs it on both
+packages (the JAX side once per family and scenario, memoized) so a test
+can hold the port's tokens and counters to the JAX engine's.
+
+Cache families, each on its smoke config with the JAX ``LM.init`` weights
+carried across (fp32): ``dense`` (``internlm2-1.8b-smoke``), ``int8`` (the
+same with an int8 KV pool) and ``mla`` (DeepSeek-V2 without experts).
+"""
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core.engines import EngineSpec as JaxEngineSpec
+from repro.models import build_model
+from repro.serving import Request as JaxRequest
+from repro.serving import ServeConfig as JaxServeConfig
+from repro.serving import ServingEngine as JaxServingEngine
+from repro.serving import faults as jax_faults
+from repro.serving.journal import ServingJournal as JaxServingJournal
+from repro_torch.configs import get_config
+from repro_torch.core.engines import EngineSpec
+from repro_torch.core.engines.desc import PLANE_STAT_NAMES
+from repro_torch.models import LM, params_from_jax
+from repro_torch.serving import Request, ServeConfig, ServingEngine
+from repro_torch.serving import faults
+from repro_torch.serving.journal import ServingJournal
+
+MAX_LEN = 48
+PAGE_TOKENS = 4
+# family → (port arch, JAX arch, kv_cache_dtype, JAX config edit)
+FAMILIES = {
+    "dense": ("internlm2-1.8b-smoke", "internlm2-1.8b-smoke", "native", {}),
+    "int8": ("internlm2-1.8b-smoke", "internlm2-1.8b-smoke", "int8", {}),
+    "mla": ("deepseek-v2-236b-noexperts-smoke", "deepseek-v2-236b-smoke",
+            "native", {"family": "attn_dense", "moe": None}),
+}
+# counters the port must move exactly as the JAX engine does
+COUNTERS = (
+    "prefix_hits", "prefix_tokens_reused", "cow_copies", "shared_pages",
+    "spec_proposed", "spec_accepted", "pool_page_spills", "pool_faults",
+    "pool_appends", "pool_d2h_bytes", "pool_h2d_bytes", "preempts",
+    "restores", "host_pages_lost", "transfer_retries", "transfer_failures",
+    "retried_faults", "prefetch_hits", "async_spills", "tiering_degraded",
+    "sched_ticks", "sched_spliced", "sched_rows_shed", "sched_decode_rows",
+    "sched_prefill_chunks", "prefill_calls", "step_calls",
+) + tuple(f"pool_{d}_bytes_{p}" for d in ("d2h", "h2d")
+          for p in PLANE_STAT_NAMES)
+
+_MODELS: dict = {}
+
+
+@pytest.fixture(autouse=True)
+def one_cpu_thread():
+    """The port's CPU steps here are tiny ops: one intra-op thread each,
+    as many threads spin against the other test workers on a loaded
+    machine (a test module picks this up by importing it)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def models(fam):
+    """(JAX model, JAX params, port model) of a family, with the JAX
+    weights carried across."""
+    if fam not in _MODELS:
+        arch, jarch, kd, edit = FAMILIES[fam]
+        jcfg = dataclasses.replace(jax_get_config(jarch), **edit)
+        jmodel = build_model(jcfg, remat=False, kv_cache_dtype=kd)
+        jparams = jmodel.init(jax.random.PRNGKey(0))
+        cfg = get_config(arch)
+        tmodel = LM(cfg, device="cpu", kv_cache_dtype=kd)
+        tmodel.load_state_dict(params_from_jax(
+            jax.tree.map(np.asarray, jparams), cfg))
+        _MODELS[fam] = (jmodel, jparams, tmodel)
+    return _MODELS[fam]
+
+
+def group_bytes(fam) -> int:
+    """One pool page group (all layers, all planes) of the family."""
+    return models(fam)[2].cache_descriptor(PAGE_TOKENS).page_group_bytes
+
+
+class Side:
+    """One package's serving surface, with the same signatures on both."""
+
+    def __init__(self, pkg: str, fam: str):
+        self.pkg, self.fam = pkg, fam
+        self.vocab = models(fam)[2].cfg.vocab_size
+        self.faults = jax_faults if pkg == "jax" else faults
+
+    def engine(self, *, pages=None, prefix_tokens=0, chunk=None, k=0,
+               proposer=None, fuse=True, plan=None, journal=None,
+               max_batch_seqs=4, async_tiering=False):
+        hbm = 64 << 20 if pages is None else pages * group_bytes(self.fam)
+        kw = dict(max_len=MAX_LEN, page_tokens=PAGE_TOKENS,
+                  max_batch_seqs=max_batch_seqs, prefill_chunk_tokens=chunk,
+                  fuse_ticks=fuse, speculate_k=k, draft_proposer=proposer,
+                  fault_plan=plan, journal=journal)
+        jmodel, jparams, tmodel = models(self.fam)
+        if self.pkg == "jax":
+            return JaxServingEngine(jmodel, jparams, JaxServeConfig(
+                engine_spec=JaxEngineSpec(
+                    engine="paged", kv_hbm_bytes=hbm,
+                    prefix_cache_tokens=prefix_tokens,
+                    async_tiering=async_tiering), **kw))
+        return ServingEngine(tmodel, ServeConfig(
+            engine_spec=EngineSpec(
+                engine="paged", kv_hbm_bytes=hbm,
+                prefix_cache_tokens=prefix_tokens,
+                async_tiering=async_tiering), **kw), device="cpu")
+
+    def request(self, rid, prompt, max_new):
+        cls = JaxRequest if self.pkg == "jax" else Request
+        return cls(rid=rid, prompt=np.asarray(prompt, np.int32).copy(),
+                   max_new=max_new)
+
+    def requests(self, prompts, max_new, first_rid=0):
+        return [self.request(first_rid + i, p, max_new)
+                for i, p in enumerate(prompts)]
+
+    def plan(self, script=(), **kw):
+        """A FaultPlan; ``script`` holds ``(tick, kind, key, value)``."""
+        return self.faults.FaultPlan(
+            script=tuple(self.faults.FaultEvent(*ev) for ev in script), **kw)
+
+    def journal(self, capacity=1 << 16):
+        return (JaxServingJournal if self.pkg == "jax"
+                else ServingJournal)(capacity=capacity)
+
+
+def prompts(seed, lens, vocab=512):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, n, dtype=np.int32) for n in lens]
+
+
+_PAIRS: dict = {}
+
+
+def pair(fam: str, scenario):
+    """``(jax_result, port_result)`` of ``scenario`` on one family; the
+    JAX side is memoized per (family, scenario)."""
+    key = (fam, scenario.__name__)
+    if key not in _PAIRS:
+        _PAIRS[key] = scenario(Side("jax", fam))
+    return _PAIRS[key], scenario(Side("torch", fam))
+
+
+def tokens(reqs):
+    return [[int(t) for t in r.generated] for r in reqs]
+
+
+def assert_counters_equal(got: dict, want: dict, keys=COUNTERS):
+    """Every counter in ``keys`` equal, and the simulated clock equal."""
+    bad = {k: (got[k], want[k]) for k in keys if got[k] != want[k]}
+    assert not bad, f"port != JAX (port, jax): {bad}"
+    assert got["sim_time_s"] == pytest.approx(
+        want["sim_time_s"], rel=1e-9)
+    assert got["mirror_d2h_bytes"] == 0
