@@ -103,6 +103,19 @@ each raises on failure, and any failure ends the run with a traceback:
                 2048-token prompt through the flash kernel against the
                 same model's plain ``full_attention`` branch (last logits
                 and every layer's K/V, fp32 tolerance).
+16. serve-log, serve-kvhybrid, serve-paged-mirror — phase 3's requests
+                through the dense mirror on the ``log`` and ``kvhybrid``
+                engines and host-mode ``paged`` (``paged_decode=False``):
+                plain torch attention over the rows, no kernel entry
+                launched; the new tokens mirrored into the host tiers
+                (every computed token lands there), the wall split into
+                the mirror calls and their host-tier appends.
+17. parity-mirror — 4 layers at full width in fp32: dense on all three
+                engines, fused and unfused, int8 (chunk-aware reference)
+                and MLA on ``log``, ``log`` with speculation and on a
+                hot-window budget that preempts (``MIRROR_TIGHT``), each
+                token-identical to the pooled ``generate()`` and the
+                sequential reference, no kernel launched.
 
 Each serving path is driven with the launch counts set to 0 just before
 it and read just after; a row's ``serving_launches`` is the sum of its
@@ -908,15 +921,17 @@ def requests_of(lens, max_new, vocab, seed):
 
 
 def engine(model, dev, *, hbm, fuse=True, max_len=560, chunk=CHUNK,
-           prefix_tokens=0, async_tiering=False, **features):
+           prefix_tokens=0, async_tiering=False, kv_engine="paged",
+           **features):
     """The serve phases' engine; ``features`` go to ``ServeConfig``
-    (``speculate_k``, ``draft_proposer``, ``journal``, ``fault_plan``)."""
+    (``speculate_k``, ``draft_proposer``, ``journal``, ``fault_plan``,
+    ``paged_decode``)."""
     from repro_torch.core.engines import EngineSpec
     from repro_torch.serving import ServeConfig, ServingEngine
     return ServingEngine(model, ServeConfig(
         max_len=max_len, page_tokens=16, max_batch_seqs=8,
         prefill_chunk_tokens=chunk, fuse_ticks=fuse,
-        engine_spec=EngineSpec(engine="paged", kv_hbm_bytes=hbm,
+        engine_spec=EngineSpec(engine=kv_engine, kv_hbm_bytes=hbm,
                                prefix_cache_tokens=prefix_tokens,
                                async_tiering=async_tiering), **features),
         device=dev)
@@ -1575,6 +1590,208 @@ def crash_recover(torch, dev, seed, cfg):
     return served
 
 
+# ---------------------------------------------------------- phases 16-17
+#: parity-mirror's preempting run: prompt lengths and the hot-window budget
+#: in tokens (the schedule follows lengths and budget, not width: chosen at
+#: smoke width on the CPU, held here)
+MIRROR_TIGHT = dict(lens=(300, 120, 64, 220), hot_tokens=300)
+MIRROR_COUNTERS = ("log_appends", "page_appends", "drained", "patches",
+                   "hot_hits", "routed_log", "routed_pages", "stall_time",
+                   "host_writes", "hbm_misses")
+
+
+def mirror_check(what, eng, counts):
+    """The mirror path's invariants: no kernel entry launched, and the
+    engine on the mirror."""
+    launched = {k: n for k, n in counts.items() if n}
+    if eng.pooled or launched:
+        raise AssertionError(f"{what}: pooled={eng.pooled}, kernel "
+                             f"launches {launched}")
+
+
+def time_mirror(torch, eng):
+    """Split a mirror run's host clock: the engine's mirror calls (on-card
+    gather, device→host copy, host-tier appends; each entered after a
+    ``torch.cuda.synchronize()``, so the step's queued card work is not
+    charged to them) and, inside them, the host-tier engine's appends.
+    Returns the dict the wrappers add seconds to."""
+    spent = {"mirror_s": 0.0, "engine_s": 0.0}
+    depth = {"mirror_s": 0, "engine_s": 0}    # count outermost calls only
+
+    def wrap(obj, name, key, sync):
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            if depth[key]:
+                return fn(*a, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            depth[key] += 1
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+                depth[key] -= 1
+        setattr(obj, name, timed)
+    for name in ("_mirror_prefill", "_mirror_step_ragged",
+                 "mirror_decode_batch"):
+        wrap(eng, name, "mirror_s", True)
+    for name in ("append", "append_many"):
+        wrap(eng.tiered, name, "engine_s", False)
+    return spent
+
+
+def serve_mirror(torch, dev, seed, what, model, kv_engine):
+    """Phases 16a–c: phase 3's workload through the dense mirror on
+    ``kv_engine`` (``paged`` with ``paged_decode=False``), with the launch
+    counts set to 0 just before and read just after. Every token whose KV
+    was computed — each prompt's and each generated token's, plus the
+    tokens a restore re-appends — reaches the engine's host tiers. Logs
+    the wall split of :func:`time_mirror`. Returns every entry's launches
+    (all 0)."""
+    import repro_torch.kernels as ops
+    cfg = model.cfg
+    reqs = requests(8, 64, 512, 32, cfg.vocab_size, seed)
+    eng = engine(model, dev, hbm=1 << 30, kv_engine=kv_engine,
+                 paged_decode=False)
+    spent = time_mirror(torch, eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(ops)
+    mirror_check(what, eng, counts)
+    s = eng.stats()
+    if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
+        raise AssertionError(f"{what}: a request did not finish in vocab")
+    if s["mirror_d2h_bytes"] <= 0:
+        raise AssertionError(f"{what}: no mirror bytes")
+    token_group = eng.tiered.spec.token_bytes * cfg.num_layers
+    computed = sum(len(r.prompt) + r.max_new for r in reqs) \
+        + s["restore_in_bytes"] // token_group
+    landed = {"log": s.get("log_appends", 0),
+              "kvhybrid": s.get("log_appends", 0) + s.get("page_appends", 0),
+              "paged": s.get("host_writes", 0) // cfg.num_layers}[kv_engine]
+    if landed != computed:
+        raise AssertionError(f"{what}: {landed} tokens reached the engine, "
+                             f"{computed} were computed")
+    new = sum(len(r.generated) for r in reqs)
+    tier = {k: s[k] for k in MIRROR_COUNTERS if k in s}
+    log(f"[{what}] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
+        f"{kv_engine} engine, dense mirror: {len(reqs)} requests, {new} new "
+        f"tokens in {wall:.3f} s = {new / wall:.2f} tok/s (incl. prefill); "
+        f"ticks {s['sched_ticks']} ({wall / s['sched_ticks'] * 1e3:.1f} ms "
+        f"a tick; of the wall, mirror calls {spent['mirror_s']:.3f} s, of "
+        f"them host-tier appends {spent['engine_s']:.3f} s), "
+        f"mirror_d2h_bytes {s['mirror_d2h_bytes']}, tokens landed "
+        f"{landed} of {computed} computed, {tier}, preempts {s['preempts']}, "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
+        f"sim_time_s {s['sim_time_s']}; kernel launches 0")
+    return counts
+
+
+def mirror_run(torch, model, dev, reqs, what, **kw):
+    """``generate()`` through the dense mirror with the launch counts set
+    to 0 just before and read just after; checks no kernel launched and
+    returns (requests, stats, every entry's launches)."""
+    import repro_torch.kernels as ops
+    eng = engine(model, dev, paged_decode=False, **kw)
+    ops.reset_launch_counts()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    counts = launch_counts(ops)
+    mirror_check(what, eng, counts)
+    return reqs, eng.stats(), counts
+
+
+def parity_mirror(torch, dev, seed, dense, mla):
+    """Phase 17: 4 layers at full width in fp32 through the dense mirror,
+    token-identical to the pooled ``generate()`` and the sequential
+    reference: dense on ``log``, ``kvhybrid`` and ``paged`` (host mode),
+    fused and unfused; int8 (the chunk-aware reference) and MLA on
+    ``log``; ``log`` with ``speculate_k`` drafts; ``log`` on a hot-window
+    budget that preempts. Returns every entry's launches (all 0)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    served = collections.Counter()
+
+    def reqs(cfg):
+        return requests(4, 64, 400, 16, cfg.vocab_size, seed + 2)
+
+    for cfg, kd, first, runs in (
+            (dense, "native", None, [(e, f) for e in ("log", "kvhybrid",
+                                                      "paged")
+                                     for f in (True, False)]),
+            (dense, "int8", CHUNK, [("log", True)]),
+            (mla, "native", None, [("log", True)])):
+        cfg4 = dataclasses.replace(cfg, num_layers=4)
+        model4 = make_model(torch, cfg4, torch.float32, dev, seed, kd)
+        ref = reference(torch, model4, dev, reqs(cfg), first)
+        pooled = engine(model4, dev, hbm=1 << 30).generate(reqs(cfg))
+        check_identical(torch, model4, pooled, ref, "parity-mirror-pooled",
+                        first)
+        for kv_engine, fuse in runs:
+            what = (f"parity-mirror-{kv_engine}-"
+                    f"{'fused' if fuse else 'unfused'}-{kd if kd != 'native' else ('mla' if cfg.mla else 'dense')}")
+            got, s, counts = mirror_run(torch, model4, dev, reqs(cfg), what,
+                                        hbm=1 << 30, kv_engine=kv_engine,
+                                        fuse=fuse)
+            served.update(counts)
+            check_identical(torch, model4, got, ref, what, first)
+            check_identical(torch, model4, got, pooled, what + "-vs-pooled",
+                            first)
+            log(f"[{what}] 4-layer fp32: generate() == pooled generate() "
+                f"== {'generate_sequential()' if first is None else 'the chunk-aware sequential reference'}"
+                f" on {len(got)} requests x 16 tokens; ticks "
+                f"{s['sched_ticks']}, mirror_d2h_bytes "
+                f"{s['mirror_d2h_bytes']}, kernel launches 0")
+        if cfg is dense and kd == "native":
+            got, s, counts = mirror_run(
+                torch, model4, dev, reqs(cfg), "parity-mirror-spec",
+                hbm=1 << 30, kv_engine="log", speculate_k=SPEC_K,
+                draft_proposer=ReferenceDrafts(ref, 2, cfg.vocab_size))
+            served.update(counts)
+            if not 0 < s["spec_accepted"] < s["spec_proposed"]:
+                raise AssertionError(f"parity-mirror-spec: accepted "
+                                     f"{s['spec_accepted']} of "
+                                     f"{s['spec_proposed']}")
+            check_identical(torch, model4, got, ref, "parity-mirror-spec")
+            log(f"[parity-mirror-spec] 4-layer fp32 log, speculate_k "
+                f"{SPEC_K}: token-identical; spec_proposed "
+                f"{s['spec_proposed']}, spec_accepted {s['spec_accepted']}, "
+                f"ticks {s['sched_ticks']}, mirror_d2h_bytes "
+                f"{s['mirror_d2h_bytes']}")
+            lens = MIRROR_TIGHT["lens"]
+            tref = reference(torch, model4, dev,
+                             requests_of(lens, 16, cfg.vocab_size, seed + 3),
+                             None)
+            per_token = 4 * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+            got, s, counts = mirror_run(
+                torch, model4, dev,
+                requests_of(lens, 16, cfg.vocab_size, seed + 3),
+                "parity-mirror-tight", kv_engine="log",
+                hbm=MIRROR_TIGHT["hot_tokens"] * per_token)
+            served.update(counts)
+            if s["preempts"] <= 0 or s["restores"] != s["preempts"]:
+                raise AssertionError(f"parity-mirror-tight: preempts "
+                                     f"{s['preempts']}, restores "
+                                     f"{s['restores']}")
+            check_identical(torch, model4, got, tref, "parity-mirror-tight")
+            log(f"[parity-mirror-tight] 4-layer fp32 log, hot-window budget "
+                f"{MIRROR_TIGHT['hot_tokens']} tokens, prompts {lens}: "
+                f"token-identical with {s['preempts']} preempts and "
+                f"{s['restores']} restores ({s['preempt_out_bytes']} B out "
+                f"to disk), ticks {s['sched_ticks']}")
+        del model4
+        free(torch)
+    return served
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1713,6 +1930,19 @@ def main(argv=None) -> int:
     stamp("serve-long")
     served.update(parity_long(torch, dev, args.seed, dense))
     stamp("parity-long")
+
+    # the dense mirror: no kernel on its path, each phase read alone
+    model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
+    for kv_engine in ("log", "kvhybrid", "paged"):
+        what = {"paged": "serve-paged-mirror"}.get(kv_engine,
+                                                   f"serve-{kv_engine}")
+        served.update(serve_mirror(torch, dev, args.seed, what, model,
+                                   kv_engine))
+        stamp(what)
+    del model
+    free(torch)
+    served.update(parity_mirror(torch, dev, args.seed, dense, mla))
+    stamp("parity-mirror")
 
     for name, row in rows.items():
         row["serving_launches"] = served[name]

@@ -1,10 +1,9 @@
 """The one config object every KV-engine construction site uses.
 
 The port's copy of the JAX package's ``EngineSpec``, cut to the fields the
-port's ``paged`` engine reads. Each other field of the reference (the
-file-system engines' knobs, the log and hybrid engines' drain and routing
-knobs) comes back with the slice that ports the engine reading it, so no
-field here is ever silently ignored.
+port's KV engines (``paged``, ``log``, ``kvhybrid``) and serving tier read.
+The file-system engines' knobs of the reference are not carried: no
+engine here reads them, so no field is ever silently ignored.
 """
 from __future__ import annotations
 
@@ -15,11 +14,23 @@ from dataclasses import dataclass
 class EngineSpec:
     """Everything needed to build a KV cache engine."""
     engine: str = "paged"
-    # device page-pool budget in bytes (sets the pool's page count)
+    # log/kvhybrid drain batching: the per-entry drain service amortizes
+    # one host-link write latency over this many log entries
+    drain_batch: int = 64
+    # kvhybrid routing: appends smaller than the threshold go to the log
+    # (the *initial* threshold the online policy adapts)
+    hybrid_threshold: int = 2048
+    # per-shard drainer parallelism: independent FIFO drain servers for the
+    # log/kvhybrid KV engines
+    drain_shards: int = 1
+    # KV-tier HBM budget in bytes: the device page pool's size (paged,
+    # pooled), the HBM working set (paged, host mode), or the total of the
+    # hot windows (log, kvhybrid)
     kv_hbm_bytes: int = 64 << 20
+    # log/kvhybrid: per-sequence hot window, in most recent tokens
+    kv_hot_window: int = 128
     # cross-request prefix cache: token capacity of the radix index over
-    # shared pool pages; 0 disables sharing. Not ported yet: the serving
-    # engine refuses any other value
+    # shared pool pages; 0 disables sharing (pooled path only)
     prefix_cache_tokens: int = 0
     # async tiering: pooled spills/faults go through a background transfer
     # pipeline instead of stalling the foreground; False keeps every

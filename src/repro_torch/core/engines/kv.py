@@ -27,10 +27,10 @@ falls back to LRU).
 
 New designs register with ``@register_kv_engine("name")`` and are
 constructed via ``create_kv_engine(spec, kvspec, clock)``; unknown names
-raise ``ValueError``. The port's built-in (``paged``, pooled mode) lives in
-:mod:`repro_torch.core.kvcache` and is registered on first use; the
-``log`` and ``kvhybrid`` designs wait for a later slice. This registry is
-the port's own, so its ``paged`` never clashes with the JAX package's.
+raise ``ValueError``. The port's built-ins (``paged`` in host or pooled
+mode, ``log`` and ``kvhybrid``) live in :mod:`repro_torch.core.kvcache`
+and are registered on first use. This registry is the port's own, so its
+names never clash with the JAX package's.
 """
 from __future__ import annotations
 
@@ -426,7 +426,7 @@ def _ensure_builtins() -> None:
     # first use must not suppress the built-ins.
     global _builtins_loaded
     if not _builtins_loaded:
-        import repro_torch.core.kvcache  # noqa: F401  (registers paged)
+        import repro_torch.core.kvcache  # noqa: F401  (registers built-ins)
         _builtins_loaded = True    # only after a successful import: a failed
         # first attempt must retry, not hide the builtins forever
 

@@ -1,38 +1,52 @@
-"""Tiered KV cache, pooled paging design (NVPages) on a torch device.
+"""Tiered KV cache for serving: paged vs log vs hybrid, on a torch device.
 
-The port's copy of the JAX package's ``paged`` KV engine in its pooled
-mode: fixed-size token pages live in device-resident ``(L, P, T, *shape)``
-torch tensors (one per descriptor plane) that the paged-attention kernel
-reads directly through a block table; page alloc/free is tied to an LRU
-and a hot/cold model, and when the fixed pool fills, the coldest page of a
-non-pinned sequence is *spilled to the host tier at page granularity*
-(D2H one page) and faulted back on demand (H2D). Host copies are CPU
-torch tensors (numpy has no bfloat16).
+The port's copy of the JAX package's KV engines. Tiers: HBM (fast, small)
+↔ host DRAM over PCIe (big) ↔ disk (preempted sequences). Every design is
+a :class:`~repro_torch.core.engines.kv.KVCacheEngine` built from an
+:class:`~repro_torch.core.engines.EngineSpec`
+(``create_kv_engine(spec, kvspec, clock)``):
 
-Data movement is real; PCIe/HBM/disk *time* is modeled by the SimClock
-with the same tier constants the JAX package charges (``HOST_LINK`` and
-``HBM`` below), so byte counters and simulated-time counters compare 1:1
-with the reference. They are a simulation's inputs, not a GPU's speed.
+* ``paged`` (:class:`PagedKVCache`, NVPages) runs in one of two modes that
+  share the block table. **Pooled** (:meth:`PagedKVCache.init_pool`, the
+  mirror-free serving path): fixed-size token pages live in
+  device-resident ``(L, P, T, *shape)`` tensors (one per descriptor
+  plane) that the paged-attention kernel reads through the block table;
+  when the pool fills, the coldest page of a non-pinned sequence spills
+  to the host at page granularity and faults back on demand. Pages may
+  be shared: a prefix index pins them, admission splices them, and the
+  first write inside a shared page copies it (copy-on-write); a fault
+  injector may fail tier transfers and lose spilled host pages. **Host
+  mode** (the default, behind the dense mirror): pages live in a host
+  pool, an HBM LRU models the device working set, appends pay the 2×
+  redo + page host write, misses DMA whole pages up.
+* ``log`` (:class:`LogKVCache`, NVLog): appends go to one sequential host
+  log (1× write); a per-sequence hot window holds the most recent tokens;
+  a sharded background drainer compacts log entries into host pages;
+  cold reads patch pages from the undrained log, entry by entry.
+* ``kvhybrid`` (:class:`HybridKVCache`): small appends take the log path,
+  large ones go straight to pages, the threshold learned online
+  (:class:`AdaptiveRouter`); a sequence's shard force-drains before the
+  page side takes its pages (log-before-pages ordering).
 
-Pages may be shared: a prefix index (``serving/prefix_cache.py``) pins
-pages, admission splices them into a new sequence's block table, and the
-first write inside a page other live sequences still read copies it
-(copy-on-write). A fault injector (``serving/faults.py``) may fail tier
-transfers and lose spilled host pages.
+Host-tier data (host pages, the log, hot windows, compacted pages, disk
+blobs) are CPU torch tensors — numpy has no bfloat16. Data movement is
+real; PCIe/HBM/disk *time* is modelled by the SimClock with the tier
+constants the JAX package charges (``HOST_LINK`` and ``HBM`` below), so
+byte counters and simulated-time counters compare 1:1 with the
+reference. They are a simulation's inputs, not a GPU's speed.
 
-The ``log`` and ``kvhybrid`` designs, the paged engine's host mode and the
-per-sequence state rows of the SSM family wait for later slices of the
-port.
+The per-sequence state rows of the SSM family wait for a later slice.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.core.clock import SimClock
+from repro_torch.core.clock import ShardedDrainer, SimClock
 from repro_torch.core.engines.base import EngineSpec
 from repro_torch.core.engines.desc import (CacheDescriptor, PLANE_STAT_NAMES,
                                            dense_descriptor)
@@ -77,11 +91,20 @@ class KVSpec:
         return (2 * self.kv_heads * self.head_dim
                 * torch.empty((), dtype=self.dtype).element_size())
 
+    @property
+    def page_bytes(self) -> int:
+        return self.page_tokens * self.token_bytes
+
+    def empty_page(self) -> torch.Tensor:
+        return torch.zeros((2, self.page_tokens, self.kv_heads,
+                            self.head_dim), dtype=self.dtype)
+
 
 class _TieredKV(KVCacheEngine):
-    """Shared engine plumbing: the host-facing append/read protocol, the
-    preempted-sequence guard, release, and the uniform stats key set.
-    Engines implement ``_append_tokens`` / ``_read`` / ``_drop_seq``."""
+    """Shared engine plumbing: the host-facing append/read protocol,
+    preempt/restore through the disk tier, the preempted-sequence guard,
+    release, and the uniform stats key set. Engines implement
+    ``_append_tokens`` / ``_read`` / ``_drop_seq`` / ``_spill``."""
 
     def __init__(self, spec: KVSpec, clock: SimClock):
         self.spec = spec
@@ -120,6 +143,13 @@ class _TieredKV(KVCacheEngine):
     def _drop_seq(self, seq: int) -> None:
         raise NotImplementedError
 
+    def _spill(self, seq: int) -> torch.Tensor:
+        """Materialize ``(L, 2, T, K, D)`` for preemption WITHOUT the read
+        path's side effects (no HBM LRU touches, DMA faults, or router
+        reuse feedback) — preempting must not pollute what stays
+        resident."""
+        raise NotImplementedError
+
     # protocol --------------------------------------------------------------
     def _check_active(self, seq: int) -> None:
         if seq in self._preempted:
@@ -144,8 +174,38 @@ class _TieredKV(KVCacheEngine):
         self._check_active(seq)
         return self._read(seq, layer)
 
+    def preempt(self, seq: int) -> None:
+        self._check_active(seq)
+        blob = self._spill(seq)
+        nbytes = _nbytes(blob)
+        # sequential drain of the whole sequence out of the host tier and
+        # onto the disk tier (one streamed copy, no random faults)
+        self.clock.charge(HOST_LINK, "read", nbytes, random_access=False)
+        self.clock.charge(SSD, "write", nbytes, random_access=False)
+        self._drop_seq(seq)
+        self.seq_len.pop(seq, None)
+        self._preempted[seq] = blob
+        self.stats["preempts"] += 1
+        self.stats["preempt_out_bytes"] += nbytes
+
+    def restore(self, seq: int) -> None:
+        blob = self._preempted.pop(seq, None)
+        if blob is None:
+            raise RuntimeError(f"sequence {seq} is not preempted")
+        nbytes = _nbytes(blob)
+        self.clock.charge(SSD, "read", nbytes, random_access=False)
+        self.stats["restores"] += 1
+        self.stats["restore_in_bytes"] += nbytes
+        toks = list(blob.unbind(2))
+        if toks:
+            # restore re-enters through the append path: one large batch —
+            # under kvhybrid a long cold sequence lands on the page side
+            self._append_tokens(seq, toks)
+
     def _on_release(self, seq: int) -> None:
-        """Hook: per-sequence policy-state cleanup on release."""
+        """Hook: per-sequence policy-state cleanup on release (adaptive
+        routers forget their reuse histograms here). Runs on both release
+        branches, active and preempted."""
 
     def release(self, seq: int) -> None:
         """Finished request: drop the sequence from every tier. A preempted
@@ -160,15 +220,20 @@ class _TieredKV(KVCacheEngine):
 
 @register_kv_engine("paged")
 class PagedKVCache(_TieredKV):
-    """NVPages design over device-resident ``(L, P, T, *shape)`` page
-    planes (the mirror-free serving path).
+    """NVPages design over (layer, seq) KV pages, in one of two modes that
+    share the block table and the (seq → [phys]) indirection:
 
-    Decode and prefill appends are device-born: the model scatters them in
-    place into the pool tensors (:meth:`pool_views` hands out the engine's
-    own tensors) and :meth:`commit_step_planes` / :meth:`commit_prefill_planes`
-    advance the accounting — HBM writes only, zero device→host traffic.
-    Every method requires :meth:`init_pool` first: the reference's host
-    mode is not ported.
+    * **host mode** (default): pages live in a host pool of CPU tensors,
+      an HBM LRU of ``(layer, phys)`` pages models the device working set,
+      appends pay the 2× redo + page host write, misses DMA whole pages
+      up. The dense-mirror serving path appends to it.
+    * **pooled mode** (:meth:`init_pool`, the mirror-free serving path):
+      pages live in device-resident ``(L, P, T, *shape)`` planes. Decode
+      and prefill appends are device-born: the model scatters them in
+      place into the pool tensors (:meth:`pool_views` hands out the
+      engine's own tensors) and :meth:`commit_step_planes` /
+      :meth:`commit_prefill_planes` advance the accounting — HBM writes
+      only, zero device→host traffic.
     """
 
     def __init__(self, spec: KVSpec, clock: SimClock, *,
@@ -176,8 +241,12 @@ class PagedKVCache(_TieredKV):
                  transfer_max_retries: int = 3,
                  transfer_backoff_s: float = 1e-4):
         super().__init__(spec, clock)
+        self.pool: dict[tuple, torch.Tensor] = {}   # (layer, phys) → page
         self.block_table: dict[int, list[int]] = {}  # seq → [phys per logical]
+        self.hbm_lru = LRUList()                     # (layer, phys) resident
         self.hbm_budget_bytes = hbm_budget_bytes
+        self.hbm_capacity = max(hbm_budget_bytes // spec.page_bytes, 1)
+        self.next_phys = 0
         self._pooled = False
         self.async_tiering = bool(async_tiering)
         self._pipeline = None          # TransferPipeline once pooled + async
@@ -185,6 +254,8 @@ class PagedKVCache(_TieredKV):
         self._injector = None          # FaultInjector (set_fault_injector)
         self._xfer_retries = transfer_max_retries
         self._xfer_backoff = transfer_backoff_s
+        self.stats.update({"hbm_hits": 0, "hbm_misses": 0, "dma_up_bytes": 0,
+                           "host_writes": 0, "redo_bytes": 0})
 
     @classmethod
     def from_spec(cls, spec: EngineSpec, kvspec: KVSpec,
@@ -205,8 +276,8 @@ class PagedKVCache(_TieredKV):
     def _require_pool(self) -> None:
         if not self._pooled:
             raise RuntimeError(
-                "the port's paged engine runs pooled only; call init_pool() "
-                "first (host mode is not ported)")
+                "this method works on the device page pool; call init_pool() "
+                "first (host mode has no pool)")
 
     def init_pool(self, dtype=None, pages: Optional[int] = None,
                   device="cuda") -> None:
@@ -215,7 +286,7 @@ class PagedKVCache(_TieredKV):
         from the HBM budget unless ``pages`` overrides it."""
         if self._pooled:
             raise RuntimeError("init_pool() called twice")
-        if self.seq_len or self._preempted:
+        if self.seq_len or self.pool or self._preempted:
             raise RuntimeError("init_pool() must run before any append")
         spec = self.spec
         desc = spec.descriptor()
@@ -830,9 +901,11 @@ class PagedKVCache(_TieredKV):
     # --------------------------------------------- pooled preempt / restore
     def preempt(self, seq: int) -> None:
         """Pooled preemption spills PLANE blobs (one token-exact host
-        tensor per paged plane): the layout leaves the pool the same way
+        tensor per paged plane) rather than host mode's dense
+        ``(L, 2, T, K, D)`` blob: the layout leaves the pool the same way
         it lives in it."""
-        self._require_pool()
+        if not self._pooled:
+            return super().preempt(seq)
         self._check_active(seq)
         length = self.seq_len.get(seq, 0)
         blobs = self._spill_pooled_planes(seq)
@@ -848,7 +921,8 @@ class PagedKVCache(_TieredKV):
         self.stats["preempt_out_bytes"] += nbytes
 
     def restore(self, seq: int) -> None:
-        self._require_pool()
+        if not self._pooled:
+            return super().restore(seq)
         item = self._preempted.pop(seq, None)
         if item is None:
             raise RuntimeError(f"sequence {seq} is not preempted")
@@ -889,11 +963,11 @@ class PagedKVCache(_TieredKV):
         self.seq_len[seq] = length
 
     # pooled data paths ------------------------------------------------------
-    def _append_tokens(self, seq: int, toks: list) -> None:
-        """Host-facing append (the sequential reference's mirror): scatter
-        ``(L, 2, K, D)`` tokens into the device pool in place. Models
-        device-born tokens (HBM write only). Dense ``(k, v)`` only."""
-        self._require_pool()
+    def _append_tokens_pooled(self, seq: int, toks: list) -> None:
+        """Host-facing append in pooled mode (the sequential reference's
+        mirror): scatter ``(L, 2, K, D)`` tokens into the device pool in
+        place. Models device-born tokens (HBM write only). Dense
+        ``(k, v)`` only."""
         if self.desc.kernel != "dense":
             raise NotImplementedError(
                 f"host-facing appends are dense-only; {self.desc.family!r} "
@@ -928,10 +1002,9 @@ class PagedKVCache(_TieredKV):
         self.stats["pool_appends"] += len(toks)
         self.seq_len[seq] = end
 
-    def _read(self, seq: int, layer: int) -> torch.Tensor:
+    def _read_pooled(self, seq: int, layer: int) -> torch.Tensor:
         """Materialize ``(2, T, K, D)`` of ``layer`` on the host in the
         KVSpec dtype (dense pools only)."""
-        self._require_pool()
         spec = self.spec
         if self.desc.kernel != "dense":
             raise NotImplementedError(
@@ -985,7 +1058,7 @@ class PagedKVCache(_TieredKV):
                 blobs[name][:, lo:hi] = arr[:, :hi - lo]
         return blobs
 
-    def _drop_seq(self, seq: int) -> None:
+    def _drop_seq_pooled(self, seq: int) -> None:
         """Release ``seq``'s pages: shared pages only lose this sequence's
         refcount; a page returns to the free list when its last live user
         leaves AND the prefix index does not pin it. Spilled pages drop
@@ -1008,20 +1081,118 @@ class PagedKVCache(_TieredKV):
         if self._share_index is not None:
             self._share_index.on_seq_dropped(seq)
 
+    # ------------------------------------------------------------- host mode
+    def _ensure_resident(self, layer: int, phys: int) -> None:
+        key = (layer, phys)
+        if key in self.hbm_lru:
+            self.stats["hbm_hits"] += 1
+            self.hbm_lru.touch(key)
+            return
+        self.stats["hbm_misses"] += 1
+        if len(self.hbm_lru) >= self.hbm_capacity:
+            self.hbm_lru.pop_lru()                   # clean: host copy is truth
+        # DMA whole page up — the paper's miss-copy cost
+        self.clock.charge(HOST_LINK, "read", self.spec.page_bytes,
+                          random_access=True)
+        self.stats["dma_up_bytes"] += self.spec.page_bytes
+        self.hbm_lru.touch(key)
+
+    def _touch_resident(self, layer: int, phys: int) -> None:
+        """Mark the page being appended to as HBM-resident. The token just
+        came out of the device, so the page is in the working set by
+        construction — no DMA and no hit/miss accounting (those are
+        read-path stats)."""
+        if len(self.hbm_lru) >= self.hbm_capacity and \
+                (layer, phys) not in self.hbm_lru:
+            self.hbm_lru.pop_lru()
+        self.hbm_lru.touch((layer, phys))
+
+    def _append_tokens(self, seq: int, toks: list) -> None:
+        if self._pooled:
+            return self._append_tokens_pooled(seq, toks)
+        spec = self.spec
+        for kv_token in toks:
+            pos = self.seq_len.get(seq, 0)
+            logical = pos // spec.page_tokens
+            slot = pos % spec.page_tokens
+            table = self.block_table.setdefault(seq, [])
+            if logical >= len(table):
+                table.append(self.next_phys)
+                self.next_phys += 1
+                for layer in range(spec.num_layers):
+                    self.pool[(layer, table[logical])] = spec.empty_page()
+            phys = table[logical]
+            for layer in range(spec.num_layers):
+                # redo-buffer write then page write: the paging design's 2×
+                self.clock.charge(HOST_LINK, "write", spec.token_bytes,
+                                  random_access=False)       # redo append
+                self.stats["redo_bytes"] += spec.token_bytes
+                self.clock.charge(HOST_LINK, "write", spec.token_bytes,
+                                  random_access=True)        # into the page
+                self.stats["host_writes"] += 1
+                self.pool[(layer, phys)][:, slot] = kv_token[layer]
+                self._touch_resident(layer, phys)
+            self.seq_len[seq] = pos + 1
+
+    def _read(self, seq: int, layer: int) -> torch.Tensor:
+        """Materialize ``(2, T, K, D)`` for attention; in host mode pages
+        are DMA'd to HBM on miss (block-table indirection)."""
+        if self._pooled:
+            return self._read_pooled(seq, layer)
+        spec = self.spec
+        T = self.seq_len.get(seq, 0)
+        out = torch.zeros((2, T, spec.kv_heads, spec.head_dim),
+                          dtype=spec.dtype)
+        for logical, phys in enumerate(self.block_table.get(seq, [])):
+            self._ensure_resident(layer, phys)
+            lo = logical * spec.page_tokens
+            hi = min(lo + spec.page_tokens, T)
+            if lo >= T:
+                break
+            out[:, lo:hi] = self.pool[(layer, phys)][:, :hi - lo]
+            self.clock.charge(HBM, "read", (hi - lo) * spec.token_bytes)
+        return out
+
+    def _spill(self, seq: int) -> torch.Tensor:
+        if self._pooled:
+            raise RuntimeError(
+                "pooled preemption goes through plane blobs, not the dense "
+                "host spill hook")
+        spec = self.spec
+        T = self.seq_len.get(seq, 0)
+        blob = torch.zeros((spec.num_layers, 2, T, spec.kv_heads,
+                            spec.head_dim), dtype=spec.dtype)
+        for logical, phys in enumerate(self.block_table.get(seq, [])):
+            lo = logical * spec.page_tokens
+            hi = min(lo + spec.page_tokens, T)
+            if lo >= T:
+                break
+            for layer in range(spec.num_layers):
+                blob[layer, :, lo:hi] = self.pool[(layer, phys)][:, :hi - lo]
+        return blob
+
+    def _drop_seq(self, seq: int) -> None:
+        if self._pooled:
+            return self._drop_seq_pooled(seq)
+        for phys in self.block_table.pop(seq, []):
+            for layer in range(self.spec.num_layers):
+                self.pool.pop((layer, phys), None)
+                self.hbm_lru.remove((layer, phys))
+
     # -------------------------------------------------------------- pressure
     def hbm_used_bytes(self) -> int:
         if not self._pooled:
-            return 0
+            return len(self.hbm_lru) * self.spec.page_bytes
         return (self.pool_pages - len(self.free_pages)) * self._group_bytes
 
     def hbm_limit_bytes(self) -> Optional[int]:
         if not self._pooled:
-            return None
+            return self.hbm_capacity * self.spec.page_bytes
         return self.pool_pages * self._group_bytes
 
     def pressure(self) -> float:
         if not self._pooled:
-            return 0.0
+            return super().pressure()
         # count the pages the NEXT decode step will claim, so the scheduler
         # preempts one tick before allocation would have to spill pages of
         # the running batch itself; pages held only by the prefix index are
@@ -1032,16 +1203,19 @@ class PagedKVCache(_TieredKV):
 
     def resident_bytes(self, seq: int) -> int:
         if not self._pooled:
-            return 0
+            n = sum(1 for phys in self.block_table.get(seq, ())
+                    for layer in range(self.spec.num_layers)
+                    if (layer, phys) in self.hbm_lru)
+            return n * self.spec.page_bytes
         n = sum(1 for phys in self.block_table.get(seq, ()) if phys >= 0)
         return n * self._group_bytes
 
     def victim_hint(self, candidates: Iterable[int]) -> Optional[int]:
-        """Preempt the candidate whose eviction actually FREES the most
-        device pool pages (only sole-user pages the prefix index does not
-        pin count); ties rank
-        by the hot/cold model (least re-reference mass), then by LRU
-        coldness."""
+        """Pooled mode: preempt the candidate whose eviction actually FREES
+        the most device pool pages (only sole-user pages the prefix index
+        does not pin count); ties rank by the hot/cold model (least
+        re-reference mass), then by LRU coldness. Host mode has no
+        opinion (the scheduler falls back to LRU)."""
         if not self._pooled:
             return None
         cands = list(candidates)
@@ -1059,3 +1233,523 @@ class PagedKVCache(_TieredKV):
                           default=len(order))
             return (-len(freeable), heat, coldest)
         return min(cands, key=key)
+
+
+class _DrainingKV(_TieredKV):
+    """Shared log/drain machinery for the log-structured designs.
+
+    Appends go to a sequential host log (1× write) whose entries drain into
+    compacted host pages through :class:`ShardedDrainer` — per-shard pending
+    queues (``hash(seq) → shard``), each an independent FIFO server, so
+    backlog on one shard never delays another. A per-sequence HBM hot
+    window serves recent tokens; cold reads come from the compacted pages,
+    patched from undrained log entries one by one on the host (the
+    ``log_patch`` kernel's function; the reference reads the log the same
+    way, without the kernel).
+    """
+
+    def __init__(self, spec: KVSpec, clock: SimClock, *,
+                 hot_window_tokens: int, drain_batch: int, drain_shards: int,
+                 hbm_budget_bytes: Optional[int] = None):
+        super().__init__(spec, clock)
+        self.hot_window = hot_window_tokens
+        # the hot windows are the engine's HBM use: bound their TOTAL across
+        # sequences to the budget (None = unbounded)
+        per_token = spec.token_bytes * spec.num_layers
+        self._hot_budget_tokens = (None if hbm_budget_bytes is None
+                                   else max(hbm_budget_bytes // per_token, 1))
+        self._hot_total = 0
+        self._batch_depth = 0      # >0 inside append_many: advance once
+        self.drain_batch = drain_batch
+        self.drainer = ShardedDrainer(drain_shards)
+        # per-shard pending log entries: (seq, pos, kv_token, finish)
+        self.shard_log: list[deque] = [deque() for _ in range(drain_shards)]
+        self._seq_pending: dict[int, int] = {}   # seq → undrained entries
+        # compacted host pages, indexed per sequence so preempting one
+        # sequence never scans the others: seq → (layer, logical) → page
+        self.pages: dict[int, dict[tuple, torch.Tensor]] = {}
+        # per-sequence HBM hot window (most recent tokens, all layers)
+        self.hot: dict[int, deque] = {}
+        self.stats.update({"log_appends": 0, "patches": 0, "hot_hits": 0,
+                           "host_reads": 0, "host_writes": 0, "drained": 0,
+                           "stall_time": 0.0})
+
+    def pending_for(self, seq: int) -> int:
+        """Undrained log entries for ``seq`` (0 after a force-drain)."""
+        return self._seq_pending.get(seq, 0)
+
+    # ---------------------------------------------------------------- drain
+    def _drain_service(self) -> float:
+        b = self.spec.token_bytes * self.spec.num_layers
+        return HOST_LINK.write_latency / self.drain_batch + b / HOST_LINK.write_bw
+
+    def _apply(self, seq: int, pos: int, kv_token: torch.Tensor) -> None:
+        spec = self.spec
+        logical, slot = divmod(pos, spec.page_tokens)
+        seq_pages = self.pages.setdefault(seq, {})
+        for layer in range(spec.num_layers):
+            page = seq_pages.get((layer, logical))
+            if page is None:
+                page = spec.empty_page()
+                seq_pages[(layer, logical)] = page
+            page[:, slot] = kv_token[layer]
+
+    def _advance(self, now: float) -> None:
+        """Functionally apply every entry whose drain finished by ``now``."""
+        for pending in self.shard_log:
+            while pending and pending[0][3] <= now:
+                seq, pos, kv_token, _ = pending.popleft()
+                self._apply(seq, pos, kv_token)
+                self._seq_pending[seq] -= 1
+                if not self._seq_pending[seq]:
+                    del self._seq_pending[seq]
+                self.stats["drained"] += 1
+
+    def _force_drain_seq(self, seq: int) -> None:
+        """Stall until every pending entry of ``seq`` has drained. FIFO
+        shard order means waiting for the sequence's newest entry drains
+        everything it appended earlier too; other shards keep their own
+        schedule."""
+        if not self._seq_pending.get(seq, 0):
+            return
+        pending = self.shard_log[self.drainer.shard_of(seq)]
+        finish = max(e[3] for e in pending if e[0] == seq)
+        stall = max(0.0, finish - self.clock.now)
+        if stall:
+            self.stats["stall_time"] += stall
+        self.clock.wait_until(finish)
+        self._advance(self.clock.now)
+
+    # --------------------------------------------------------------- append
+    def _hot_push(self, seq: int, pos: int, kv_token: torch.Tensor) -> None:
+        hot = self.hot.setdefault(seq, deque())
+        hot.append((pos, kv_token.clone()))
+        self._hot_total += 1
+        if len(hot) > self.hot_window:       # per-sequence recency window
+            hot.popleft()
+            self._hot_total -= 1
+        while (self._hot_budget_tokens is not None
+               and self._hot_total > self._hot_budget_tokens):
+            # global HBM budget: shrink the largest window first (evicted
+            # tokens stay readable through the cold pages/patch path)
+            victim = max(self.hot.values(), key=len)
+            victim.popleft()
+            self._hot_total -= 1
+
+    def _log_takes_page(self, seq: int, logical: int) -> None:
+        """Hook: the log (re)gains responsibility for a page (kvhybrid's
+        ownership bookkeeping)."""
+
+    def _log_owns(self, seq: int, logical: int) -> bool:
+        """Hook: may the log patch this page on read? Always true for the
+        pure log design; kvhybrid answers false for page-side-owned pages
+        (reads trust the page side once ownership transferred)."""
+        return True
+
+    def _append_log(self, seq: int, toks: list) -> None:
+        spec = self.spec
+        shard = self.drainer.shard_of(seq)
+        pending = self.shard_log[shard]
+        for kv_token in toks:
+            pos = self.seq_len.get(seq, 0)
+            nbytes = spec.token_bytes * spec.num_layers
+            # one sequential log write — the logging design's 1× write
+            self.clock.charge(HOST_LINK, "write", nbytes, random_access=False)
+            self.stats["host_writes"] += 1
+            finish = self.drainer.push(shard, self.clock.now,
+                                       self._drain_service())
+            pending.append((seq, pos, kv_token.clone(), finish))
+            self._seq_pending[seq] = self._seq_pending.get(seq, 0) + 1
+            self.stats["log_appends"] += 1
+            self._log_takes_page(seq, pos // spec.page_tokens)
+            self._hot_push(seq, pos, kv_token)
+            self.seq_len[seq] = pos + 1
+
+    def append_many(self, items: Sequence[tuple]) -> None:
+        """Batched multi-sequence append with ONE drainer advance for the
+        whole batch (per-append advances are suppressed while inside)."""
+        self._batch_depth += 1
+        try:
+            for seq, kv_tokens in items:
+                self.append(seq, kv_tokens)
+        finally:
+            self._batch_depth -= 1
+        self._advance(self.clock.now)
+
+    # ----------------------------------------------------------------- read
+    def _observe_read(self, seq: int, hot_tokens: int, cold_tokens: int,
+                      latency_s: float) -> None:
+        """Hook: reuse + gather-latency feedback for the adaptive router
+        (kvhybrid)."""
+
+    def _read(self, seq: int, layer: int) -> torch.Tensor:
+        """(2, T, kv_heads, head_dim): hot window from HBM; cold history from
+        compacted pages, patched from the log where the drainer hasn't
+        caught up."""
+        spec = self.spec
+        t_read0 = self.clock.now
+        self._advance(self.clock.now)
+        T = self.seq_len.get(seq, 0)
+        out = torch.zeros((2, T, spec.kv_heads, spec.head_dim),
+                          dtype=spec.dtype)
+        hot = self.hot.get(seq, ())
+        hot_positions = set()
+        for pos, kv_token in hot:
+            out[:, pos] = kv_token[layer]
+            hot_positions.add(pos)
+        if hot_positions:
+            self.stats["hot_hits"] += len(hot_positions)
+            self.clock.charge(
+                HBM, "read", len(hot_positions) * spec.token_bytes)
+        cold_T = min(T, min(hot_positions) if hot_positions else T)
+        npages = -(-cold_T // spec.page_tokens) if cold_T else 0
+        seq_pages = self.pages.get(seq, {})
+        for logical in range(npages):
+            lo = logical * spec.page_tokens
+            hi = min(lo + spec.page_tokens, cold_T)
+            page = seq_pages.get((layer, logical))
+            if page is not None:
+                # only existing compacted pages cost host traffic; a still-
+                # undrained page's tokens are charged by the patch loop below
+                out[:, lo:hi] = page[:, :hi - lo]
+                self.clock.charge(HOST_LINK, "read",
+                                  (hi - lo) * spec.token_bytes,
+                                  random_access=False)
+                self.stats["host_reads"] += 1
+        # patch undrained log entries overlapping the cold range — the
+        # sequence's entries live only in its own shard (hash(seq) → shard),
+        # so other shards' backlogs are never scanned
+        pending = self.shard_log[self.drainer.shard_of(seq)]
+        for seq_i, pos, kv_token, _ in pending:
+            if (seq_i == seq and pos < cold_T and pos not in hot_positions
+                    and self._log_owns(seq, pos // spec.page_tokens)):
+                out[:, pos] = kv_token[layer]
+                self.clock.charge(HOST_LINK, "read", spec.token_bytes,
+                                  random_access=True)
+                self.stats["patches"] += 1
+        self._observe_read(seq, len(hot_positions), max(cold_T, 0),
+                           self.clock.now - t_read0)
+        return out
+
+    def _spill(self, seq: int) -> torch.Tensor:
+        spec = self.spec
+        T = self.seq_len.get(seq, 0)
+        blob = torch.zeros((spec.num_layers, 2, T, spec.kv_heads,
+                            spec.head_dim), dtype=spec.dtype)
+        # compacted pages first, then undrained log entries on top (FIFO) —
+        # together they hold every appended token; the hot window is only a
+        # cache of the same data
+        for (layer, logical), page in self.pages.get(seq, {}).items():
+            lo = logical * spec.page_tokens
+            hi = min(lo + spec.page_tokens, T)
+            if lo < T:
+                blob[layer, :, lo:hi] = page[:, :hi - lo]
+        for seq_i, pos, kv_token, _ in self.shard_log[
+                self.drainer.shard_of(seq)]:
+            if seq_i == seq:
+                blob[:, :, pos] = kv_token
+        return blob
+
+    def _drop_seq(self, seq: int) -> None:
+        self._hot_total -= len(self.hot.pop(seq, ()))
+        self.pages.pop(seq, None)
+        if self._seq_pending.pop(seq, None):
+            shard = self.drainer.shard_of(seq)
+            self.shard_log[shard] = deque(
+                e for e in self.shard_log[shard] if e[0] != seq)
+
+    # -------------------------------------------------------------- pressure
+    def hbm_used_bytes(self) -> int:
+        return self._hot_total * self.spec.token_bytes * self.spec.num_layers
+
+    def hbm_limit_bytes(self) -> Optional[int]:
+        if self._hot_budget_tokens is None:
+            return None
+        return (self._hot_budget_tokens * self.spec.token_bytes
+                * self.spec.num_layers)
+
+    def resident_bytes(self, seq: int) -> int:
+        return (len(self.hot.get(seq, ())) * self.spec.token_bytes
+                * self.spec.num_layers)
+
+
+@register_kv_engine("log")
+class LogKVCache(_DrainingKV):
+    """NVLog design: sequential host log + HBM hot window + drain/compact."""
+
+    def __init__(self, spec: KVSpec, clock: SimClock, *,
+                 hot_window_tokens: int = 256, drain_batch: int = 32,
+                 drain_shards: int = 1,
+                 hbm_budget_bytes: Optional[int] = None):
+        super().__init__(spec, clock, hot_window_tokens=hot_window_tokens,
+                         drain_batch=drain_batch, drain_shards=drain_shards,
+                         hbm_budget_bytes=hbm_budget_bytes)
+
+    @classmethod
+    def from_spec(cls, spec: EngineSpec, kvspec: KVSpec,
+                  clock: SimClock) -> "LogKVCache":
+        return cls(kvspec, clock, hot_window_tokens=spec.kv_hot_window,
+                   drain_batch=spec.drain_batch,
+                   drain_shards=spec.drain_shards,
+                   hbm_budget_bytes=spec.kv_hbm_bytes)
+
+    def _append_tokens(self, seq: int, toks: list) -> None:
+        self._append_log(seq, toks)
+        if not self._batch_depth:
+            self._advance(self.clock.now)
+
+
+class AdaptiveRouter:
+    """Online log-vs-pages routing policy for :class:`HybridKVCache`.
+
+    Keeps a log2 histogram of observed append sizes plus hot/cold read
+    counters and a gather-latency EMA, and re-learns the byte threshold
+    every ``update_every`` appends (appends below the threshold route to
+    the log hot-window path, the rest to pages):
+
+    * **bimodal** sizes (decode tokens vs prefill bursts): the threshold
+      sits in the widest histogram valley, nudged toward the log side when
+      the hot window serves most reads and toward the page side when reads
+      are cold-heavy or gathers run slow;
+    * **unimodal small** (< page granularity): everything logs — the
+      threshold parks at 4× the mode, capped at one page;
+    * **unimodal large** (≥ one page): everything pages.
+
+    **Latency feedback:** the router keeps an EMA of observed per-token
+    gather latency and compares it to ``page_per_token_s`` — the modelled
+    cost of serving the same token from a compacted page — and biases the
+    threshold toward pages when gathers run hot.
+
+    Per-sequence hot/cold counters (``seq_reuse``) feed
+    :meth:`HybridKVCache.victim_hint`: under HBM pressure the scheduler
+    preempts the sequence whose reads reuse the hot window least.
+    """
+
+    #: observed-vs-modelled gather cost ratio above which gathers count as
+    #: slow (bias toward pages) / below which as cheap (keep the log)
+    SLOW_GATHER_RATIO = 2.0
+    FAST_GATHER_RATIO = 1.2
+
+    def __init__(self, threshold_bytes: int, page_bytes: int, *,
+                 update_every: int = 16,
+                 page_per_token_s: Optional[float] = None):
+        self.threshold = max(int(threshold_bytes), 1)
+        self.page_bytes = page_bytes
+        self.update_every = update_every
+        self.page_per_token_s = page_per_token_s
+        self.hist: dict[int, int] = {}    # log2 bucket → append count
+        self.hot_reads = 0
+        self.cold_reads = 0
+        self.gather_lat_s: Optional[float] = None   # per-token EMA
+        self.seq_reuse: dict[int, list[int]] = {}   # seq → [hot, cold]
+        self._n = 0
+
+    def observe_read(self, seq: int, hot_tokens: int, cold_tokens: int,
+                     latency_s: float = 0.0) -> None:
+        self.hot_reads += hot_tokens
+        self.cold_reads += cold_tokens
+        reuse = self.seq_reuse.setdefault(seq, [0, 0])
+        reuse[0] += hot_tokens
+        reuse[1] += cold_tokens
+        tokens = hot_tokens + cold_tokens
+        if tokens and latency_s > 0.0:
+            per_tok = latency_s / tokens
+            self.gather_lat_s = (per_tok if self.gather_lat_s is None
+                                 else 0.8 * self.gather_lat_s + 0.2 * per_tok)
+
+    def reuse_score(self, seq: int) -> Optional[float]:
+        """Hot-window share of this sequence's observed reads (None = never
+        read). Low score = cold sequence = cheap preemption victim."""
+        reuse = self.seq_reuse.get(seq)
+        if reuse is None or (reuse[0] + reuse[1]) == 0:
+            return None
+        return reuse[0] / (reuse[0] + reuse[1])
+
+    def forget_seq(self, seq: int) -> None:
+        """Drop per-sequence reuse state (finished request)."""
+        self.seq_reuse.pop(seq, None)
+
+    def _latency_bias(self) -> float:
+        """Extra threshold bias from *observed* gather latency: slow gathers
+        (≫ the modelled page-read cost) push appends toward pages, cheap
+        ones keep the log attractive."""
+        if self.gather_lat_s is None or not self.page_per_token_s:
+            return 0.0
+        ratio = self.gather_lat_s / self.page_per_token_s
+        if ratio > self.SLOW_GATHER_RATIO:
+            return -1.0                     # gathers hurt → favor pages
+        if ratio < self.FAST_GATHER_RATIO:
+            return 0.25                     # gathers cheap → keep logging
+        return 0.0
+
+    def route(self, nbytes: int) -> str:
+        """Record one append of ``nbytes`` and return ``"log"``/``"pages"``."""
+        self.hist[nbytes.bit_length()] = \
+            self.hist.get(nbytes.bit_length(), 0) + 1
+        self._n += 1
+        if self._n % self.update_every == 0:
+            self._relearn()
+        return "log" if nbytes < self.threshold else "pages"
+
+    def _relearn(self) -> None:
+        buckets = sorted(self.hist)
+        total = sum(self.hist.values())
+        # drop noise buckets (<2% of mass) so a stray append can't masquerade
+        # as a mode
+        buckets = [b for b in buckets
+                   if self.hist[b] >= max(total * 0.02, 1)] or buckets
+        gap_mid, gap_w = None, 1
+        for lo, hi in zip(buckets, buckets[1:]):
+            if hi - lo > gap_w:
+                gap_w, gap_mid = hi - lo, (lo + hi) / 2
+        if gap_mid is not None:
+            # bimodal: split at the valley, biased by observed reuse and by
+            # the measured gather-latency-vs-page-cost ratio
+            reads = self.hot_reads + self.cold_reads
+            bias = 0.0
+            if reads:
+                if self.cold_reads > 0.75 * reads:
+                    bias = -0.5        # cold-heavy reuse → favor pages
+                elif self.hot_reads > 0.75 * reads:
+                    bias = 0.5         # hot-window reuse → favor the log
+            bias = max(-1.5, min(1.5, bias + self._latency_bias()))
+            self.threshold = int(2 ** (gap_mid + bias))
+            return
+        mode = max(buckets, key=lambda b: self.hist[b])
+        mode_size = 1 << max(mode - 1, 0)
+        if mode_size >= self.page_bytes:
+            self.threshold = self.page_bytes       # page-sized: route pages
+        else:
+            self.threshold = min(4 * mode_size, self.page_bytes)
+
+
+@register_kv_engine("kvhybrid")
+class HybridKVCache(_DrainingKV):
+    """The combined design: adaptive log/pages routing + sharded drainers.
+
+    Small appends take the log path (1× sequential host write, HBM hot
+    window, per-shard background drain into host pages); large appends write
+    host pages directly (no redo write for fully covered pages). Coherence:
+    before the page side takes ownership of a sequence's pages, that
+    sequence's drain shard is force-drained — log entries always reach the
+    pages before page-side writes land on top (log-before-pages ordering).
+    """
+
+    def __init__(self, spec: KVSpec, clock: SimClock, *,
+                 hbm_budget_bytes: int, hot_window_tokens: int = 256,
+                 drain_batch: int = 32, drain_shards: int = 1,
+                 threshold_bytes: int = 2048):
+        super().__init__(spec, clock, hot_window_tokens=hot_window_tokens,
+                         drain_batch=drain_batch, drain_shards=drain_shards,
+                         hbm_budget_bytes=hbm_budget_bytes)
+        # pages whose pending state the page side owns: seq → {logical}
+        self.page_owned: dict[int, set[int]] = {}
+        # modelled cost of serving one token from a compacted page — the
+        # reference the router's gather-latency feedback compares against
+        page_per_token = (HOST_LINK.read_latency / spec.page_tokens
+                          + spec.token_bytes / HOST_LINK.read_bw)
+        self.router = AdaptiveRouter(threshold_bytes, spec.page_bytes,
+                                     page_per_token_s=page_per_token)
+        self.stats.update({"routed_log": 0, "routed_pages": 0,
+                           "page_appends": 0, "force_drains": 0,
+                           "redo_bytes": 0})
+
+    @classmethod
+    def from_spec(cls, spec: EngineSpec, kvspec: KVSpec,
+                  clock: SimClock) -> "HybridKVCache":
+        return cls(kvspec, clock, hbm_budget_bytes=spec.kv_hbm_bytes,
+                   hot_window_tokens=spec.kv_hot_window,
+                   drain_batch=spec.drain_batch,
+                   drain_shards=spec.drain_shards,
+                   threshold_bytes=spec.hybrid_threshold)
+
+    @property
+    def threshold(self) -> int:
+        """Current learned routing threshold in bytes (a gauge, not a
+        counter — deliberately not part of ``stats``)."""
+        return self.router.threshold
+
+    def _log_takes_page(self, seq: int, logical: int) -> None:
+        # the log side owns this page again (reads patch from the log)
+        owned = self.page_owned.get(seq)
+        if owned:
+            owned.discard(logical)
+
+    def _log_owns(self, seq: int, logical: int) -> bool:
+        # ownership is what reads trust: once the page side took a page
+        # (after the force-drain), the log never patches it again
+        return logical not in self.page_owned.get(seq, ())
+
+    def _observe_read(self, seq: int, hot_tokens: int, cold_tokens: int,
+                      latency_s: float) -> None:
+        self.router.observe_read(seq, hot_tokens, cold_tokens, latency_s)
+
+    def victim_hint(self, candidates: Iterable[int]) -> Optional[int]:
+        """Preemption victim from the router's per-sequence reuse histogram:
+        the candidate whose reads reuse the hot window least, ties broken
+        toward the largest HBM footprint. ``None`` when no candidate has
+        been read yet — the scheduler then falls back to LRU."""
+        scored = [(self.router.reuse_score(seq), seq) for seq in candidates]
+        if all(score is None for score, _ in scored):
+            return None
+        # unread sequences score neutral: known-cold beats unknown
+        return min(scored, key=lambda sv: (
+            0.5 if sv[0] is None else sv[0],
+            -self.resident_bytes(sv[1])))[1]
+
+    def _append_pages(self, seq: int, toks: list) -> None:
+        spec = self.spec
+        start = self.seq_len.get(seq, 0)
+        end = start + len(toks)
+        # ownership handover: this sequence's log entries must reach the
+        # pages before the page side writes on top of them
+        self._force_drain_seq(seq)
+        for i, kv_token in enumerate(toks):
+            pos = start + i
+            logical = pos // spec.page_tokens
+            page_lo = logical * spec.page_tokens
+            page_hi = page_lo + spec.page_tokens
+            full_page = start <= page_lo and page_hi <= end
+            nbytes = spec.token_bytes * spec.num_layers
+            if full_page:
+                # fully covered page: one sequential write, no redo
+                self.clock.charge(HOST_LINK, "write", nbytes,
+                                  random_access=False)
+            else:
+                # partial page: redo append + in-place page write (the
+                # paging design's 2× for sub-page writes)
+                self.clock.charge(HOST_LINK, "write", nbytes,
+                                  random_access=False)
+                self.clock.charge(HOST_LINK, "write", nbytes,
+                                  random_access=True)
+                self.stats["redo_bytes"] += nbytes
+            self.stats["host_writes"] += 1
+            self._apply(seq, pos, kv_token)
+            self.page_owned.setdefault(seq, set()).add(logical)
+            self.stats["page_appends"] += 1
+            self._hot_push(seq, pos, kv_token)
+            self.seq_len[seq] = pos + 1
+
+    def _force_drain_seq(self, seq: int) -> None:
+        if self.pending_for(seq):
+            super()._force_drain_seq(seq)
+            self.stats["force_drains"] += 1
+
+    def _append_tokens(self, seq: int, toks: list) -> None:
+        nbytes = len(toks) * self.spec.token_bytes * self.spec.num_layers
+        route = self.router.route(nbytes)
+        if route == "log":
+            self.stats["routed_log"] += 1
+            self._append_log(seq, toks)
+        else:
+            self.stats["routed_pages"] += 1
+            self._append_pages(seq, toks)
+        if not self._batch_depth:
+            self._advance(self.clock.now)
+
+    def _drop_seq(self, seq: int) -> None:
+        super()._drop_seq(seq)
+        self.page_owned.pop(seq, None)
+
+    def _on_release(self, seq: int) -> None:
+        self.router.forget_seq(seq)

@@ -1,12 +1,23 @@
-"""Serve requests through the port's pooled, fused paged-KV engine.
+"""Serve requests through the port's tiered KV engines.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch internlm2-1.8b \
         --dtype bfloat16 --requests 8 --prompt-len 256 --max-new 32 \
         --prefill-chunk-tokens 128
 
 Requests share one running batch (admitted/preempted/restored by the
-scheduler); every tick is one ragged forward whose attention runs the
-hand-written paged-attention kernel over the device page pool.
+scheduler); every tick is one ragged forward. ``--design`` (alias
+``--engine``) picks the KV engine from the registry: ``paged`` (the
+default) serves pooled, its attention the hand-written paged-attention
+kernel over the device page pool; ``log`` and ``kvhybrid`` serve through
+the dense mirror (plain torch attention over per-request cache rows on
+the card, new tokens mirrored into the host log), ``--drain-shards``
+setting their drainer parallelism. ``--paged-decode`` requires the pool,
+``--mirror-decode`` forces the mirror (``paged`` then runs host mode);
+the default picks the pool when the engine has one and the budget fits:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+        --design kvhybrid --drain-shards 4
+
 ``--hbm-budget-bytes`` small enough to bind makes preemption visible in the
 printed stats; ``--sequential`` runs the one-at-a-time dense reference
 instead (same tokens). ``--arch deepseek-v2-236b-noexperts`` serves the
@@ -31,7 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import REGISTRY, get_config
-from repro_torch.core.engines import EngineSpec
+from repro_torch.core.engines import EngineSpec, list_kv_engines
 from repro_torch.models import LM
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 from repro_torch.serving.faults import CrashFault, FaultPlan
@@ -45,6 +56,11 @@ def main(argv=None):
                     choices=sorted(REGISTRY))
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
+    ap.add_argument("--design", "--engine", dest="design",
+                    choices=list_kv_engines(), default="paged",
+                    help="KV engine from the registry")
+    ap.add_argument("--drain-shards", type=int, default=1,
+                    help="per-shard drainer parallelism (log/kvhybrid)")
     ap.add_argument("--requests", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-new", type=int, default=16)
@@ -55,6 +71,14 @@ def main(argv=None):
     ap.add_argument("--hbm-budget-bytes", type=int, default=64 << 20,
                     help="KV pool budget; small values force "
                          "preempt/restore cycles")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--paged-decode", dest="paged_decode",
+                      action="store_true", default=None,
+                      help="require mirror-free decode over the device page "
+                           "pool (needs a pool-capable engine)")
+    mode.add_argument("--mirror-decode", dest="paged_decode",
+                      action="store_false",
+                      help="force the dense-mirror decode path")
     ap.add_argument("--page-tokens", type=int, default=16,
                     help="tokens per KV page (pool geometry)")
     ap.add_argument("--prefill-chunk-tokens", type=int, default=None,
@@ -115,9 +139,11 @@ def main(argv=None):
         return ServingEngine(model, ServeConfig(
             max_len=max_len, page_tokens=args.page_tokens,
             engine_spec=EngineSpec(
-                engine="paged", kv_hbm_bytes=args.hbm_budget_bytes,
+                engine=args.design, drain_shards=args.drain_shards,
+                kv_hbm_bytes=args.hbm_budget_bytes,
                 prefix_cache_tokens=args.prefix_cache_tokens),
             max_batch_seqs=args.max_batch_seqs,
+            paged_decode=args.paged_decode,
             max_batch_tokens=args.max_batch_tokens,
             prefill_chunk_tokens=args.prefill_chunk_tokens,
             fuse_ticks=args.fuse_ticks, speculate_k=args.speculate_k,
@@ -154,8 +180,9 @@ def main(argv=None):
         print(f"req {r.rid}: generated {len(r.generated)} tokens "
               f"{r.generated[:8]}...")
     mode = ("sequential" if args.sequential else
-            "batched+pooled" + ("+fused" if engine.fused else ""))
-    print(f"tiered-kv[paged] ({mode}) stats: {engine.stats()}")
+            ("batched+pooled" if engine.pooled else "batched+mirror")
+            + ("+fused" if engine.fused else ""))
+    print(f"tiered-kv[{args.design}] ({mode}) stats: {engine.stats()}")
 
 
 if __name__ == "__main__":

@@ -16,11 +16,13 @@ arithmetic — stay ``torch`` matmuls, as they are XLA code there.
 
 The paged steps scatter new cache entries IN PLACE into the layer's pool
 views: the pool tensors belong to the KV engine, which receives the same
-tensors back in ``commit_step_planes``. Where the JAX scatter drops
-out-of-range writes (padding slots aimed at page ``P``, ``mode="drop"``),
-torch would raise — so padding slots are masked out before the scatter and
-never touch the pool, and block-table lookups are clamped where JAX
-clamps.
+tensors back in ``commit_step_planes``. The ragged steps over the dense
+cache (``*_decode_ragged``, the dense-mirror path's fused tick) are plain
+torch, as they are XLA code there, and write the dense cache in place.
+Where the JAX scatter drops out-of-range writes (padding slots aimed at
+page ``P`` or cache slot ``T``, ``mode="drop"``), torch would raise — so
+padding slots are masked out before the scatter and touch nothing, and
+block-table lookups are clamped where JAX clamps.
 """
 from __future__ import annotations
 
@@ -115,6 +117,26 @@ def attn_decode(p, cfg, x, cache_k, cache_v, positions):
     return out.reshape(B, 1, H * D) @ p.wo, cache_k, cache_v
 
 
+def attn_decode_ragged(p, cfg, x, cache_k, cache_v, ctx_lens, q_lens):
+    """Ragged multi-token step over the dense cache (the dense-mirror
+    path's fused tick). x: (B, Qmax, d); row ``b`` appends ``q_lens[b]``
+    new tokens at positions ``ctx_lens[b] + i`` (written IN PLACE into
+    cache_k/v (B, T, K, D)) and each attends causally to everything at or
+    before it. Padding slots write nothing; their outputs are garbage the
+    caller ignores. At ``q_len == 1`` this is :func:`attn_decode` op for
+    op. Returns ``(out, cache_k, cache_v)``."""
+    B, Qm, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    positions, valid = _ragged_positions(x, ctx_lens, q_lens)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    _scatter_dense((cache_k, cache_v), (k, v), positions, valid)
+    kv_pos = torch.arange(cache_k.shape[1], device=x.device)
+    out = full_attention(q, cache_k, cache_v, scale=1.0 / math.sqrt(D),
+                         q_positions=positions, kv_positions=kv_pos,
+                         causal=True)
+    return out.reshape(B, Qm, H * D) @ p.wo, cache_k, cache_v
+
+
 def _scatter_pool(pools, values, block_table, positions, valid):
     """Write ``values[j][b, i]`` into plane ``pools[j]`` at the page slot
     of position ``positions[b, i]``, IN PLACE, for the ``valid`` slots
@@ -133,6 +155,18 @@ def _ragged_positions(x, ctx_lens, q_lens):
     """(positions, valid) of a ragged step's (B, Qmax) slots."""
     ar = torch.arange(x.shape[1], device=x.device)
     return ctx_lens[:, None] + ar[None, :], ar[None, :] < q_lens[:, None]
+
+
+def _scatter_dense(caches, values, positions, valid):
+    """Write ``values[j][b, i]`` into dense plane ``caches[j]`` (B, T, ...)
+    at ``positions[b, i]``, IN PLACE, for the ``valid`` slots inside the
+    cache; the others touch nothing (JAX's ``mode="drop"``)."""
+    ok = valid & (positions < caches[0].shape[1])
+    b_idx = torch.arange(positions.shape[0], device=positions.device)
+    b_idx = b_idx[:, None].expand_as(positions)[ok]
+    pos = positions[ok]
+    for cache, val in zip(caches, values):
+        cache[b_idx, pos] = val[ok].to(cache.dtype)
 
 
 def _decode_positions(x, positions):
@@ -214,6 +248,25 @@ def attn_decode_q8(p, cfg, x, ck, cv, ck_s, cv_s, positions):
                          q_positions=pos2, kv_positions=kv_pos, causal=False,
                          kv_valid=kv_pos[None, :] <= positions[:, None])
     return out.reshape(B, 1, H * D) @ p.wo, ck, cv, ck_s, cv_s
+
+
+def attn_decode_ragged_q8(p, cfg, x, ck, cv, ck_s, cv_s, ctx_lens, q_lens):
+    """:func:`attn_decode_ragged` over a dense int8 cache: new tokens
+    quantize on write (in place), padding slots write nothing, attention
+    reads the dequantized cache. Returns ``(out, ck, cv, ck_s, cv_s)``."""
+    B, Qm, _ = x.shape
+    H, D = cfg.num_heads, cfg.head_dim
+    positions, valid = _ragged_positions(x, ctx_lens, q_lens)
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+    _scatter_dense((ck, cv, ck_s, cv_s), (kq, vq, ks, vs), positions, valid)
+    kf = dequantize_kv(ck, ck_s, x.dtype)
+    vf = dequantize_kv(cv, cv_s, x.dtype)
+    kv_pos = torch.arange(kf.shape[1], device=x.device)
+    out = full_attention(q, kf, vf, scale=1.0 / math.sqrt(D),
+                         q_positions=positions, kv_positions=kv_pos,
+                         causal=True)
+    return out.reshape(B, Qm, H * D) @ p.wo, ck, cv, ck_s, cv_s
 
 
 def attn_decode_paged_q8(p, cfg, x, pool_k, pool_v, pool_ks, pool_vs,
@@ -346,6 +399,29 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, positions):
     kv_pos = torch.arange(cache_c.shape[1], device=x.device)
     valid = kv_pos[None, :] <= positions[:, None]                  # (B, T)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    o_c = torch.einsum("bhst,btc->bshc", torch.softmax(s, dim=-1),
+                       cache_c.float())
+    return _mla_out(p, cfg, o_c, x.dtype), cache_c, cache_kr
+
+
+def mla_decode_ragged(p, cfg, x, cache_c, cache_kr, ctx_lens, q_lens):
+    """Ragged multi-token weight-absorbed MLA step over the dense latent
+    cache (the dense-mirror path's fused tick for the MLA family): the
+    :func:`mla_decode` einsum chain over a (B, Qmax) query block with
+    causal masking inside the chunk; padding slots write nothing. Returns
+    ``(out, cache_c, cache_kr)``."""
+    positions, valid = _ragged_positions(x, ctx_lens, q_lens)
+    q_nope, q_rope = _mla_queries(p, cfg, x, positions)
+    c_new, kr_new = _mla_latent(p, cfg, x, positions)
+    _scatter_dense((cache_c, cache_kr), (c_new, kr_new), positions, valid)
+    q_c = _absorb(p, q_nope)
+    s = (torch.einsum("bshc,btc->bhst", q_c, cache_c.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), cache_kr.float()))
+    m = cfg.mla
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    kv_pos = torch.arange(cache_c.shape[1], device=x.device)
+    allow = kv_pos[None, None, :] <= positions[:, :, None]        # (B, Q, T)
+    s = torch.where(allow[:, None], s, NEG_INF)
     o_c = torch.einsum("bhst,btc->bshc", torch.softmax(s, dim=-1),
                        cache_c.float())
     return _mla_out(p, cfg, o_c, x.dtype), cache_c, cache_kr

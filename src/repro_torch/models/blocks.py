@@ -117,6 +117,21 @@ def decode_decoder_block(p, cfg, h, cache, positions):
     return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(cache)
 
 
+def step_ragged_block(p, cfg, h, cache, ctx_lens, q_lens):
+    """Ragged multi-token block over one layer's dense cache planes,
+    written in place (the dense-mirror path's fused tick), dispatched as
+    :func:`decode_decoder_block`."""
+    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    if cfg.mla is not None:
+        step = attn_mod.mla_decode_ragged
+    elif len(cache) == 4:
+        step = attn_mod.attn_decode_ragged_q8
+    else:
+        step = attn_mod.attn_decode_ragged
+    a, *cache = step(p, cfg, x, *cache, ctx_lens, q_lens)
+    return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(cache)
+
+
 def decode_paged_block(p, cfg, h, planes, block_table, positions):
     """Single-token block over one layer's pool planes (descriptor
     order), dispatched as :func:`decode_decoder_block`."""

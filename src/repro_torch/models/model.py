@@ -7,7 +7,9 @@ of a dense decoder: GQA with a native cache, GQA with an int8 cache
 * ``init(generator)`` — random weights with the reference's distributions;
 * ``prefill(tokens, max_len) -> (logits, cache)`` — dense padded cache;
 * ``decode_step`` — one token over the dense cache (the sequential
-  reference's step);
+  reference's step and the unfused dense-mirror path's batched step);
+* ``step_ragged`` — one ragged mixed batch over the dense cache (the
+  dense-mirror path's fused tick: plain torch attention, no kernel);
 * ``decode_step_paged`` / ``step_paged_ragged`` — one token / one ragged
   mixed batch over the KV engine's device page pool, through the family's
   hand-written paged-attention kernel. The pool planes are named by the
@@ -154,6 +156,27 @@ class LM(nn.Module):
                 positions)
         new_cache = dict(cache)
         new_cache["pos"] = (positions + 1).to(torch.int32)
+        return self._logits(h), new_cache
+
+    @torch.no_grad()
+    def step_ragged(self, cache, tokens, ctx_lens, q_lens):
+        """One fused mixed-batch step over the dense padded cache planes
+        (``(L, B, T, *shape)`` in descriptor order, written in place).
+        tokens: (B, Qmax) — row ``b``'s ``q_lens[b]`` new tokens at
+        positions ``ctx_lens[b] + i`` (0 marks padding rows). Returns
+        logits for every slot (B, Qmax, V) and the cache with
+        ``pos = ctx_lens + q_lens``. With every ``q_len == 1`` this is
+        :meth:`decode_step` op for op."""
+        ctx_lens = ctx_lens.to(self.device, torch.long)
+        q_lens = q_lens.to(self.device, torch.long)
+        h = self._embed_tokens(tokens)
+        names = self.plane_names
+        for i, blk in enumerate(self.blocks):
+            h, _ = B.step_ragged_block(
+                blk, self.cfg, h, tuple(cache[n][i] for n in names),
+                ctx_lens, q_lens)
+        new_cache = dict(cache)
+        new_cache["pos"] = (ctx_lens + q_lens).to(torch.int32)
         return self._logits(h), new_cache
 
     def _paged_layers(self, cache, h, step):

@@ -1,12 +1,19 @@
 """Ragged-batch bookkeeping for continuous-batching decode.
 
-The counterparts of the JAX package's ``serving/batching.py`` helpers the
-pooled path uses. Per-sequence caches are *rows* whose arrays keep their
-batch dimension at size 1: ``pos`` (B,) on axis 0, ``k``/``v``
-(L, B, T, K, D) on axis 1. On the pooled path a row is just ``{"pos"}`` —
-its KV lives in the engine's device page pool — and the scatter/gather
-helpers move prompt KV between the dense prefill cache and the pool
-entirely on device. Host round-trips are exact copies.
+The counterparts of the JAX package's ``serving/batching.py`` helpers.
+Per-sequence caches are *rows* whose arrays keep their batch dimension at
+size 1: ``pos`` (B,) on axis 0, every cache plane (``k``/``v``, the int8
+scales, MLA's ``c``/``kr``) ``(L, B, T, *shape)`` on axis 1.
+
+On the dense-mirror path a row holds its whole padded cache on the
+device: :func:`concat_rows` copies rows into one batch for a step (so a
+step's in-place writes never reach the rows it was built from, padding
+rows included), :func:`split_row` hands back views into that batch, and
+the gathers slice each tick's new tokens on device so only they cross
+the device→host link, as float16. On the pooled path a row is just
+``{"pos"}`` — its KV lives in the engine's device page pool — and the
+scatter/gather helpers move prompt KV between the dense prefill cache and
+the pool entirely on device. Host round-trips are exact copies.
 """
 from __future__ import annotations
 
@@ -60,10 +67,35 @@ def gather_new_kv(cache_k, cache_v, positions):
         torch.float16)
 
 
+def gather_new_kv_ragged(cache_k, cache_v, ctx_lens, qmax: int):
+    """On-device gather of the tokens a fused ragged step just wrote.
+    cache_k/cache_v: (L, B, T, K, D); row ``b``'s new tokens sit at
+    ``ctx_lens[b] + i`` for ``i < qmax`` (slots past the row's ``q_len``
+    hold padding, clamped to ``T - 1``, that the caller slices off).
+    Returns (B, qmax, L, 2, K, D) float16, still on device."""
+    ctx_lens = ctx_lens.to(cache_k.device, torch.long)
+    B = ctx_lens.shape[0]
+    pos = ctx_lens[:, None] + torch.arange(qmax, device=cache_k.device)
+    pos = pos.clamp_max(cache_k.shape[2] - 1)
+    b_idx = torch.arange(B, device=cache_k.device)[:, None]
+    k = cache_k[:, b_idx, pos]                # (L, B, qmax, K, D)
+    v = cache_v[:, b_idx, pos]
+    return torch.stack([k, v], dim=2).permute(1, 3, 0, 2, 4, 5).to(
+        torch.float16)
+
+
 def gather_prefill_kv(cache_k, cache_v, n: int):
     """On-device slice of a batch-1 prompt's prefilled KV: (L, 2, n, K, D)
     float16, cast before transfer (the mirror's dtype)."""
     return torch.stack([cache_k[:, 0, :n], cache_v[:, 0, :n]],
+                       dim=1).to(torch.float16)
+
+
+def gather_kv_range(cache_k, cache_v, lo: int, hi: int):
+    """On-device slice of cache positions ``[lo, hi)`` of a batch-1 row:
+    (L, 2, hi - lo, K, D) float16 — one transfer for a chunk the unfused
+    mirror path ran token by token."""
+    return torch.stack([cache_k[:, 0, lo:hi], cache_v[:, 0, lo:hi]],
                        dim=1).to(torch.float16)
 
 

@@ -1,43 +1,55 @@
-"""Batched serving engine: continuous-batching decode over the pooled
-paged KV engine (the paper's NVPages design on the device).
+"""Batched serving engine: continuous-batching decode over the tiered KV
+cache (the paper's question at the KV call site).
 
-The port's counterpart of the JAX package's ``ServingEngine`` on its
-pooled, mirror-free path. The KV engine (``paged``, from the port's own
-registry) owns device-resident page planes; admission scatters a
-prompt's prefilled KV into pool pages on device, and every scheduler tick
-is ONE ragged forward (:meth:`ServingEngine.step_batch`): decode rows
-contribute one new token, prefill-chunk rows their next chunk, and the
-model family's hand-written ragged kernel (dense, int8 or MLA paged
-attention) attends them all in the same launch, layer by layer, through
-the block table. The pool's planes come from the model's cache
-descriptor. No KV byte crosses the device→host link on this path:
-``mirror_d2h_bytes`` stays 0.
+The port's counterpart of the JAX package's ``ServingEngine``. The KV
+engine (``paged``, ``log`` or ``kvhybrid``, from the port's own registry)
+is built from the :class:`EngineSpec` in :class:`ServeConfig`. Two paths:
+
+* **Pooled, mirror-free** (``paged`` when its budget holds a max-length
+  sequence): the engine owns device-resident page planes; admission
+  scatters a prompt's prefilled KV into pool pages on device, and every
+  scheduler tick is ONE ragged forward (:meth:`ServingEngine.step_batch`)
+  whose attention is the model family's hand-written ragged kernel
+  (dense, int8 or MLA paged attention) over the pool, through the block
+  table. No KV byte crosses the device→host link: ``mirror_d2h_bytes``
+  stays 0.
+* **Dense mirror** (``log``, ``kvhybrid``, or ``paged_decode=False``): the
+  model's working KV stays in dense per-request cache rows on the device,
+  and every tick is one ragged forward over them (``LM.step_ragged``,
+  plain torch attention, as it is XLA code in the reference: no kernel).
+  The tick's new tokens are gathered on device and mirrored, float16,
+  into the tiered engine's host tiers — a prompt as one batched append
+  (under ``kvhybrid`` a large write, routed to pages), decode tokens one
+  per row (small writes, the log) — so rows can be preempted to disk and
+  restored. ``mirror_d2h_bytes`` counts those bytes exactly. An MLA row
+  has no ``k``/``v`` and mirrors nothing, as in the reference.
+
+``ServeConfig.paged_decode`` picks the path: None = pooled when the
+engine has a pool and the budget fits, True = require it (``ValueError``
+otherwise), False = always mirror.
 
 ``generate()`` runs requests through the continuous-batching
 :class:`~repro_torch.serving.scheduler.Scheduler` (admission, chunked
-prefill, preemption to the host/disk tiers and restore under pool
-pressure). ``generate_sequential()`` keeps the one-request-at-a-time loop
-over the dense cache as the reference the scheduler must match token for
-token. ``fuse_ticks=False`` keeps the unfused baseline: prefill chunks run
-token by token through the single-token decode kernel (``extend_one``).
+prefill, preemption to the host/disk tiers and restore under pressure).
+``generate_sequential()`` keeps the one-request-at-a-time loop over the
+dense cache as the reference the scheduler must match token for token.
+``fuse_ticks=False`` keeps the unfused baseline: prefill chunks run token
+by token through the single-token decode step (``extend_one``).
 
 The serving features around the tick are the reference's:
 
-* **prefix cache** (``EngineSpec.prefix_cache_tokens``): a token radix
-  index over shared pool pages; a cache-hit admission splices the block
-  table instead of prefilling, and the first write inside a still-shared
-  page copies it on device (copy-on-write);
+* **prefix cache** (``EngineSpec.prefix_cache_tokens``, pooled path
+  only): a token radix index over shared pool pages; a cache-hit
+  admission splices the block table instead of prefilling, and the first
+  write inside a still-shared page copies it on device (copy-on-write);
 * **speculative decode** (``speculate_k``): decode rows carry ``1 + k``
-  query slots in the same ragged launch, the launch's per-slot argmax
-  verifies the drafts (one device→host copy a tick), and rejected slots
-  roll back;
+  query slots in the same ragged step, its per-slot argmax verifies the
+  drafts (one device→host copy a tick), and rejected slots roll back (a
+  partial commit on the pool; on the mirror, a truncated transfer and a
+  rewound ``pos``);
 * **faults and the journal** (``fault_plan``, ``journal``): deterministic
   fault injection, and a crash-consistent token journal over the NVMM log
   tier from which :meth:`ServingEngine.recover` resumes a crashed run.
-
-Not ported yet, and refused at construction rather than ignored: the
-dense-mirror path (``paged_decode=False``; the ``log``/``kvhybrid``
-engines are not registered).
 """
 from __future__ import annotations
 
@@ -68,8 +80,9 @@ class ServeConfig:
     max_batch_seqs: int = 8        # running-batch width cap
     max_batch_tokens: Optional[int] = None   # running-batch token cap
     min_running: int = 1           # preemption floor: progress guarantee
-    # mirror-free pooled decode: None/True = pooled (the only ported path);
-    # False asks for the dense mirror, which is refused
+    # mirror-free pooled decode: None = auto (pooled when the engine has a
+    # device page pool and the budget fits), True = require it (raise if
+    # it cannot), False = always the dense mirror
     paged_decode: Optional[bool] = None
     # chunked prefill: prompts longer than this admit chunk by chunk across
     # ticks (None → max_batch_tokens; chunking off when both are None)
@@ -109,14 +122,6 @@ class Request:
     done: bool = False
 
 
-def _refuse_unported(cfg: ServeConfig) -> None:
-    if cfg.paged_decode is False:
-        raise NotImplementedError(
-            "not ported yet: paged_decode=False, the dense-mirror path "
-            "(ROADMAP.md, queue 1: Mirror paths and the log/kvhybrid KV "
-            "engines)")
-
-
 class ServingEngine:
     def __init__(self, model, cfg: ServeConfig, *, device="cuda"):
         self.device = resolve_device(device)
@@ -127,7 +132,6 @@ class ServingEngine:
         if not isinstance(spec_cfg, EngineSpec):
             raise TypeError(f"engine_spec must be an EngineSpec, got "
                             f"{type(spec_cfg).__name__}: {spec_cfg!r}")
-        _refuse_unported(cfg)
         self.model = model
         self.cfg = cfg
         mcfg = model.cfg
@@ -136,9 +140,10 @@ class ServingEngine:
         # the engine sizes, allocates and byte-accounts the pool from the
         # SAME plane list the model's paged steps consume
         self.desc = model.cache_descriptor(cfg.page_tokens)
-        spec = KVSpec(num_layers=mcfg.num_layers, kv_heads=mcfg.num_kv_heads,
-                      head_dim=mcfg.head_dim, page_tokens=cfg.page_tokens,
-                      desc=self.desc)
+        spec = KVSpec(num_layers=mcfg.num_layers,
+                      kv_heads=max(mcfg.num_kv_heads, 1),
+                      head_dim=max(mcfg.head_dim, 1),
+                      page_tokens=cfg.page_tokens, desc=self.desc)
         self.tiered = create_kv_engine(spec_cfg, spec, self.clock)
         # deterministic fault injection + crash-consistent journal. The
         # injector attaches BEFORE init_pool so the transfer pipeline is
@@ -166,24 +171,28 @@ class ServingEngine:
         # liveness floor: the pool must hold one max-length sequence plus
         # a reserve page, or a lone running sequence could exhaust it
         budget_pages = spec_cfg.kv_hbm_bytes // self.desc.page_group_bytes
-        if not (self.tiered.supports_pool()
-                and budget_pages >= self.max_pages + 1):
+        pool_ok = self.tiered.supports_pool()
+        pool_fits = budget_pages >= self.max_pages + 1
+        if cfg.paged_decode and not (pool_ok and pool_fits):
             raise ValueError(
-                f"pooled serving needs a pool-capable KV engine and an HBM "
-                f"budget of at least {self.max_pages + 1} pool pages; got "
-                f"engine={self.tiered.engine_name!r}, budget_pages="
-                f"{budget_pages}")
-        if cfg.max_len % cfg.page_tokens:
-            raise ValueError(
-                f"pooled decode needs max_len ({cfg.max_len}) to be a "
-                f"multiple of page_tokens ({cfg.page_tokens})")
-        self.pooled = True
-        self.tiered.init_pool(device=self.device)
+                f"paged_decode=True needs a pool-capable KV engine and an "
+                f"HBM budget of at least {self.max_pages + 1} pool pages; "
+                f"got engine={self.tiered.engine_name!r} (supports_pool="
+                f"{pool_ok}), budget_pages={budget_pages}")
+        self.pooled = (pool_ok and pool_fits) if cfg.paged_decode is None \
+            else bool(cfg.paged_decode)
         # host-facing mirror appends are dense-layout: an int8 or MLA pool
         # cannot absorb them, so the sequential reference counts its
         # mirror bytes but skips the tiered append (generate() never
-        # mirrors)
-        self._mirror_appends_ok = self.desc.kernel == "dense"
+        # mirrors when pooled)
+        self._mirror_appends_ok = True
+        if self.pooled:
+            if cfg.max_len % cfg.page_tokens:
+                raise ValueError(
+                    f"pooled decode needs max_len ({cfg.max_len}) to be a "
+                    f"multiple of page_tokens ({cfg.page_tokens})")
+            self.tiered.init_pool(device=self.device)
+            self._mirror_appends_ok = self.desc.kernel == "dense"
         # speculative decode: decode rows carry 1 + k query slots, the
         # per-slot logits of the SAME fused forward verify the drafts, and
         # rejected tails roll back (partial commit)
@@ -201,9 +210,9 @@ class ServingEngine:
         self.spec_stats = {"spec_proposed": 0, "spec_accepted": 0}
         # cross-request prefix cache: token-keyed radix index over shared
         # pool pages; a cache-hit admission splices the block table instead
-        # of prefilling
+        # of prefilling. Pooled path only: the mirror keeps sharing off
         self.prefix_cache = None
-        if spec_cfg.prefix_cache_tokens > 0:
+        if self.pooled and spec_cfg.prefix_cache_tokens > 0:
             self.prefix_cache = PrefixCache(
                 self.tiered, capacity_tokens=spec_cfg.prefix_cache_tokens)
 
@@ -221,6 +230,59 @@ class ServingEngine:
         self.mirror_d2h_bytes += tok.numel() * tok.element_size()
         if self._mirror_appends_ok:
             self.tiered.append(rid, tok)
+
+    def mirror_decode_batch(self, rids: list, cache, positions) -> None:
+        """Mirror one decode step's tokens for a whole running batch: one
+        on-device gather, ONE device→host transfer of ``(B, L, 2, K, D)``
+        fp16, one batched ``append_many``. Bucket-ladder padding rows
+        (``positions`` may be longer than ``rids``) are sliced off on
+        device before the transfer: one fp16 token per real sequence."""
+        if "k" not in cache or not rids:
+            return
+        toks = batching.gather_new_kv(
+            cache["k"], cache["v"], positions)[:len(rids)].cpu()
+        self.mirror_d2h_bytes += toks.numel() * toks.element_size()
+        self.tiered.append_many(
+            [(rid, toks[i]) for i, rid in enumerate(rids)])
+
+    def _mirror_step_ragged(self, rids: list, cache, ctx, q_lens,
+                            qmax: int, committed=None) -> None:
+        """Mirror one fused mixed tick's new tokens: ONE on-device ragged
+        gather, then at most three device→host transfers — the rows that
+        committed one token (decode rows) as one fp16 token each, the
+        chunk rows as one ``(n_chunk, Qmax, ...)`` block whose only
+        padding is each chunk's own Qmax remainder, and each speculative
+        row's accepted run (its rejected tail truncated on device, so it
+        never reaches the mirror). A chunk row lands as one multi-token
+        append, so ``kvhybrid`` still routes it by size; appends follow
+        the batch's row order."""
+        if "k" not in cache or not rids:
+            return
+        committed = (list(q_lens) if committed is None
+                     else [int(c) for c in committed])
+        toks_dev = batching.gather_new_kv_ragged(cache["k"], cache["v"],
+                                                 ctx, qmax)
+        dec = [i for i, m in enumerate(committed) if m == 1]
+        chk = [i for i, m in enumerate(committed)
+               if m > 1 and m == q_lens[i]]
+        part = [i for i, m in enumerate(committed) if 1 < m < q_lens[i]]
+        items = []
+        if dec:
+            toks1 = toks_dev[torch.tensor(dec, device=toks_dev.device),
+                             0].cpu()                # (n_dec, L, 2, K, D)
+            self.mirror_d2h_bytes += toks1.numel() * toks1.element_size()
+            items += [(rids[i], toks1[j]) for j, i in enumerate(dec)]
+        if chk:
+            toksn = toks_dev[torch.tensor(chk, device=toks_dev.device)].cpu()
+            self.mirror_d2h_bytes += toksn.numel() * toksn.element_size()
+            items += [(rids[i], toksn[j, :q_lens[i]].permute(1, 2, 0, 3, 4))
+                      for j, i in enumerate(chk)]
+        for i in part:   # accepted run of a speculative row, tail dropped
+            tk = toks_dev[i, :committed[i]].cpu()    # (accepted, L, 2, K, D)
+            self.mirror_d2h_bytes += tk.numel() * tk.element_size()
+            items.append((rids[i], tk.permute(1, 2, 0, 3, 4)))
+        items.sort(key=lambda kv: rids.index(kv[0]))
+        self.tiered.append_many(items)
 
     def _mirror_prefill(self, rid: int, cache, n: int):
         """Mirror the whole prompt's KV as one batched append (sliced to the
@@ -241,14 +303,19 @@ class ServingEngine:
     def prefill_one(self, req: Request, n: Optional[int] = None,
                     tokens: Optional[np.ndarray] = None):
         """Prefill one request at batch=1 (the first ``n`` prompt tokens
-        when chunked admission splits it) and scatter its KV into pool
-        pages on device. ``tokens`` overrides the prompt (re-admission of
-        a shed row). Returns (logits, cache row) for the scheduler."""
+        when chunked admission splits it) and land its KV in the tiered
+        engine — scattered into pool pages on device (pooled), or mirrored
+        as one batched append (dense mirror, the cache row kept on the
+        device). ``tokens`` overrides the prompt (re-admission of a shed
+        row). Returns (logits, cache row) for the scheduler."""
         src = req.prompt if tokens is None else tokens
         toks = src if n is None else src[:n]
         self.jit_stats["prefill_calls"] += 1
         logits, cache = self._prefill(toks)
-        return logits, self._pool_admit(req.rid, cache, toks.shape[0])
+        if self.pooled:
+            return logits, self._pool_admit(req.rid, cache, toks.shape[0])
+        self._mirror_prefill(req.rid, cache, toks.shape[0])
+        return logits, cache
 
     def admit_prefix(self, req: Request):
         """Try a prefix-cache splice for ``req``: on a hit the sequence
@@ -298,20 +365,39 @@ class ServingEngine:
     def decode_batch(self, rids: list, caches: list, tokens: list,
                      mirrored: bool):
         """One batched single-token decode step (the unfused baseline's
-        batched launch): the ragged step at ``q_len = 1``. Returns
-        (logits, new cache rows)."""
-        logit_rows, rows, _ = self.step_batch(
-            rids, caches, [np.asarray([t], np.int32) for t in tokens],
-            mirrored, fused=False)
-        return torch.cat(logit_rows, dim=0), rows
+        batched step). Pooled: the ragged step at ``q_len = 1``. Mirror:
+        the dense ``decode_step`` over the concatenated rows (width padded
+        up the power-of-two ladder with copies of row 0, whose outputs are
+        dropped) plus one device→host transfer of one token per row.
+        Returns (logits, new cache rows)."""
+        if self.pooled:
+            logit_rows, rows, _ = self.step_batch(
+                rids, caches, [np.asarray([t], np.int32) for t in tokens],
+                mirrored, fused=False)
+            return torch.cat(logit_rows, dim=0), rows
+        B = len(caches)
+        pad = batching.bucket_pow2(B) - B
+        batch = batching.concat_rows(caches + [caches[0]] * pad)
+        positions = batch["pos"]
+        tok_arr = torch.tensor(list(tokens) + [0] * pad,
+                               device=self.device)[:, None]
+        self._count_step("decode", B + pad, 1)
+        logits, batch = self.model.decode_step(batch, tok_arr, positions)
+        self.mirror_decode_batch(rids if mirrored else [], batch, positions)
+        return logits[:B], [batching.split_row(batch, i) for i in range(B)]
 
     def publish_plan(self, rids: list, n_tokens: list) -> int:
         """Scheduler lookahead: next tick's planned batch, forwarded to the
-        async tiering pipeline (a no-op without one)."""
+        async tiering pipeline (a no-op without one, and on the mirror)."""
+        if not self.pooled:
+            return 0
         return self.tiered.prefetch(rids, n_tokens)
 
     def can_step_fused(self, rids: list, n_tokens: list) -> bool:
-        """Can this tick's mixed batch be placed in one fused step?"""
+        """Can this tick's mixed batch be placed in one fused step? The
+        mirror always fits."""
+        if not self.pooled:
+            return True
         return self.tiered.can_place_step(rids, n_tokens)
 
     def _verify_drafts(self, logits, tok_rows, q_lens, spec) -> list:
@@ -348,9 +434,11 @@ class ServingEngine:
         """ONE fused forward over a mixed ragged batch: decode rows carry 1
         new token (plus up to ``speculate_k`` draft tokens when speculation
         is on), prefill-chunk rows up to ``chunk_tokens``, and all of them
-        attend in the same step over the device pool. Batch width and Qmax
-        pad up the power-of-two ladder; padding rows ride with
-        ``q_len = 0`` and are masked end to end.
+        attend in the same step — over the device pool
+        (``model.step_paged_ragged``) or over the dense rows
+        (``model.step_ragged``, mirrored). Batch width and Qmax pad up the
+        power-of-two ladder; padding rows ride with ``q_len = 0`` and are
+        masked end to end.
 
         ``spec_lens[i]`` marks how many TRAILING tokens of ``tok_rows[i]``
         are unverified drafts: they scatter into the pool with the rest,
@@ -358,7 +446,10 @@ class ServingEngine:
         rejected tail rolls back before anything else sees it (a partial
         commit: ``seq_len`` advances by the accepted count, pages only the
         tail used go back to the free list, and the next tick's lengths
-        mask the stale slots until its writes overwrite them).
+        mask the stale slots until its writes overwrite them; on the
+        mirror the tail's transfer is truncated and the row's ``pos``
+        rewound, its dense KV masked past ``pos`` and overwritten by the
+        row's next tokens).
 
         Returns ``(logit_rows, new_rows, committed)``: per-row logits for
         each row's committed slots (``(1, committed[i], V)`` — the LAST
@@ -376,6 +467,9 @@ class ServingEngine:
         qarr[:B] = q_lens
         if fused:       # the unfused pooled decode reuses this entry at
             self.jit_stats["fused_steps"] += 1   # q_len=1; don't count it
+        if not self.pooled:
+            return self._mirror_step_batch(rids, caches, tok_rows, tokens,
+                                           qarr, q_lens, spec, mirrored)
         names = [p.name for p in self.desc.paged_planes]
         # any exception between prepare_step and commit_step must rewind
         # the pages prepare_step allocated for this tick, or they leak
@@ -414,14 +508,58 @@ class ServingEngine:
         logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
         return logit_rows, new_rows, committed
 
+    def _mirror_step_batch(self, rids, caches, tok_rows, tokens, qarr,
+                           q_lens, spec, mirrored):
+        """:meth:`step_batch` on the dense mirror: the rows concatenate
+        (padding rows are copies of row 0 that write nothing), one
+        ``step_ragged`` runs over them, the new tokens are mirrored, and
+        the batch splits back into rows (views of the step's batch)."""
+        B = len(rids)
+        Bb = tokens.shape[0]
+        batch = batching.concat_rows(caches + [caches[0]] * (Bb - B))
+        ctx = batch["pos"]
+        self._count_step("mirror", Bb, tokens.shape[1])
+        logits, nbatch = self.model.step_ragged(
+            batch, torch.from_numpy(tokens).to(self.device), ctx,
+            torch.from_numpy(qarr).to(self.device))
+        committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
+        if mirrored:
+            self._mirror_step_ragged(rids, nbatch, ctx, q_lens,
+                                     tokens.shape[1], committed)
+        new_rows = [batching.split_row(nbatch, i) for i in range(B)]
+        rewind = [i for i in range(B) if committed[i] != q_lens[i]]
+        ctx_np = ctx.cpu().numpy() if rewind else None
+        for i in rewind:
+            # rewind past the rejected tail: its dense-cache KV is masked
+            # (kv_pos > pos) and overwritten in place by the row's next
+            # committed tokens
+            new_rows[i]["pos"] = torch.tensor(
+                [int(ctx_np[i]) + committed[i]], dtype=torch.int32,
+                device=self.device)
+        logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
+        return logit_rows, new_rows, committed
+
     def extend_one(self, rid: int, cache, toks: np.ndarray, start: int,
                    mirrored: bool):
         """UNFUSED baseline (``fuse_ticks=False``): process ``toks``
         additional prompt tokens for one admitted row, each token through
-        the single-token paged decode step at batch=1 — page allocation per
-        token, still zero device→host bytes. Returns (logits, cache)
-        positioned after the chunk."""
+        the single-token decode step at batch=1 — over the pool (page
+        allocation per token, still zero device→host bytes), or over the
+        row's dense cache with the chunk's KV mirrored as ONE batched
+        append. Returns (logits, cache) positioned after the chunk."""
         logits = None
+        if not self.pooled:
+            for t in toks:
+                self._count_step("mirror-chunk1", 1, 1)
+                logits, cache = self.model.decode_step(
+                    cache, torch.tensor([[int(t)]], device=self.device),
+                    cache["pos"])
+            if mirrored and len(toks):
+                kv = batching.gather_kv_range(
+                    cache["k"], cache["v"], start, start + len(toks)).cpu()
+                self.mirror_d2h_bytes += kv.numel() * kv.element_size()
+                self.tiered.append(rid, kv)
+            return logits, cache
         names = [p.name for p in self.desc.paged_planes]
         for t in toks:
             tbl, _ = self.tiered.prepare_decode([rid], self.max_pages)
@@ -488,8 +626,9 @@ class ServingEngine:
     def generate_sequential(self, requests: list[Request]) -> list[Request]:
         """Sequential reference: one request at a time, batch=1 decode over
         the dense cache (plain torch attention, no paged kernel), with the
-        tiered append mirroring every token into the engine (dense pools
-        only; the int8 reference counts its mirror bytes, MLA has none)."""
+        tiered append mirroring every token into the engine — ALWAYS, even
+        on a pooled engine (dense pools only there; the int8 reference
+        counts its mirror bytes, MLA has none)."""
         for req in requests:
             logits, cache = self._prefill(req.prompt)
             self._mirror_prefill(req.rid, cache, req.prompt.shape[0])

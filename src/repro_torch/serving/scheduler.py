@@ -7,8 +7,9 @@ concurrent mixed load. The scheduler keeps three queues:
 * **waiting** — submitted, not yet prefetched (FIFO by submission order);
 * **running** — sequences decoding (or still prefilling in chunks)
   together; every tick steps ALL of them through a single fused ragged
-  forward (see below) whose KV lands in the pooled
-  :class:`~repro_torch.core.engines.kv.KVCacheEngine`;
+  forward (see below) whose KV lands in the
+  :class:`~repro_torch.core.engines.kv.KVCacheEngine` — in its device
+  pool, or mirrored from the rows' dense caches into its host tiers;
 * **preempted** — spilled under HBM pressure: the model cache row lives in
   host memory (exact copy), the tiered KV on the disk tier via
   ``KVCacheEngine.preempt``; re-admission restores both.

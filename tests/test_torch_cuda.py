@@ -924,3 +924,39 @@ def test_prefix_splice_and_cow_on_card(cuda_device, arch, kv_cache_dtype):
         ref = ServingEngine(model, ServeConfig(max_len=32, page_tokens=8),
                             device=cuda_device).generate_sequential(reqs())
         assert [r.generated for r in got] == [r.generated for r in ref]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fuse", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("engine", ["log", "kvhybrid", "paged"])
+def test_mirror_serving_on_card_matches_pooled(cuda_device, engine, fuse):
+    """Smoke-width dense serving through the dense mirror on the card
+    (``paged`` with ``paged_decode=False``): token-identical to the pooled
+    run and the sequential reference, mirror bytes moved, and no kernel
+    entry launched — the mirror's step is plain torch attention."""
+    from repro_torch.core.engines import EngineSpec
+    cfg = get_config("internlm2-1.8b-smoke")
+    model = LM(cfg, device=cuda_device).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (8, 12, 8, 5)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_new=8)
+                for i, p in enumerate(prompts)]
+    kw = dict(max_len=32, page_tokens=8, prefill_chunk_tokens=5)
+    pooled = ServingEngine(model, ServeConfig(**kw), device=cuda_device)
+    want = pooled.generate(reqs())
+    ref = pooled.generate_sequential(reqs())
+    eng = ServingEngine(model, ServeConfig(
+        engine_spec=EngineSpec(engine=engine), paged_decode=False,
+        fuse_ticks=fuse, **kw), device=cuda_device)
+    kernels.reset_launch_counts()
+    got = eng.generate(reqs())
+    torch.cuda.synchronize()
+    assert not eng.pooled
+    assert sum(e.launches for e in kernels.ENTRIES) == 0
+    assert [r.generated for r in got] == [r.generated for r in want] \
+        == [r.generated for r in ref]
+    assert eng.stats()["mirror_d2h_bytes"] > 0

@@ -1,8 +1,9 @@
 """The port stands alone: serving through it — dense, int8 and MLA cache
 families, with speculative decode, a prefix cache, a token journal and a
-fault plan (a crash, then recovery), and a dense prompt longer than
-``chunk_size`` (the flash-attention prefill) — and every public kernel entry
-load neither JAX nor any module of the JAX package."""
+fault plan (a crash, then recovery), a dense prompt longer than
+``chunk_size`` (the flash-attention prefill), and the dense mirror through
+the ``log`` and ``kvhybrid`` engines and host-mode ``paged`` — and every
+public kernel entry load neither JAX nor any module of the JAX package."""
 import os
 import subprocess
 import sys
@@ -60,6 +61,22 @@ _SCRIPT = textwrap.dedent("""
     else:
         raise AssertionError("the fault plan did not crash the run")
     assert all(len(r.generated) == 4 for r in reqs)
+
+    # the dense mirror through the host-tier engines, fused and unfused
+    model = LM(get_config("internlm2-1.8b-smoke"), device="cpu").init(
+        torch.Generator().manual_seed(0))
+    for name in ("log", "kvhybrid", "paged"):
+        for fuse in (True, False):
+            reqs = [Request(rid=i, prompt=prompt, max_new=3)
+                    for i in range(2)]
+            eng = ServingEngine(model, ServeConfig(
+                max_len=16, page_tokens=4, paged_decode=False,
+                fuse_ticks=fuse, prefill_chunk_tokens=4,
+                engine_spec=EngineSpec(engine=name, drain_shards=2)),
+                device="cpu")
+            eng.generate(reqs)
+            assert not eng.pooled and eng.stats()["mirror_d2h_bytes"] > 0
+            assert all(len(r.generated) == 3 for r in reqs)
 
     # a prompt past chunk_size: prefill through flash_attention
     cfg = get_config("internlm2-1.8b-smoke")

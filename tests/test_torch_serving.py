@@ -248,16 +248,28 @@ def test_unfused_pooled_path_matches_reference(models, jax_reference):
     assert eng.stats()["mirror_d2h_bytes"] == 0
 
 
-def test_unported_features_refuse_at_construction(models):
+def test_unported_features_refuse_at_construction(models, jax_reference):
+    """The two configurations this test once saw refused —
+    ``paged_decode=False`` and ``engine="log"`` — construct and serve
+    through the dense mirror, token-identical to the JAX reference and
+    with mirror bytes moved; what stays refused is ``paged_decode=True``
+    on an engine with no pool (``ValueError``, as in JAX) and a silent
+    CPU fallback."""
     _, _, tmodel = models
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tmodel, ServeConfig(max_len=MAX_LEN,
-                                          page_tokens=PAGE_TOKENS,
-                                          paged_decode=False), device="cpu")
-    with pytest.raises(ValueError):           # the log engine is not ported
+    for spec, paged_decode in ((EngineSpec(), False),
+                               (EngineSpec(engine="log"), None)):
+        eng = ServingEngine(tmodel, ServeConfig(
+            max_len=MAX_LEN, page_tokens=PAGE_TOKENS, engine_spec=spec,
+            paged_decode=paged_decode), device="cpu")
+        assert not eng.pooled
+        reqs = _torch_requests()
+        eng.generate(reqs)
+        assert [r.generated for r in reqs] == jax_reference
+        assert eng.stats()["mirror_d2h_bytes"] > 0
+    with pytest.raises(ValueError, match="paged_decode=True"):
         ServingEngine(tmodel, ServeConfig(
-            max_len=MAX_LEN, engine_spec=EngineSpec(engine="log")),
-            device="cpu")
+            max_len=MAX_LEN, page_tokens=PAGE_TOKENS, paged_decode=True,
+            engine_spec=EngineSpec(engine="log")), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):     # no silent CPU fallback
             LM(tmodel.cfg)
