@@ -33,12 +33,16 @@ each raises on failure, and any failure ends the run with a traceback:
                 it) and card-only (``card_ms``: enqueued while the card
                 sleeps).
                 Dense and int8: B=8, H=16, K=8, D=128, T=16, MP=64, Qmax
-                128 and 1, one layer and L=24; MLA: B=8, H=128, dc=512,
-                dr=64, T=16, MP=64, Qmax 128 (the MLA serve phase's
-                prefill chunk) and 1, one layer and L=8; flash attention:
-                one InternLM2-1.8B layer of a 4096-token prefill (B=1,
-                H=16, K=8, D=128, causal) and the JAX package's test
-                cases, with a causal Sq > Skv case whose dead rows are 0;
+                128 and 1, one layer and L=24; the dense ragged and decode
+                entries also at the head shapes of phases 18-19's configs,
+                (H, K, D) = (56, 8, 128) Arctic, (48, 4, 128) StarCoder2,
+                (16, 16, 256) Gemma, (36, 36, 64) MiniCPM; MLA: B=8,
+                H=128, dc=512, dr=64, T=16, MP=64, Qmax 128 (the MLA serve
+                phase's prefill chunk) and 1, one layer and L=8; flash
+                attention: one InternLM2-1.8B layer of a 4096-token
+                prefill (B=1, H=16, K=8, D=128, causal) and the JAX
+                package's test cases, with a causal Sq > Skv case whose
+                dead rows are 0;
                 log patch: P=682, T=16, C=2048 (K and V of one token in
                 one InternLM2-1.8B layer), N=256 records with colliding
                 targets, skipped records and out-of-range indices, bit for
@@ -116,6 +120,22 @@ each raises on failure, and any failure ends the run with a traceback:
                 hot-window budget that preempts (``MIRROR_TIGHT``), each
                 token-identical to the pooled ``generate()`` and the
                 sequential reference, no kernel launched.
+18. serve-deepseek-moe, serve-arctic, serve-gemma, serve-minicpm,
+                serve-starcoder2 — phase 3's workload (bf16, random
+                weights from --seed, 1 GiB pool, pooled and fused) at each
+                config's published widths: DeepSeek-V2 with its 160
+                routed and 2 shared experts cut to 8 of 60 layers (1 dense
+                + 7 MoE; the MLA kernel), Arctic cut to 2 of 35 layers (128
+                experts, GQA group 7), both at the published capacity
+                factor 1.25; Gemma-7B (head_dim 256), MiniCPM-2B
+                (head_dim 64) and StarCoder2-15B (GQA group 12, ungated
+                GELU) at full depth. Each model is freed before the next.
+19. parity-families — fp32 at published widths: DeepSeek-V2 at 3 layers
+                (1 dense + 2 MoE) and Arctic at 1 layer, both at no-drop
+                capacity (capacity factor = expert count; at 1.25 a
+                token's output depends on its batch, in the JAX package
+                too), and each dense config at 4 layers: ``generate()``
+                token-identical to ``generate_sequential()``.
 
 Each serving path is driven with the launch counts set to 0 just before
 it and read just after; a row's ``serving_launches`` is the sum of its
@@ -169,6 +189,10 @@ KERNELS = {
                   "src/repro_torch/kernels/log_patch/csrc/log_patch.cu"),
 }
 GEOM = dict(B=8, H=16, K=8, D=128, T=16, MP=64)
+# the (H, K, D) the configs of phases 18-19 give the dense paged entries
+# (GQA groups 7, 12 and 1; head_dim 256 and 64), at GEOM's B, T and MP
+CONFIG_GEOMS = {"arctic-480b": (56, 8, 128), "starcoder2-15b": (48, 4, 128),
+                "gemma-7b": (16, 16, 256), "minicpm-2b": (36, 36, 64)}
 MLA_GEOM = dict(B=8, H=128, dc=512, dr=64, T=16, MP=64)
 CHUNK = 128                  # serve phases' prefill chunk = kernel Qmax
 SPEC_K = 4                   # draft tokens a decode row: Qmax bucket 8
@@ -414,13 +438,14 @@ def paged_work(lengths, q_lens, T, page_bytes, row_flops, fixed_bytes,
     return layers * nbytes + fixed_bytes, layers * flops
 
 
-def dense_case(torch, dev, dtype, qmax, seed, q8=False, layers=None):
-    """The dense or int8 paged entries at phase 2's shapes: one layer, or
-    ``layers`` layers through the multi-layer entries."""
+def dense_case(torch, dev, dtype, qmax, seed, q8=False, layers=None,
+               geom=GEOM):
+    """The dense or int8 paged entries at phase 2's shapes (``geom``): one
+    layer, or ``layers`` layers through the multi-layer entries."""
     import repro_torch.kernels as K
     from repro_torch.kernels.paged_attention import ops, ref
     from repro_torch.models.attention import quantize_kv
-    B, H, Kh, D, T, MP = (GEOM[k] for k in "B H K D T MP".split())
+    B, H, Kh, D, T, MP = (geom[k] for k in "B H K D T MP".split())
     P = B * MP + 64
     L = layers or 1
     g = torch.Generator(dev).manual_seed(seed)
@@ -847,6 +872,19 @@ def phase_kernels(torch, dev, seed):
         "paged_attention": [
             (f"{d} Qmax=1", lambda d=d: dense_case(torch, dev, d, 1, seed))
             for d in (bf16, f32)],
+    }
+    # the configs' head shapes through the ragged entry (a chunk tick) and
+    # the decode entry (Qmax 1)
+    for arch, (H, Kh, D) in CONFIG_GEOMS.items():
+        geom = dict(GEOM, H=H, K=Kh, D=D)
+        for name, qm in (("paged_attention_ragged", CHUNK),
+                         ("paged_attention", 1)):
+            plan[name] += [
+                (f"{d} Qmax={qm} {arch} H={H} K={Kh} D={D}",
+                 lambda d=d, qm=qm, geom=geom: dense_case(
+                     torch, dev, d, qm, seed, geom=geom))
+                for d in (bf16, f32)]
+    plan.update({
         "paged_attention_layers": [
             (f"{d} L={LAYERS} Qmax=1", lambda d=d: dense_case(
                 torch, dev, d, 1, seed, layers=LAYERS))
@@ -878,7 +916,7 @@ def phase_kernels(torch, dev, seed):
             (f"{d} P={LOG_GEOM['P']} N={LOG_GEOM['N']}",
              lambda d=d: log_patch_case(torch, dev, d, seed))
             for d in (bf16, f32)],
-    }
+    })
     rows = {}
     for name, cases in plan.items():
         row = {"name": name, "route": "cuda", "source": KERNELS[name][1],
@@ -1792,6 +1830,110 @@ def parity_mirror(torch, dev, seed, dense, mla):
     return served
 
 
+# ---------------------------------------------------------- phases 18-19
+# phase 18: (phase, config, layers kept or None for all, the entry its
+# fused tick runs)
+FAMILY_SERVE = (
+    ("serve-deepseek-moe", "deepseek-v2-236b", 8,
+     "mla_paged_attention_ragged"),
+    ("serve-arctic", "arctic-480b", 2, "paged_attention_ragged"),
+    ("serve-gemma", "gemma-7b", None, "paged_attention_ragged"),
+    ("serve-minicpm", "minicpm-2b", None, "paged_attention_ragged"),
+    ("serve-starcoder2", "starcoder2-15b", None, "paged_attention_ragged"))
+# phase 19: (config, layers kept), the MoE ones at no-drop capacity
+FAMILY_PARITY = (("deepseek-v2-236b", 3), ("arctic-480b", 1),
+                 ("gemma-7b", 4), ("minicpm-2b", 4), ("starcoder2-15b", 4))
+
+
+def cut(cfg, layers, no_drop=False):
+    """``cfg`` with ``layers`` layers (all when None); ``no_drop`` sets a
+    MoE config's capacity factor to its expert count, so no token is
+    dropped."""
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if no_drop and cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+    return cfg
+
+
+def weight_gb(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+
+
+def serve_families(torch, dev, seed, rows):
+    """Phase 18: phase 3's workload on each of ``FAMILY_SERVE``'s configs at
+    published widths in bf16 (DeepSeek-V2 and Arctic cut in depth to fit
+    the card, at the published capacity factor), each model freed before
+    the next. Returns every entry's launches over the phases."""
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    served = collections.Counter()
+    for what, arch, layers, entry in FAMILY_SERVE:
+        t0 = time.perf_counter()
+        model = make_model(torch, cut(get_config(arch), layers),
+                           torch.bfloat16, dev, seed)
+        torch.cuda.synchronize()
+        log(f"[{what}] weights {weight_gb(model):.2f} GB drawn in "
+            f"{time.perf_counter() - t0:.1f} s")
+        launches, _, counts = serve(torch, dev, seed, what, model,
+                                    getattr(ops, entry))
+        rows[entry].setdefault("family_launches", {})[what] = launches
+        served.update(counts)
+        del model
+        free(torch)
+    return served
+
+
+def parity_families(torch, dev, seed):
+    """Phase 19: fp32, ``FAMILY_PARITY``'s configs at published widths, cut
+    in depth, the MoE ones at no-drop capacity: ``generate()`` (pooled,
+    fused, through the family's ragged entry) token-identical to
+    ``generate_sequential()``. Returns every entry's launches over the
+    ``generate()`` runs."""
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    served = collections.Counter()
+    for arch, layers in FAMILY_PARITY:
+        what = f"parity-{arch}"
+        cfg = cut(get_config(arch), layers, no_drop=True)
+        model = make_model(torch, cfg, torch.float32, dev, seed)
+        entry = (ops.mla_paged_attention_ragged if cfg.mla is not None
+                 else ops.paged_attention_ragged)
+        ref = engine(model, dev, hbm=1 << 30).generate_sequential(
+            requests(4, 64, 400, 16, cfg.vocab_size, seed + 1))
+        got = requests(4, 64, 400, 16, cfg.vocab_size, seed + 1)
+        eng = engine(model, dev, hbm=1 << 30)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        eng.generate(got)
+        torch.cuda.synchronize()
+        counts = launch_counts(ops)
+        others = {k: n for k, n in counts.items()
+                  if n and k != entry.__name__}
+        s = eng.stats()
+        if counts[entry.__name__] != cfg.num_layers * s["step_calls"] \
+                or others:
+            raise AssertionError(f"{what}: {counts[entry.__name__]} "
+                                 f"{entry.__name__} launches for "
+                                 f"{s['step_calls']} steps; others {others}")
+        check_identical(torch, model, got, ref, what)
+        served.update(counts)
+        moe = (f", capacity factor {cfg.moe.capacity_factor} (no drop)"
+               if cfg.moe is not None else "")
+        log(f"[{what}] {cfg.num_layers} layers fp32{moe}, "
+            f"{weight_gb(model):.2f} GB of weights, {eng.desc.family} pool: "
+            f"generate() == generate_sequential() on {len(got)} requests x "
+            f"16 tokens (ticks {s['sched_ticks']}, {entry.__name__} "
+            f"launches {counts[entry.__name__]}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
+        del model, eng
+        free(torch)
+    return served
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -1943,6 +2085,12 @@ def main(argv=None) -> int:
     free(torch)
     served.update(parity_mirror(torch, dev, args.seed, dense, mla))
     stamp("parity-mirror")
+
+    # the MoE family and the other dense configs at published widths
+    served.update(serve_families(torch, dev, args.seed, rows))
+    stamp("serve-families")
+    served.update(parity_families(torch, dev, args.seed))
+    stamp("parity-families")
 
     for name, row in rows.items():
         row["serving_launches"] = served[name]

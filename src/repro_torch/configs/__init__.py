@@ -3,19 +3,22 @@
 Usage::
 
     from repro_torch.configs import get_config
-    cfg = get_config("internlm2-1.8b")          # full published config
-    cfg = get_config("internlm2-1.8b-smoke")    # reduced smoke sibling
+    cfg = get_config("starcoder2-15b")          # full published config
+    cfg = get_config("starcoder2-15b-smoke")    # reduced smoke sibling
     cfg = get_config("deepseek-v2-236b-noexperts")   # MLA, dense FFN
 """
 from __future__ import annotations
 
-from repro_torch.configs import deepseek_v2_236b, internlm2_1p8b
-from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.configs import (arctic_480b, deepseek_v2_236b, gemma_7b,
+                                 internlm2_1p8b, minicpm_2b, starcoder2_15b)
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 
 REGISTRY: dict[str, ModelConfig] = {}
-for _m in (internlm2_1p8b, deepseek_v2_236b):
-    REGISTRY[_m.CONFIG.name] = _m.CONFIG
-    REGISTRY[_m.CONFIG.name + "-smoke"] = _m.CONFIG.reduced()
+for _cfg in (starcoder2_15b.CONFIG, internlm2_1p8b.CONFIG, minicpm_2b.CONFIG,
+             gemma_7b.CONFIG, arctic_480b.CONFIG, deepseek_v2_236b.CONFIG,
+             deepseek_v2_236b.NOEXPERTS):
+    REGISTRY[_cfg.name] = _cfg
+    REGISTRY[_cfg.name + "-smoke"] = _cfg.reduced()
 
 
 def get_config(name: str) -> ModelConfig:
@@ -27,4 +30,4 @@ def get_config(name: str) -> ModelConfig:
         ) from None
 
 
-__all__ = ["MLAConfig", "ModelConfig", "REGISTRY", "get_config"]
+__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "REGISTRY", "get_config"]

@@ -2,8 +2,9 @@
 
 The port's own copy of the decoder part of the JAX package's
 ``ModelConfig``: the fields a dense GQA or MLA (multi-head latent
-attention) decoder with a (Swi)GLU FFN reads, the padded-vocab rule, and
-``reduced()`` for the smoke-sized sibling. The MoE, SSM, hybrid,
+attention) decoder reads — with a gated or plain FFN, or a routed
+mixture of experts (``MoEConfig``) — the padded-vocab rule, and
+``reduced()`` for the smoke-sized sibling. The SSM, hybrid,
 encoder-decoder and frontend sub-configs wait for the slices that port
 those families.
 """
@@ -12,6 +13,19 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 2
+    d_expert: int = 0              # per-expert FFN hidden dim
+    num_shared_experts: int = 0    # DeepSeek-style always-on experts
+    dense_residual: bool = False   # Arctic-style dense FFN in parallel
+    d_dense_residual: int = 0      # hidden dim of the parallel dense FFN
+    first_k_dense: int = 0         # leading layers with a dense FFN, not MoE
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 1e-2
 
 
 @dataclass(frozen=True)
@@ -46,6 +60,7 @@ class ModelConfig:
     logit_scale: float = 1.0
     logit_soft_cap: float = 0.0
     subquadratic: bool = False
+    moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     # embedding tables are allocated padded to this multiple; the padded
     # logit columns are masked
@@ -80,6 +95,14 @@ class ModelConfig:
             head_dim=32,
             max_seq_len=1024,
         )
+        if self.moe is not None:
+            small["moe"] = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 8),
+                d_expert=64,
+                d_dense_residual=64 if self.moe.dense_residual else 0,
+                top_k=min(self.moe.top_k, 2),
+            )
         if self.mla is not None:
             small["mla"] = MLAConfig(
                 kv_lora_rank=32, q_lora_rank=0,

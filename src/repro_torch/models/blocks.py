@@ -2,11 +2,15 @@
 
 The counterparts of the decoder-block functions of the JAX package's
 ``models/blocks.py``: pre-norm attention — GQA, or MLA when ``cfg.mla`` is
-set — and a dense (Swi)GLU FFN, each added back through
-``residual_scale``. The cache-bearing functions dispatch on the layer's
-cache planes as the JAX ones do: ``cfg.mla`` means the latent ``(c, kr)``,
-four planes mean int8 ``(k, v, k_scale, v_scale)``, two mean dense
-``(k, v)``.
+set — and an FFN, each added back through ``residual_scale``. The FFN is
+the block's ``ffn_kind``: ``"dense"`` (gated for a GLU activation, two
+matrices for plain GELU) or ``"moe"`` (routed experts,
+:mod:`~repro_torch.models.moe`). The JAX block functions take
+``ffn_kind`` as an argument because their parameters are plain pytrees;
+here the block carries it. The cache-bearing functions dispatch on the
+layer's cache planes as the JAX ones do: ``cfg.mla`` means the latent
+``(c, kr)``, four planes mean int8 ``(k, v, k_scale, v_scale)``, two mean
+dense ``(k, v)``.
 """
 from __future__ import annotations
 
@@ -14,13 +18,16 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import apply_ffn, rmsnorm, truncated_normal_
+from repro_torch.models.layers import (apply_ffn, ffn_matrices, rmsnorm,
+                                      truncated_normal_)
+from repro_torch.models.moe import apply_moe, moe_matrices
 
 
-def _matrices(c) -> dict:
+def _matrices(c, ffn_kind: str) -> dict:
     """Block matrix name → (shape, JAX pytree path), for ``cfg``'s
-    attention flavour; matrices keep the JAX ``(d_in, ..., d_out)``
-    layout."""
+    attention flavour and the block's FFN; matrices keep the JAX
+    ``(d_in, ..., d_out)`` layout. A dotted name lives in a sub-module
+    (``experts.w_gate``)."""
     d = c.d_model
     if c.mla is None:
         attn = {"wq": (d, c.num_heads * c.head_dim),
@@ -38,9 +45,13 @@ def _matrices(c) -> dict:
                      "w_uv": (m.kv_lora_rank, H, m.v_head_dim),
                      "wo": (H * m.v_head_dim, d)})
     out = {n: (shape, ("attn", n)) for n, shape in attn.items()}
-    for n, shape in (("w_gate", (d, c.d_ff)), ("w_up", (d, c.d_ff)),
-                     ("w_down", (c.d_ff, d))):
-        out[n] = (shape, ("ffn", n))
+    if ffn_kind == "moe":
+        ffn = moe_matrices(c)
+    else:
+        ffn = {n: (shape, (n,)) for n, shape in
+               ffn_matrices(d, c.d_ff, c.ffn_activation).items()}
+    for n, (shape, path) in ffn.items():
+        out[n] = (shape, ("ffn",) + path)
     return out
 
 
@@ -63,34 +74,49 @@ def frozen_param(shape, dtype, device, fill=None):
 
 
 class DecoderBlock(nn.Module):
-    """One decoder layer's parameters (GQA or MLA attention, dense FFN),
-    stored in the compute dtype."""
+    """One decoder layer's parameters (GQA or MLA attention; a dense or
+    MoE FFN, ``ffn_kind``), stored in the compute dtype."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, ffn_kind: str):
         super().__init__()
-        if cfg.ffn_activation not in ("swiglu", "geglu"):
-            raise NotImplementedError(
-                f"ungated FFN ({cfg.ffn_activation!r}) is not ported yet")
-        norms, matrices = _norms(cfg), _matrices(cfg)
+        self.ffn_kind = ffn_kind
+        norms, matrices = _norms(cfg), _matrices(cfg, ffn_kind)
         self._norm_names, self._matrix_names = tuple(norms), tuple(matrices)
         for name, (size, _) in norms.items():
             setattr(self, name, frozen_param((size,), dtype, device, 1.0))
         for name, (shape, _) in matrices.items():
-            setattr(self, name, frozen_param(shape, dtype, device))
+            owner = self
+            *path, leaf = name.split(".")
+            for part in path:
+                if not hasattr(owner, part):
+                    setattr(owner, part, nn.Module())
+                owner = getattr(owner, part)
+            setattr(owner, leaf, frozen_param(shape, dtype, device))
 
     def init_weights(self, generator) -> None:
         """The JAX package's init distributions: truncated normal with
-        ``std = 1/sqrt(fan_in)`` (fan_in the first axis), norm scales
-        at 1."""
+        ``std = 1/sqrt(fan_in)`` (fan_in the first axis; for the stacked
+        ``experts.*`` the first axis of each expert's matrix, drawn one
+        expert at a time), norm scales at 1."""
         for name in self._norm_names:
             getattr(self, name).data.fill_(1.0)
         for name in self._matrix_names:
-            truncated_normal_(getattr(self, name), 1.0, generator)
+            t = self.get_parameter(name)
+            if name.startswith("experts."):
+                for e in range(t.shape[0]):
+                    truncated_normal_(t[e], 1.0, generator,
+                                      fan_in=t.shape[1])
+            else:
+                truncated_normal_(t, 1.0, generator)
 
 
 def _ffn(p, cfg, h):
     x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
-    return h + cfg.residual_scale * apply_ffn(p, x, cfg.ffn_activation)
+    if p.ffn_kind == "moe":
+        f, _ = apply_moe(p, cfg, x)
+    else:
+        f = apply_ffn(p, x, cfg.ffn_activation)
+    return h + cfg.residual_scale * f
 
 
 def apply_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
@@ -161,11 +187,13 @@ def step_paged_ragged_block(p, cfg, h, planes, block_table, ctx_lens,
     return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(planes)
 
 
-def jax_block_arrays(np_blocks: dict, i: int, cfg) -> dict:
-    """Layer ``i`` of the JAX package's stacked ``params["blocks"]`` pytree
-    (leading L axis) as ``{port name: numpy array}``."""
+def jax_block_arrays(np_blocks: dict, i: int, cfg, ffn_kind: str) -> dict:
+    """Layer ``i`` of one of the JAX package's stacked block pytrees
+    (``params["blocks"]``, ``["dense_blocks"]`` or ``["moe_blocks"]``,
+    leading L axis) as ``{port name: numpy array}``."""
     out = {}
-    for name, (_, path) in {**_matrices(cfg), **_norms(cfg)}.items():
+    for name, (_, path) in {**_matrices(cfg, ffn_kind),
+                            **_norms(cfg)}.items():
         node = np_blocks
         for key in path:
             node = node[key]

@@ -13,11 +13,14 @@ import torch
 import torch.nn.functional as F
 
 
-def truncated_normal_(t: torch.Tensor, scale: float, generator) -> None:
+def truncated_normal_(t: torch.Tensor, scale: float, generator,
+                      fan_in: int | None = None) -> None:
     """Fill ``t`` in place the way the JAX package initializes weights:
-    ``std = scale / sqrt(fan_in)`` (fan_in = first axis of a matrix),
-    normal truncated at two standard deviations."""
-    fan_in = t.shape[0] if t.ndim > 1 else 1
+    ``std = scale / sqrt(fan_in)`` (by default the first axis of a
+    matrix), normal truncated at two standard deviations. The fp32 draw
+    buffer is as large as ``t``: fill a stack of matrices one at a time."""
+    if fan_in is None:
+        fan_in = t.shape[0] if t.ndim > 1 else 1
     std = scale / float(np.sqrt(fan_in))
     with torch.no_grad():
         buf = torch.empty(t.shape, dtype=torch.float32, device=t.device)
@@ -58,6 +61,14 @@ def _act(name, x):
     if name == "swiglu":
         return F.silu(x)
     return F.gelu(x, approximate="tanh")       # geglu and gelu
+
+
+def ffn_matrices(d: int, f: int, activation: str) -> dict:
+    """A dense FFN's matrix name → shape: gated for ``swiglu``/``geglu``,
+    two matrices otherwise."""
+    out = {"w_gate": (d, f)} if activation in ("swiglu", "geglu") else {}
+    out.update({"w_up": (d, f), "w_down": (f, d)})
+    return out
 
 
 def apply_ffn(p, x, activation):

@@ -1,8 +1,13 @@
-"""Decoder-only LM for ``family="attn_dense"``, as an ``nn.Module``.
+"""Decoder-only LM for ``family="attn_dense"`` and ``family="moe"``, as an
+``nn.Module``.
 
-The counterpart of the JAX package's ``LM`` for the three cache families
-of a dense decoder: GQA with a native cache, GQA with an int8 cache
-(``kv_cache_dtype="int8"``), and MLA (``cfg.mla``, the latent cache):
+The counterpart of the JAX package's ``LM`` for the decoder families and
+their three cache families: GQA with a native cache, GQA with an int8
+cache (``kv_cache_dtype="int8"``; a MoE config keeps its native cache, as
+in JAX), and MLA (``cfg.mla``, the latent cache). A MoE config runs
+``cfg.moe.first_k_dense`` dense-FFN blocks, then MoE blocks (the JAX
+package's ``dense_blocks`` and ``moe_blocks`` scans); layer ``i`` of the
+stack is layer ``i`` of every cache plane.
 
 * ``init(generator)`` — random weights with the reference's distributions;
 * ``prefill(tokens, max_len) -> (logits, cache)`` — dense padded cache;
@@ -18,7 +23,7 @@ of a dense decoder: GQA with a native cache, GQA with an int8 cache
 Parameters are stored once in the compute dtype (the JAX package casts
 every weight on every call, which is free inside ``jit`` but would copy
 all weights every tick in eager torch). The layer stack is a Python loop
-over an ``nn.ModuleList``; where the JAX ``scan`` returns new pools, the
+over an ``nn.ModuleList``; where the JAX scans return new pools, the
 paged steps scatter in place into per-layer views of the engine's
 ``(L, P, T, *shape)`` planes and return those same tensors.
 """
@@ -40,7 +45,7 @@ class LM(nn.Module):
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
                  chunk_size: int = 512, kv_cache_dtype: str = "native"):
         super().__init__()
-        if cfg.family != "attn_dense":
+        if cfg.family not in ("attn_dense", "moe"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
                 f"queue 1: modules to port)")
@@ -49,7 +54,8 @@ class LM(nn.Module):
                              f"got {kv_cache_dtype!r}")
         self.cfg = cfg
         # "int8": quantized KV cache with bf16 per-(token, head) scales
-        # (GQA only: an MLA config keeps its latent cache, as in JAX)
+        # (dense GQA only: an MLA or MoE config keeps its native cache, as
+        # in JAX)
         self.kv_cache_dtype = kv_cache_dtype
         self.device = resolve_device(device)
         self.dtype = dtype
@@ -59,13 +65,17 @@ class LM(nn.Module):
         self.head = (None if cfg.tie_embeddings
                      else B.frozen_param((V, d), dtype, self.device))
         self.final_ln = B.frozen_param((d,), dtype, self.device, 1.0)
+        n_dense = (cfg.moe.first_k_dense if cfg.family == "moe"
+                   else cfg.num_layers)
         self.blocks = nn.ModuleList(
-            B.DecoderBlock(cfg, dtype, self.device)
-            for _ in range(cfg.num_layers))
+            B.DecoderBlock(cfg, dtype, self.device,
+                           "dense" if i < n_dense else "moe")
+            for i in range(cfg.num_layers))
         # the cache planes by name, fixed by the descriptor: every step
         # reads this instead of asking the descriptor again
-        self.plane_names = tuple(
-            p.name for p in self.cache_descriptor().paged_planes)
+        desc = self.cache_descriptor()
+        self.plane_names = tuple(p.name for p in desc.paged_planes)
+        self.cache_family = desc.family
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> "LM":
@@ -135,7 +145,7 @@ class LM(nn.Module):
                                    device=self.device)}
         if cfg.mla is not None:
             cache["c"], cache["kr"] = padded
-        elif self.kv_cache_dtype == "int8":
+        elif self.cache_family == "int8":
             cache["k"], cache["k_scale"] = quantize_kv(padded[0])
             cache["v"], cache["v_scale"] = quantize_kv(padded[1])
         else:
@@ -227,15 +237,25 @@ class LM(nn.Module):
 def params_from_jax(np_params: dict, cfg) -> dict:
     """A state dict for :class:`LM` from the JAX package's ``LM.init``
     pytree as numpy arrays (``jax.tree.map(np.asarray, params)``). The
-    stacked ``params["blocks"]`` (leading L axis) splits into the
-    ``ModuleList``; matrices keep the ``(d_in, d_out)`` layout."""
+    stacked ``params["blocks"]`` (leading L axis) — for a MoE config
+    ``params["dense_blocks"]`` then ``params["moe_blocks"]`` — split into
+    the ``ModuleList``; matrices keep the ``(d_in, d_out)`` layout (the
+    experts their stacked ``(E, d_in, d_out)``). A tied config has no
+    ``head``."""
     sd = {"embed": np_params["embed"]["table"],
           "final_ln": np_params["final_ln"]["scale"]}
     if not cfg.tie_embeddings:
         sd["head"] = np_params["head"]["table"]
-    for i in range(cfg.num_layers):
-        for name, arr in B.jax_block_arrays(np_params["blocks"], i,
-                                            cfg).items():
-            sd[f"blocks.{i}.{name}"] = arr
+    if cfg.family == "moe":
+        n_dense = cfg.moe.first_k_dense
+        layers = [("dense_blocks", i, "dense") for i in range(n_dense)]
+        layers += [("moe_blocks", i, "moe")
+                   for i in range(cfg.num_layers - n_dense)]
+    else:
+        layers = [("blocks", i, "dense") for i in range(cfg.num_layers)]
+    for j, (stack, i, kind) in enumerate(layers):
+        for name, arr in B.jax_block_arrays(np_params[stack], i, cfg,
+                                            kind).items():
+            sd[f"blocks.{j}.{name}"] = arr
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in sd.items()}

@@ -26,6 +26,7 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_layers_ragged_q8_ref, paged_attention_layers_ragged_ref,
     paged_attention_ragged_q8_ref, paged_attention_ragged_ref)
 from repro_torch.models import LM
+from repro_torch.models.moe import apply_moe
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -233,19 +234,26 @@ def test_mla_kernel_matches_plain_version(cuda_device, pool_dtype, dc, dr):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,kv_cache_dtype", [
     ("internlm2-1.8b-smoke", "int8"),
-    ("deepseek-v2-236b-noexperts-smoke", "native")])
+    ("deepseek-v2-236b-noexperts-smoke", "native"),
+    ("deepseek-v2-236b-smoke", "native"), ("arctic-480b-smoke", "native"),
+    ("gemma-7b-smoke", "native"), ("minicpm-2b-smoke", "native"),
+    ("starcoder2-15b-smoke", "native")])
 def test_family_serving_on_card_matches_sequential(cuda_device, arch,
                                                    kv_cache_dtype):
-    """Smoke-sized int8 and MLA serving on the card: the fused path (one
-    family ragged launch per layer and step) and the unfused path (the
-    family decode entry) are token-identical to the dense sequential
-    reference, and mirror-free."""
-    cfg = get_config(arch)
+    """Smoke-sized int8, MLA, MoE (at no-drop capacity) and dense-config
+    serving on the card: the fused path (one family ragged launch per
+    layer and step) and the unfused path (the family decode entry) are
+    token-identical to the dense sequential reference, and mirror-free."""
+    cfg = chip_smoke.cut(get_config(arch), None, no_drop=True)
     model = LM(cfg, device=cuda_device, kv_cache_dtype=kv_cache_dtype).init(
         torch.Generator(cuda_device).manual_seed(0))
-    ragged, decode = ((ops.mla_paged_attention_ragged, ops.mla_paged_attention)
-                      if cfg.mla is not None else
-                      (ops.paged_attention_ragged_q8, ops.paged_attention_q8))
+    if cfg.mla is not None:
+        ragged, decode = (ops.mla_paged_attention_ragged,
+                          ops.mla_paged_attention)
+    elif kv_cache_dtype == "int8":
+        ragged, decode = ops.paged_attention_ragged_q8, ops.paged_attention_q8
+    else:
+        ragged, decode = ops.paged_attention_ragged, ops.paged_attention
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
                for n in (8, 12, 8)]
@@ -960,3 +968,43 @@ def test_mirror_serving_on_card_matches_pooled(cuda_device, engine, fuse):
     assert [r.generated for r in got] == [r.generated for r in want] \
         == [r.generated for r in ref]
     assert eng.stats()["mirror_d2h_bytes"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qmax", [chip_smoke.CHUNK, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", sorted(chip_smoke.CONFIG_GEOMS))
+def test_kernel_at_config_head_shapes(cuda_device, arch, dtype, qmax):
+    """The dense paged entries at the (H, K, D) of Arctic (GQA group 7),
+    StarCoder2 (12), Gemma (head_dim 256) and MiniCPM (head_dim 64): the
+    plain version's values, and the bitwise pins of
+    ``chip_smoke.paged_pins``."""
+    H, Kh, D = chip_smoke.CONFIG_GEOMS[arch]
+    c = chip_smoke.dense_case(torch, cuda_device, dtype, qmax, 0,
+                              geom=dict(chip_smoke.GEOM, H=H, K=Kh, D=D))
+    out, ref = c.kern(*c.args), c.plain(*c.args)
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    c.label = f"{arch} {dtype} Qmax={qmax}"
+    c.pins(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b-smoke",
+                                  "arctic-480b-smoke"])
+def test_moe_block_is_deterministic_on_card(cuda_device, arch, dtype):
+    """A MoE FFN over 2048 tokens at the published capacity factor (tokens
+    dropped): two runs give the same bits — the combine adds each
+    token's expert outputs in a fixed order, with no atomics."""
+    cfg = get_config(arch)
+    model = LM(cfg, dtype=dtype, device=cuda_device).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    blk = next(b for b in model.blocks if b.ffn_kind == "moe")
+    g = torch.Generator(cuda_device).manual_seed(1)
+    x = torch.randn(8, 256, cfg.d_model, generator=g,
+                    device=cuda_device).to(dtype)
+    y1, aux1 = apply_moe(blk, cfg, x)
+    y2, aux2 = apply_moe(blk, cfg, x)
+    assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
+    assert bool(torch.isfinite(y1).all())

@@ -58,7 +58,8 @@ FAMILIES = {
 
 
 # ------------------------------------------------------- descriptors, config
-# (port config, JAX config) stand-ins of each config family
+# (port config, JAX config) of each config family (stand-ins for the
+# families still to be ported)
 def _family_configs():
     dense = get_config("internlm2-1.8b-smoke")
     mla = get_config(MLA_ARCH)
@@ -67,9 +68,9 @@ def _family_configs():
         "mla": (mla, dataclasses.replace(
             jax_get_config("deepseek-v2-236b-smoke"), family="attn_dense",
             moe=None)),
-        "mla+moe": (dataclasses.replace(mla, family="moe"),
+        "mla+moe": (get_config("deepseek-v2-236b-smoke"),
                     jax_get_config("deepseek-v2-236b-smoke")),
-        "moe": (dataclasses.replace(dense, family="moe"),
+        "moe": (get_config("arctic-480b-smoke"),
                 jax_get_config("arctic-480b-smoke")),
         "ssm": (dataclasses.replace(dense, family="ssm"),
                 jax_get_config("mamba2-1.3b-smoke")),
@@ -97,7 +98,7 @@ def test_descriptor_family_matches_jax(fam, kd):
         assert desc is None
         return
     assert desc.family == jdesc.family and desc.kernel == jdesc.kernel
-    if fam in ("dense", "mla"):               # same widths: same planes
+    if fam in ("dense", "mla", "mla+moe", "moe"):   # same config: same planes
         assert [(p.name, p.shape, p.dtype, p.kind)
                 for p in desc.paged_planes] == \
             [(p.name, p.shape, p.dtype, p.kind) for p in jdesc.paged_planes]

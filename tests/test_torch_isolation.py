@@ -1,6 +1,8 @@
 """The port stands alone: serving through it — dense, int8 and MLA cache
-families, with speculative decode, a prefix cache, a token journal and a
-fault plan (a crash, then recovery), a dense prompt longer than
+families, the MoE configs (DeepSeek-V2 with its experts, Arctic) and an
+ungated FFN (StarCoder2), with speculative decode, a prefix cache, a
+token journal and a fault plan (a crash, then recovery), a dense prompt
+longer than
 ``chunk_size`` (the flash-attention prefill), and the dense mirror through
 the ``log`` and ``kvhybrid`` engines and host-mode ``paged`` — and every
 public kernel entry load neither JAX nor any module of the JAX package."""
@@ -22,7 +24,10 @@ _SCRIPT = textwrap.dedent("""
 
     for arch, kd in (("internlm2-1.8b-smoke", "native"),
                      ("internlm2-1.8b-smoke", "int8"),
-                     ("deepseek-v2-236b-noexperts-smoke", "native")):
+                     ("deepseek-v2-236b-noexperts-smoke", "native"),
+                     ("deepseek-v2-236b-smoke", "native"),
+                     ("arctic-480b-smoke", "native"),
+                     ("starcoder2-15b-smoke", "native")):
         cfg = get_config(arch)
         model = LM(cfg, device="cpu", kv_cache_dtype=kd).init(
             torch.Generator().manual_seed(0))

@@ -11,6 +11,8 @@ can hold the port's tokens and counters to the JAX engine's.
 Cache families, each on its smoke config with the JAX ``LM.init`` weights
 carried across (fp32): ``dense`` (``internlm2-1.8b-smoke``), ``int8`` (the
 same with an int8 KV pool) and ``mla`` (DeepSeek-V2 without experts).
+:func:`arch_models` and :func:`serve_arch` do the same for any registered
+``-smoke`` config, a MoE one at any capacity factor.
 """
 import dataclasses
 
@@ -84,6 +86,78 @@ def models(fam):
             jax.tree.map(np.asarray, jparams), cfg))
         _MODELS[fam] = (jmodel, jparams, tmodel)
     return _MODELS[fam]
+
+
+_ARCH_MODELS: dict = {}
+
+
+def arch_models(arch: str, capacity_factor=None):
+    """(JAX model, JAX params, port model) of a registered config, with the
+    JAX weights carried across; ``capacity_factor`` replaces a MoE
+    config's."""
+    key = (arch, capacity_factor)
+    if key not in _ARCH_MODELS:
+        jcfg, cfg = jax_get_config(arch), get_config(arch)
+        if capacity_factor is not None:
+            jcfg, cfg = (dataclasses.replace(c, moe=dataclasses.replace(
+                c.moe, capacity_factor=capacity_factor)) for c in (jcfg, cfg))
+        jmodel = build_model(jcfg, remat=False)
+        jparams = jmodel.init(jax.random.PRNGKey(0))
+        tmodel = LM(cfg, device="cpu")
+        tmodel.load_state_dict(params_from_jax(
+            jax.tree.map(np.asarray, jparams), cfg))
+        _ARCH_MODELS[key] = (jmodel, jparams, tmodel)
+    return _ARCH_MODELS[key]
+
+
+# (KV engine, fused) runs of serve_arch: the pool and the dense mirror on
+# both host-tier engines, each fused and unfused
+SERVE_RUNS = tuple((name, fuse) for name in ("paged", "log", "kvhybrid")
+                   for fuse in (True, False))
+SERVE_IDS = [f"{n}-{'fused' if f else 'unfused'}" for n, f in SERVE_RUNS]
+SERVE_PROMPTS = (8, 12, 8, 5)
+
+
+def serve_arch(pkg: str, models_, name: str, fuse: bool, seq=False):
+    """``generate()`` (``generate_sequential()`` with ``seq``) of four
+    seeded requests on one package's engine — ``max_len`` 48, 4-token
+    pages, 5-token prefill chunks, 6 new tokens. Returns (tokens,
+    stats)."""
+    jmodel, jparams, tmodel = models_
+    spec = dict(engine=name, kv_hbm_bytes=64 << 20, kv_hot_window=8,
+                drain_shards=2)
+    kw = dict(max_len=MAX_LEN, page_tokens=PAGE_TOKENS, max_batch_seqs=4,
+              prefill_chunk_tokens=5, fuse_ticks=fuse)
+    if pkg == "jax":
+        eng = JaxServingEngine(jmodel, jparams, JaxServeConfig(
+            engine_spec=JaxEngineSpec(**spec), **kw))
+        cls = JaxRequest
+    else:
+        eng = ServingEngine(tmodel, ServeConfig(
+            engine_spec=EngineSpec(**spec), **kw), device="cpu")
+        cls = Request
+    reqs = [cls(rid=i, prompt=p.copy(), max_new=6)
+            for i, p in enumerate(prompts(0, SERVE_PROMPTS))]
+    (eng.generate_sequential if seq else eng.generate)(reqs)
+    assert eng.pooled == (name == "paged")
+    return tokens(reqs), eng.stats()
+
+
+def serve_pair(arch: str, name: str, fuse: bool, capacity_factor=None):
+    """:func:`serve_arch` of one schedule on both packages: asserts the
+    same tokens and the same ``stats()`` dict, key for key, floats
+    included. Returns (the pair's models, the tokens)."""
+    pair = arch_models(arch, capacity_factor)
+    jt, js = serve_arch("jax", pair, name, fuse)
+    tt, ts = serve_arch("torch", pair, name, fuse)
+    assert tt == jt
+    bad = {k: (ts.get(k), js.get(k)) for k in set(ts) | set(js)
+           if ts.get(k) != js.get(k)}
+    assert not bad, f"port != JAX (port, jax): {bad}"
+    # the mirror moves k/v rows; an MLA row has none, as in JAX
+    mirrored = name != "paged" and pair[2].cfg.mla is None
+    assert (ts["mirror_d2h_bytes"] > 0) == mirrored
+    return pair, tt
 
 
 def group_bytes(fam) -> int:
