@@ -40,9 +40,10 @@ each raises on failure, and any failure ends the run with a traceback:
                 H=128, dc=512, dr=64, T=16, MP=64, Qmax 128 (the MLA serve
                 phase's prefill chunk) and 1, one layer and L=8; flash
                 attention: one InternLM2-1.8B layer of a 4096-token
-                prefill (B=1, H=16, K=8, D=128, causal) and the JAX
-                package's test cases, with a causal Sq > Skv case whose
-                dead rows are 0;
+                prefill (B=1, H=16, K=8, D=128, causal), one Zamba2-1.2B
+                shared-attention block (H=K=32, D=64, causal) at 1100
+                and 4096 tokens, and the JAX package's test cases, with a
+                causal Sq > Skv case whose dead rows are 0;
                 log patch: P=682, T=16, C=2048 (K and V of one token in
                 one InternLM2-1.8B layer), N=256 records with colliding
                 targets, skipped records and out-of-range indices, bit for
@@ -136,6 +137,26 @@ each raises on failure, and any failure ends the run with a traceback:
                 token's output depends on its batch, in the JAX package
                 too), and each dense config at 4 layers: ``generate()``
                 token-identical to ``generate_sequential()``.
+20. serve-mamba2 — Mamba-2 1.3B (48 layers, published widths, bf16,
+                random weights from --seed) through phase 3's workload on
+                ``paged`` at 1 GiB: pooled, fused, mirror-free; its cache
+                is one state row per sequence (97.2 MiB) beside the block
+                tables, and no kernel entry runs (the reference's SSD scan
+                is XLA, no Pallas).
+21. serve-zamba2 — Zamba2-1.2B (all 38 layers, bf16) on ``paged``, where
+                it falls back to the unfused dense mirror (no cache
+                descriptor, as in the reference), prompts of 4096, 3072,
+                2048, 1100, 256 and 64 tokens prefilled whole: each prompt
+                past 512 tokens runs flash attention once per
+                shared-block invocation (6).
+22. parity-ssm — fp32 Mamba-2 at published widths cut to 4 layers: pooled
+                ``generate()`` with 5-token chunks, ``speculate_k`` 2 and a
+                2-row state budget that preempts, token-identical to
+                ``generate_sequential()``.
+23. parity-hybrid — fp32 Zamba2 cut to 14 layers (2 segments, both shared
+                blocks, a tail of 2), a 1100-token prompt among three:
+                ``generate()`` token-identical to
+                ``generate_sequential()``.
 
 Each serving path is driven with the launch counts set to 0 just before
 it and read just after; a row's ``serving_launches`` is the sum of its
@@ -201,6 +222,10 @@ PREFIX_MAX_LEN = 688         # the head, a 256-token tail and 32 new tokens
 LAYERS, MLA_LAYERS = 24, 8   # depth of the multi-layer kernel cases
 # one InternLM2-1.8B layer of a 4096-token prefill
 FLASH_GEOM = dict(B=1, S=4096, H=16, K=8, D=128)
+# (H, K, D) of Zamba2-1.2B's shared attention blocks (MHA), and the prompt
+# lengths phase 2 runs #9 there at
+ZAMBA2_FLASH = (32, 32, 64)
+ZAMBA2_FLASH_S = (1100, 4096)
 # the JAX package's flash cases (tests/test_kernels.py), and one causal
 # Sq > Skv case whose first 32 query rows see no key
 # (B, Sq, Skv, H, K, D, causal)
@@ -700,11 +725,12 @@ def flash_checks(torch, dev, dtype, seed):
     return worst
 
 
-def flash_case(torch, dev, dtype, seed):
-    """One InternLM2-1.8B layer of a 4096-token causal prefill."""
+def flash_case(torch, dev, dtype, seed, geom=FLASH_GEOM):
+    """One layer of a causal prefill at ``geom``: by default
+    InternLM2-1.8B's at 4096 tokens."""
     import repro_torch.kernels as K
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    B, S, H, Kh, D = (FLASH_GEOM[k] for k in "B S H K D".split())
+    B, S, H, Kh, D = (geom[k] for k in "B S H K D".split())
     scale = 1.0 / D ** 0.5
     g = torch.Generator(dev).manual_seed(seed)
     q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
@@ -911,7 +937,12 @@ def phase_kernels(torch, dev, seed):
             for qm in (CHUNK, 1) for d in (bf16, f32)],
         "flash_attention": [
             (f"{d} S={FLASH_GEOM['S']} causal", lambda d=d: flash_case(
-                torch, dev, d, seed)) for d in (bf16, f32)],
+                torch, dev, d, seed)) for d in (bf16, f32)] + [
+            (f"{d} S={S} causal zamba2-1.2b H={H} K={Kh} D={D}",
+             lambda d=d, g=dict(B=1, S=S, H=H, K=Kh, D=D): flash_case(
+                 torch, dev, d, seed, geom=g))
+            for H, Kh, D in (ZAMBA2_FLASH,) for S in ZAMBA2_FLASH_S
+            for d in (bf16, f32)],
         "log_patch": [
             (f"{d} P={LOG_GEOM['P']} N={LOG_GEOM['N']}",
              lambda d=d: log_patch_case(torch, dev, d, seed))
@@ -1934,6 +1965,222 @@ def parity_families(torch, dev, seed):
     return served
 
 
+# ---------------------------------------------------------- phases 20-23
+# serve-zamba2's requests: the long prompts (prefilled whole, past the
+# 512-token chunk_size: through #9) and two short ones (plain attention)
+ZAMBA2_PROMPTS = LONG_PROMPTS + (256, 64)
+# parity-hybrid: Zamba2 cut to 2 segments of 6 (both shared blocks) and a
+# tail of 2; one prompt past chunk_size
+HYBRID_PARITY_LAYERS, HYBRID_PARITY_PROMPTS = 14, (1100, 200, 64)
+
+
+def serve_mamba2(torch, dev, seed):
+    """Phase 20: Mamba-2 1.3B (48 layers, published widths, bf16) through
+    phase 3's workload on the ``paged`` engine at 1 GiB: pooled, fused and
+    mirror-free, its cache one state row per sequence beside the block
+    tables; no kernel entry runs (the reference's SSD scan is XLA).
+    Returns every entry's launches."""
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    model = make_model(torch, get_config("mamba2-1.3b"), torch.bfloat16,
+                       dev, seed)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    log(f"[serve-mamba2] weights {weight_gb(model):.2f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = requests(8, 64, 512, 32, cfg.vocab_size, seed)
+    eng = engine(model, dev, hbm=1 << 30)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(ops)
+    s = eng.stats()
+    desc = eng.desc
+    if not (eng.pooled and eng.fused and desc.family == "ssm"
+            and eng.tiered.pool_pages == 0):
+        raise AssertionError(f"serve-mamba2: pooled {eng.pooled}, fused "
+                             f"{eng.fused}, family {desc.family}")
+    if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
+        raise AssertionError("serve-mamba2: a request did not finish in "
+                             "vocab")
+    if s["mirror_d2h_bytes"] != 0 or any(counts.values()):
+        raise AssertionError(f"serve-mamba2: mirror bytes "
+                             f"{s['mirror_d2h_bytes']}, launches {counts}")
+    new = sum(len(r.generated) for r in reqs)
+    log(f"[serve-mamba2] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
+        f"ssm state rows: {len(reqs)} requests, prompts "
+        f"{[len(r.prompt) for r in reqs]}, {new} new tokens in {wall:.3f} s "
+        f"= {new / wall:.2f} tok/s (incl. prefill); ticks {s['sched_ticks']}"
+        f" (fused {s['fused_steps']}), prefill chunks "
+        f"{s['sched_prefill_chunks']}, preempts {s['preempts']}, "
+        f"mirror_d2h_bytes {s['mirror_d2h_bytes']}, kernel launches 0, "
+        f"state rows {eng.tiered._state_capacity} at 1 GiB of "
+        f"seq_state_bytes {desc.seq_state_bytes} (conv "
+        f"{desc.num_layers * desc.seq_planes[0].entry_bytes} + ssm "
+        f"{desc.num_layers * desc.seq_planes[1].entry_bytes}), pool_appends "
+        f"{s['pool_appends']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, eng
+    free(torch)
+    return counts
+
+
+def serve_zamba2(torch, dev, seed):
+    """Phase 21: Zamba2-1.2B (all 38 layers, published widths, bf16) on
+    the ``paged`` engine, where it falls back to the dense mirror (no
+    cache descriptor), unfused, whole-prompt prefill of
+    ``ZAMBA2_PROMPTS``: each prompt past the 512-token chunk_size runs
+    #9 once per shared-block invocation (6). Returns every entry's
+    launches."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    model = make_model(torch, get_config("zamba2-1.2b"), torch.bfloat16,
+                       dev, seed)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    log(f"[serve-zamba2] weights {weight_gb(model):.2f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = requests_of(ZAMBA2_PROMPTS, 32, cfg.vocab_size, seed)
+    max_len = -(-(max(ZAMBA2_PROMPTS) + 32 + 1) // 16) * 16
+    eng = engine(model, dev, hbm=1 << 30, max_len=max_len, chunk=None)
+    prefill_ms = {}
+    admit = eng.prefill_one
+
+    def timed_prefill(req, *a, **kw):      # host clock around synced work
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = admit(req, *a, **kw)
+        torch.cuda.synchronize()
+        prefill_ms[req.rid] = (time.perf_counter() - t) * 1e3
+        return out
+    eng.prefill_one = timed_prefill
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(K)
+    s = eng.stats()
+    n_long = sum(n > model.chunk_size for n in ZAMBA2_PROMPTS)
+    n_seg = cfg.num_layers // cfg.hybrid.shared_block_period
+    flash = counts["flash_attention"]
+    others = {k: n for k, n in counts.items() if n and k != "flash_attention"}
+    if eng.pooled or eng.fused or eng.desc is not None:
+        raise AssertionError(f"serve-zamba2: pooled {eng.pooled}, fused "
+                             f"{eng.fused}")
+    if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
+            0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
+        raise AssertionError("serve-zamba2: a request did not finish in "
+                             "vocab")
+    if flash != n_seg * n_long or others or s["mirror_d2h_bytes"] != 0:
+        raise AssertionError(f"serve-zamba2: {flash} flash launches for "
+                             f"{n_long} long prompts x {n_seg} segments; "
+                             f"others {others}; mirror bytes "
+                             f"{s['mirror_d2h_bytes']}")
+    new = sum(len(r.generated) for r in reqs)
+    log(f"[serve-zamba2] {cfg.name} {cfg.num_layers} layers ({n_seg} "
+        f"segments of {cfg.hybrid.shared_block_period} + tail "
+        f"{model.tail_len}), {model.dtype}, dense mirror (unfused): prompts "
+        f"{list(ZAMBA2_PROMPTS)} prefilled whole, {new} new tokens in "
+        f"{wall:.3f} s = {new / wall:.2f} tok/s (incl. prefill); prefill ms "
+        f"per request { {r.rid: round(prefill_ms[r.rid], 3) for r in reqs} };"
+        f" ticks {s['sched_ticks']}, step_calls {s['step_calls']}, "
+        f"flash_attention launches {flash} (= {n_seg} x {n_long}), "
+        f"mirror_d2h_bytes {s['mirror_d2h_bytes']}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, eng
+    free(torch)
+    return counts
+
+
+def parity_ssm(torch, dev, seed):
+    """Phase 22: fp32 Mamba-2 at published widths cut to 4 layers: pooled,
+    fused ``generate()`` with 5-token prefill chunks, ``speculate_k`` 2
+    (``ReferenceDrafts`` with the second draft wrong, so a decode row
+    commits a middle slot's state) and a budget of 2 state rows that
+    preempts, against ``generate_sequential()``."""
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cut(get_config("mamba2-1.3b"), 4)
+    model = make_model(torch, cfg, torch.float32, dev, seed)
+    ref = engine(model, dev, hbm=1 << 30).generate_sequential(
+        requests(4, 64, 400, 16, cfg.vocab_size, seed + 1))
+    got = requests(4, 64, 400, 16, cfg.vocab_size, seed + 1)
+    desc = model.cache_descriptor(16)
+    eng = engine(model, dev, hbm=2 * desc.seq_state_bytes, chunk=5,
+                 speculate_k=2,
+                 draft_proposer=ReferenceDrafts(ref, 1, cfg.vocab_size))
+    ops.reset_launch_counts()
+    eng.generate(got)
+    torch.cuda.synchronize()
+    counts = launch_counts(ops)
+    s = eng.stats()
+    if not eng.pooled or s["preempts"] <= 0 or any(counts.values()) \
+            or not 0 < s["spec_accepted"] < s["spec_proposed"]:
+        raise AssertionError(f"parity-ssm: pooled {eng.pooled}, preempts "
+                             f"{s['preempts']}, launches {counts}, accepted "
+                             f"{s['spec_accepted']} of {s['spec_proposed']}")
+    check_identical(torch, model, got, ref, "parity-ssm")
+    log(f"[parity-ssm] {cfg.name} {cfg.num_layers} layers fp32 state rows "
+        f"(2-row budget): generate() == generate_sequential() on {len(got)} "
+        f"requests x 16 tokens, 5-token chunks, speculate_k 2 (accepted "
+        f"{s['spec_accepted']} of {s['spec_proposed']}), {s['preempts']} "
+        f"preempts, ticks {s['sched_ticks']}")
+    del model, eng
+    free(torch)
+    return counts
+
+
+def parity_hybrid(torch, dev, seed):
+    """Phase 23: fp32 Zamba2 at published widths cut to
+    ``HYBRID_PARITY_LAYERS`` layers (2 segments, both shared blocks, a
+    tail of 2): ``generate()`` on the mirror, a prompt past chunk_size
+    prefilled whole through #9, against ``generate_sequential()``."""
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cut(get_config("zamba2-1.2b"), HYBRID_PARITY_LAYERS)
+    model = make_model(torch, cfg, torch.float32, dev, seed)
+    max_len = -(-(max(HYBRID_PARITY_PROMPTS) + 8 + 1) // 16) * 16
+    if (model.n_seg, model.tail_len, len(model.shared_blocks)) != (2, 2, 2):
+        raise AssertionError("parity-hybrid: the cut lost its structure")
+    ref = engine(model, dev, hbm=1 << 30, max_len=max_len, chunk=None
+                 ).generate_sequential(requests_of(
+                     HYBRID_PARITY_PROMPTS, 8, cfg.vocab_size, seed + 3))
+    got = requests_of(HYBRID_PARITY_PROMPTS, 8, cfg.vocab_size, seed + 3)
+    eng = engine(model, dev, hbm=1 << 30, max_len=max_len, chunk=None)
+    ops.reset_launch_counts()
+    eng.generate(got)
+    torch.cuda.synchronize()
+    counts = launch_counts(ops)
+    n_long = sum(n > model.chunk_size for n in HYBRID_PARITY_PROMPTS)
+    others = {k: n for k, n in counts.items() if n and k != "flash_attention"}
+    if counts["flash_attention"] != model.n_seg * n_long or others:
+        raise AssertionError(f"parity-hybrid: launches {counts}")
+    check_identical(torch, model, got, ref, "parity-hybrid",
+                    max_len=max_len)
+    log(f"[parity-hybrid] {cfg.name} {cfg.num_layers} layers fp32 (2 "
+        f"segments, both shared blocks, tail 2): generate() == "
+        f"generate_sequential() on prompts {list(HYBRID_PARITY_PROMPTS)} x "
+        f"8 tokens (flash launches {counts['flash_attention']}, ticks "
+        f"{eng.stats()['sched_ticks']})")
+    del model, eng
+    free(torch)
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2091,6 +2338,19 @@ def main(argv=None) -> int:
     stamp("serve-families")
     served.update(parity_families(torch, dev, args.seed))
     stamp("parity-families")
+
+    # the state-space families: Mamba-2 on pooled state rows, Zamba2 on
+    # the mirror with #9 at its shared-attention shape
+    served.update(serve_mamba2(torch, dev, args.seed))
+    stamp("serve-mamba2")
+    counts = serve_zamba2(torch, dev, args.seed)
+    rows["flash_attention"]["zamba2_launches"] = counts["flash_attention"]
+    served.update(counts)
+    stamp("serve-zamba2")
+    served.update(parity_ssm(torch, dev, args.seed))
+    stamp("parity-ssm")
+    served.update(parity_hybrid(torch, dev, args.seed))
+    stamp("parity-hybrid")
 
     for name, row in rows.items():
         row["serving_launches"] = served[name]

@@ -6,17 +6,21 @@ Usage::
     cfg = get_config("starcoder2-15b")          # full published config
     cfg = get_config("starcoder2-15b-smoke")    # reduced smoke sibling
     cfg = get_config("deepseek-v2-236b-noexperts")   # MLA, dense FFN
+    cfg = get_config("mamba2-1.3b")             # SSM: state rows, no KV
 """
 from __future__ import annotations
 
 from repro_torch.configs import (arctic_480b, deepseek_v2_236b, gemma_7b,
-                                 internlm2_1p8b, minicpm_2b, starcoder2_15b)
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
+                                 internlm2_1p8b, mamba2_1p3b, minicpm_2b,
+                                 starcoder2_15b, zamba2_1p2b)
+from repro_torch.configs.base import (HybridConfig, MLAConfig, ModelConfig,
+                                      MoEConfig, SSMConfig)
 
 REGISTRY: dict[str, ModelConfig] = {}
 for _cfg in (starcoder2_15b.CONFIG, internlm2_1p8b.CONFIG, minicpm_2b.CONFIG,
              gemma_7b.CONFIG, arctic_480b.CONFIG, deepseek_v2_236b.CONFIG,
-             deepseek_v2_236b.NOEXPERTS):
+             deepseek_v2_236b.NOEXPERTS, mamba2_1p3b.CONFIG,
+             zamba2_1p2b.CONFIG):
     REGISTRY[_cfg.name] = _cfg
     REGISTRY[_cfg.name + "-smoke"] = _cfg.reduced()
 
@@ -30,4 +34,5 @@ def get_config(name: str) -> ModelConfig:
         ) from None
 
 
-__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "REGISTRY", "get_config"]
+__all__ = ["HybridConfig", "MLAConfig", "MoEConfig", "ModelConfig",
+           "REGISTRY", "SSMConfig", "get_config"]

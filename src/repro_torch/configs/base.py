@@ -3,10 +3,11 @@
 The port's own copy of the decoder part of the JAX package's
 ``ModelConfig``: the fields a dense GQA or MLA (multi-head latent
 attention) decoder reads — with a gated or plain FFN, or a routed
-mixture of experts (``MoEConfig``) — the padded-vocab rule, and
-``reduced()`` for the smoke-sized sibling. The SSM, hybrid,
-encoder-decoder and frontend sub-configs wait for the slices that port
-those families.
+mixture of experts (``MoEConfig``) — a Mamba-2 state-space stack
+(``SSMConfig``) and the Zamba2 hybrid of it with shared attention blocks
+(``HybridConfig``), the padded-vocab rule, and ``reduced()`` for the
+smoke-sized sibling. The encoder-decoder and frontend sub-configs wait
+for the slices that port those families.
 """
 from __future__ import annotations
 
@@ -39,6 +40,27 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 SSD mixer widths."""
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    ngroups: int = 1
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2: a shared attention block every ``shared_block_period``
+    SSM layers, ``num_shared_blocks`` of them used round-robin, each
+    invocation with its own rank-``lora_rank`` LoRA on q/k/v."""
+    shared_block_period: int = 6
+    num_shared_blocks: int = 2
+    lora_rank: int = 8
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -62,6 +84,9 @@ class ModelConfig:
     subquadratic: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
+    has_kv_cache: bool = True      # False for pure SSM
     # embedding tables are allocated padded to this multiple; the padded
     # logit columns are masked
     vocab_pad_multiple: int = 256
@@ -108,5 +133,12 @@ class ModelConfig:
                 kv_lora_rank=32, q_lora_rank=0,
                 qk_nope_head_dim=32, qk_rope_head_dim=16, v_head_dim=32)
             small["head_dim"] = 32
+        if self.ssm is not None:
+            small["ssm"] = dataclasses.replace(
+                self.ssm, d_state=16, head_dim=16, chunk_size=64)
+        if self.hybrid is not None:
+            small["hybrid"] = dataclasses.replace(
+                self.hybrid, shared_block_period=2, num_shared_blocks=1,
+                lora_rank=4)
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)

@@ -9,14 +9,15 @@ The port's copy of the JAX package's descriptors. A
   KV pages ride next to bf16 scale planes) and its name matches the
   model's prefill cache key (``k``/``v``/``k_scale``/``v_scale``/``c``/
   ``kr``).
-* **seq planes** — per-sequence state rows (SSM state) that ride alongside
-  the page tables.
+* **seq planes** — per-sequence state rows (SSM ``conv``/``ssm`` states)
+  that ride alongside the page tables: committed, spilled, preempted and
+  restored with the row rather than with pages.
 
 Plane dtypes are kept as NAMES (``"float32"``, ``"bfloat16"``, ...):
 numpy has no bfloat16, so :data:`_DTYPES` maps each name to its torch
 dtype and itemsize, and the byte math (hence every byte counter) is the
-same in both packages. The dense, int8 and MLA families are ported; the
-SSM family raises until its slice lands.
+same in both packages. The hybrid (Zamba2) and encoder-decoder families
+have no descriptor: they keep the dense-mirror path, as in JAX.
 """
 from __future__ import annotations
 
@@ -104,8 +105,17 @@ class CacheDescriptor:
         return self.num_layers * self.page_tokens * plane.entry_bytes
 
     @property
+    def seq_state_bytes(self) -> int:
+        """Bytes of one sequence's state rows across layers and planes."""
+        return self.num_layers * sum(p.entry_bytes for p in self.seq_planes)
+
+    @property
     def has_pages(self) -> bool:
         return bool(self.paged_planes)
+
+    @property
+    def has_state(self) -> bool:
+        return bool(self.seq_planes)
 
     def with_kv_dtype(self, dtype) -> "CacheDescriptor":
         """Descriptor with ``kind == 'kv'`` planes re-typed (the
@@ -146,12 +156,17 @@ def _mla_planes(cfg, kv_cache_dtype, compute_dtype):
             (), "mla")
 
 
-def _not_ported(family: str, entry: str):
-    def build(cfg, kv_cache_dtype, compute_dtype):
-        raise NotImplementedError(
-            f"the {family} cache family is not ported yet (ROADMAP.md, "
-            f"queue 1: {entry})")
-    return build
+def _ssm_planes(cfg, kv_cache_dtype, compute_dtype):
+    dt = dtype_name(compute_dtype)
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    nheads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.ngroups * s.d_state
+    return ((),
+            (PlaneSpec("conv", (s.d_conv - 1, conv_dim), dt, kind="state"),
+             PlaneSpec("ssm", (nheads, s.head_dim, s.d_state), "float32",
+                       kind="state")),
+            "none")
 
 
 def _is_attn(cfg):
@@ -165,9 +180,9 @@ _FAMILY_BUILDERS: tuple = (
      and kd == "int8" and cfg.family != "moe", _int8_planes),
     ("dense", lambda cfg, kd: _is_attn(cfg) and cfg.mla is None,
      _dense_planes),
-    ("ssm", lambda cfg, kd: cfg.family == "ssm", _not_ported(
-        "SSM", "Families: the other dense configs, MoE and SSM")),
-    # hybrid and encdec have no pooled layout: no entry → None
+    ("ssm", lambda cfg, kd: cfg.family == "ssm", _ssm_planes),
+    # hybrid (interleaved SSM + shared-attention KV) and encdec (cross-KV)
+    # have no pooled layout: no entry → None, the dense mirror
 )
 
 

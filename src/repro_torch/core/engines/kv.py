@@ -394,6 +394,23 @@ class KVCacheEngine(abc.ABC):
         raise RuntimeError(
             f"KV engine {self.engine_name!r} has no paged pool")
 
+    # State-bearing descriptors (SSM) have no pages at all: their per-seq
+    # state rows move through state_views()/commit_state() and ride
+    # preempt/restore with the row.
+    def state_views(self, seqs: Sequence[int]):
+        """Batched per-seq state rows for one step — one ``(L, B, *shape)``
+        tensor per descriptor seq plane. Only state-bearing descriptors
+        (SSM) implement this."""
+        raise RuntimeError(
+            f"KV engine {self.engine_name!r} has no per-seq state rows")
+
+    def commit_state(self, seqs: Sequence[int], n_tokens: Sequence[int],
+                     states) -> None:
+        """Commit one step's updated state rows; rows with
+        ``n_tokens[i] == 0`` commit nothing (speculative/padding rewind)."""
+        raise RuntimeError(
+            f"KV engine {self.engine_name!r} has no per-seq state rows")
+
 
 _KV_REGISTRY: dict[str, type[KVCacheEngine]] = {}
 

@@ -35,7 +35,11 @@ constants the JAX package charges (``HOST_LINK`` and ``HBM`` below), so
 byte counters and simulated-time counters compare 1:1 with the
 reference. They are a simulation's inputs, not a GPU's speed.
 
-The per-sequence state rows of the SSM family wait for a later slice.
+The SSM family pools no pages: its cache is one fixed-size state row per
+sequence (the descriptor's ``conv``/``ssm`` seq planes) that rides beside
+the block tables — committed with the row each step
+(:meth:`PagedKVCache.commit_state`), spilled and restored whole on
+preemption.
 """
 from __future__ import annotations
 
@@ -248,6 +252,7 @@ class PagedKVCache(_TieredKV):
         self.hbm_capacity = max(hbm_budget_bytes // spec.page_bytes, 1)
         self.next_phys = 0
         self._pooled = False
+        self._state_only = False       # a pool of state rows, no pages
         self.async_tiering = bool(async_tiering)
         self._pipeline = None          # TransferPipeline once pooled + async
         self._share_index = None       # prefix index (set_share_index)
@@ -283,7 +288,9 @@ class PagedKVCache(_TieredKV):
                   device="cuda") -> None:
         """Allocate the device page pool on ``device``: one zeroed
         ``(L, P, T, *shape)`` tensor per descriptor plane, ``P`` sized
-        from the HBM budget unless ``pages`` overrides it."""
+        from the HBM budget unless ``pages`` overrides it. A state-only
+        descriptor (SSM) allocates no pages: its per-sequence state rows
+        live beside the block tables, as many as the budget holds."""
         if self._pooled:
             raise RuntimeError("init_pool() called twice")
         if self.seq_len or self.pool or self._preempted:
@@ -296,27 +303,35 @@ class PagedKVCache(_TieredKV):
             raise ValueError(
                 f"descriptor page_tokens={desc.page_tokens} disagrees with "
                 f"KVSpec page_tokens={spec.page_tokens}")
-        if not desc.has_pages:
-            raise NotImplementedError(
-                "state-row descriptors (SSM) are not ported yet (ROADMAP.md, "
-                "queue 1: Families: the other dense configs, MoE and SSM)")
         self.desc = desc
         self.device = torch.device(device)
         self._plane_names = tuple(p.name for p in desc.paged_planes)
+        self._state_only = not desc.has_pages
         kv_planes = [p for p in desc.paged_planes if p.kind == "kv"]
-        self.pool_dtype = kv_planes[0].torch_dtype
+        self.pool_dtype = (kv_planes[0].torch_dtype if kv_planes
+                           else torch.float32)
         # one physical page spans every layer and every plane (the block
         # table is shared by the whole stack), so a page group costs L
         # per-layer pages of HBM summed across the descriptor's planes
         self._group_bytes = desc.page_group_bytes
-        self.pool_pages = (pages if pages is not None else
-                           max(self.hbm_budget_bytes // self._group_bytes, 1))
         self.dev_planes: dict = {}
-        for p in desc.paged_planes:
-            shape = ((spec.num_layers, self.pool_pages, spec.page_tokens)
-                     + tuple(p.shape))
-            self.dev_planes[p.name] = torch.zeros(shape, dtype=p.torch_dtype,
-                                                  device=self.device)
+        if desc.has_pages:
+            self.pool_pages = (pages if pages is not None else
+                               max(self.hbm_budget_bytes // self._group_bytes,
+                                   1))
+            for p in desc.paged_planes:
+                shape = ((spec.num_layers, self.pool_pages, spec.page_tokens)
+                         + tuple(p.shape))
+                self.dev_planes[p.name] = torch.zeros(
+                    shape, dtype=p.torch_dtype, device=self.device)
+        else:
+            # state-only layout (SSM): no pages; per-seq state rows ride
+            # beside the (empty) block tables, spilled and restored whole
+            self.pool_pages = 0
+            self._state_capacity = max(
+                self.hbm_budget_bytes // max(desc.seq_state_bytes, 1), 1)
+        # seq → plane → (L, *shape) device tensor
+        self.seq_state: dict[int, dict] = {}
         self.free_pages: list[int] = list(range(self.pool_pages - 1, -1, -1))
         self.pool_lru = LRUList()                    # resident phys pages
         # refcounted page users: phys → {seq: logical}. A page may appear in
@@ -548,6 +563,10 @@ class PagedKVCache(_TieredKV):
         int32, lengths (B,) int32)`` as host numpy arrays; dead table
         entries are 0."""
         self._require_pool()
+        if self._state_only:
+            raise RuntimeError(
+                "state-only descriptor has no pages; drive steps through "
+                "state_views()/commit_state()")
         pinned = set(seqs)
         T = self.spec.page_tokens
         for seq, n in zip(seqs, n_tokens):
@@ -695,6 +714,9 @@ class PagedKVCache(_TieredKV):
     def can_admit_tokens(self, n_tokens: int) -> bool:
         if not self._pooled:
             return True
+        if self._state_only:
+            # state rows are fixed-size: admission is a row-count check
+            return len(self.seq_state) < self._state_capacity
         pages_needed = -(-n_tokens // self.spec.page_tokens)
         return (pages_needed + self._reserve_pages()
                 <= len(self.free_pages) + self._idle_index_pages())
@@ -709,7 +731,7 @@ class PagedKVCache(_TieredKV):
         whole batch while allocating. Shared pages (several live users)
         never spill, so they don't count; idle index-held pages reclaim
         for free, so they do."""
-        if not self._pooled:
+        if not self._pooled or self._state_only:
             return True
         T = self.spec.page_tokens
         batch = set(seqs)
@@ -734,6 +756,8 @@ class PagedKVCache(_TieredKV):
     def _reserve_pages(self) -> int:
         """Pages the next decode step will claim: one per active sequence
         whose next token starts a fresh page."""
+        if self._state_only:
+            return 0
         T = self.spec.page_tokens
         return sum(1 for seq, n in self.seq_len.items()
                    if seq not in self._preempted
@@ -782,7 +806,7 @@ class PagedKVCache(_TieredKV):
         """Roll back a prepared-but-uncommitted step: ``seq_len`` never
         advanced, so rewinding each row to its committed length returns
         exactly this tick's fresh allocations to the free list."""
-        if not self._pooled:
+        if not self._pooled or self._state_only:
             return
         for seq in seqs:
             if seq in self.block_table:
@@ -794,7 +818,7 @@ class PagedKVCache(_TieredKV):
 
     # ------------------------------------------------------- prefix sharing
     def supports_sharing(self) -> bool:
-        return self._pooled
+        return self._pooled and not self._state_only
 
     def set_share_index(self, index) -> None:
         self._require_pool()
@@ -893,22 +917,102 @@ class PagedKVCache(_TieredKV):
         if self._share_index is not None:
             self._share_index.on_cow(seq, phys)
 
+    # ------------------------------------------------------ per-seq state rows
+    # SSM configs pool ZERO paged planes: their cache is a fixed-size state
+    # row per sequence (descriptor seq_planes) that rides alongside the
+    # block tables — committed with the row each step, spilled/preempted/
+    # restored whole, and rolled back by committing an earlier slot's state.
+    def _require_state(self, what: str) -> None:
+        if not self._pooled or not self.desc.has_state:
+            raise RuntimeError(f"{what}() requires a pooled engine with a "
+                               f"state-bearing descriptor")
+
     def state_views(self, seqs: Sequence[int]):
-        raise NotImplementedError(
-            "per-sequence state rows (SSM) are not ported yet (ROADMAP.md, "
-            "queue 1: Families: the other dense configs, MoE and SSM)")
+        """Batched state rows for one step: one ``(L, B, *shape)`` device
+        tensor per seq plane in descriptor order (a copy: the step may do
+        as it likes with it). Sequences without committed state yet (fresh
+        admissions) read zero rows."""
+        self._require_state("state_views")
+        out = []
+        for p in self.desc.seq_planes:
+            zero = None
+            rows = []
+            for seq in seqs:
+                arr = self.seq_state.get(seq, {}).get(p.name)
+                if arr is None:
+                    if zero is None:
+                        zero = torch.zeros(
+                            (self.spec.num_layers,) + tuple(p.shape),
+                            dtype=p.torch_dtype, device=self.device)
+                    arr = zero
+                rows.append(arr)
+            out.append(torch.stack(rows, dim=1))
+        return tuple(out)
+
+    def commit_state(self, seqs: Sequence[int], n_tokens: Sequence[int],
+                     states) -> None:
+        """Commit one step's updated state rows. ``states``: one
+        ``(L, B, *shape)`` tensor per seq plane (descriptor order); row
+        ``i`` (copied out) becomes ``seqs[i]``'s new state and ``seq_len``
+        advances by ``n_tokens[i]``. Rows with ``n_tokens[i] == 0`` (batch
+        padding, fully-rejected speculative rows) commit NOTHING — their
+        stored state is untouched, the state-row form of the paged rewind
+        rule."""
+        self._require_state("commit_state")
+        live = 0
+        for i, (seq, n) in enumerate(zip(seqs, n_tokens)):
+            n = int(n)
+            if n <= 0:
+                continue
+            self._check_active(seq)
+            live += 1
+            row = self.seq_state.setdefault(seq, {})
+            for p, arr in zip(self.desc.seq_planes, states):
+                row[p.name] = arr[:, i].to(p.torch_dtype, copy=True)
+            self.seq_len[seq] = self.seq_len.get(seq, 0) + n
+            self.stats["pool_appends"] += n
+        self.clock.charge(HBM, "write", live * self.desc.seq_state_bytes)
+
+    def _spill_state_planes(self, seq: int) -> dict:
+        """Preemption blobs for a state-only sequence: the device state
+        rows come down over the link (D2H), one host tensor per seq
+        plane."""
+        blobs = {}
+        for p in self.desc.seq_planes:
+            arr = self.seq_state.get(seq, {}).get(p.name)
+            blobs[p.name] = (
+                torch.zeros((self.spec.num_layers,) + tuple(p.shape),
+                            dtype=p.torch_dtype) if arr is None
+                else arr.to("cpu", copy=True))
+        nbytes = sum(_nbytes(a) for a in blobs.values())
+        self.clock.charge(HOST_LINK, "write", nbytes, random_access=False)
+        self.stats["pool_d2h_bytes"] += nbytes
+        self._count_plane_bytes("pool_d2h_bytes", blobs)
+        return blobs
+
+    def _restore_state_planes(self, seq: int, length: int,
+                              blobs: dict) -> None:
+        self.seq_state[seq] = {n: a.to(self.device, copy=True)
+                               for n, a in blobs.items()}
+        nbytes = sum(_nbytes(a) for a in blobs.values())
+        self.clock.charge(HOST_LINK, "read", nbytes, random_access=False)
+        self.clock.charge(HBM, "write", nbytes)
+        self.stats["pool_h2d_bytes"] += nbytes
+        self._count_plane_bytes("pool_h2d_bytes", blobs)
+        self.seq_len[seq] = length
 
     # --------------------------------------------- pooled preempt / restore
     def preempt(self, seq: int) -> None:
         """Pooled preemption spills PLANE blobs (one token-exact host
-        tensor per paged plane) rather than host mode's dense
-        ``(L, 2, T, K, D)`` blob: the layout leaves the pool the same way
-        it lives in it."""
+        tensor per paged plane, or the state rows) rather than host mode's
+        dense ``(L, 2, T, K, D)`` blob: the layout leaves the pool the
+        same way it lives in it."""
         if not self._pooled:
             return super().preempt(seq)
         self._check_active(seq)
         length = self.seq_len.get(seq, 0)
-        blobs = self._spill_pooled_planes(seq)
+        blobs = (self._spill_state_planes(seq) if self._state_only
+                 else self._spill_pooled_planes(seq))
         nbytes = sum(_nbytes(a) for a in blobs.values())
         # sequential drain of the whole sequence out of the host tier and
         # onto the disk tier (one streamed copy, no random faults)
@@ -931,7 +1035,10 @@ class PagedKVCache(_TieredKV):
         self.clock.charge(SSD, "read", nbytes, random_access=False)
         self.stats["restores"] += 1
         self.stats["restore_in_bytes"] += nbytes
-        self._restore_pooled_planes(seq, length, blobs)
+        if self._state_only:
+            self._restore_state_planes(seq, length, blobs)
+        else:
+            self._restore_pooled_planes(seq, length, blobs)
 
     def _restore_pooled_planes(self, seq: int, length: int,
                                blobs: dict) -> None:
@@ -1062,7 +1169,8 @@ class PagedKVCache(_TieredKV):
         """Release ``seq``'s pages: shared pages only lose this sequence's
         refcount; a page returns to the free list when its last live user
         leaves AND the prefix index does not pin it. Spilled pages drop
-        their host copy."""
+        their host copy; state rows go with the sequence."""
+        self.seq_state.pop(seq, None)
         for logical, phys in enumerate(self.block_table.pop(seq, [])):
             if phys >= 0:
                 users = self.page_users.get(phys, {})
@@ -1183,16 +1291,22 @@ class PagedKVCache(_TieredKV):
     def hbm_used_bytes(self) -> int:
         if not self._pooled:
             return len(self.hbm_lru) * self.spec.page_bytes
+        if self._state_only:
+            return len(self.seq_state) * self.desc.seq_state_bytes
         return (self.pool_pages - len(self.free_pages)) * self._group_bytes
 
     def hbm_limit_bytes(self) -> Optional[int]:
         if not self._pooled:
             return self.hbm_capacity * self.spec.page_bytes
+        if self._state_only:
+            return self._state_capacity * self.desc.seq_state_bytes
         return self.pool_pages * self._group_bytes
 
     def pressure(self) -> float:
         if not self._pooled:
             return super().pressure()
+        if self._state_only:
+            return min(len(self.seq_state) / self._state_capacity, 1.0)
         # count the pages the NEXT decode step will claim, so the scheduler
         # preempts one tick before allocation would have to spill pages of
         # the running batch itself; pages held only by the prefix index are
@@ -1207,6 +1321,8 @@ class PagedKVCache(_TieredKV):
                     for layer in range(self.spec.num_layers)
                     if (layer, phys) in self.hbm_lru)
             return n * self.spec.page_bytes
+        if self._state_only:
+            return self.desc.seq_state_bytes if seq in self.seq_state else 0
         n = sum(1 for phys in self.block_table.get(seq, ()) if phys >= 0)
         return n * self._group_bytes
 
@@ -1215,8 +1331,9 @@ class PagedKVCache(_TieredKV):
         the most device pool pages (only sole-user pages the prefix index
         does not pin count); ties rank by the hot/cold model (least
         re-reference mass), then by LRU coldness. Host mode has no
-        opinion (the scheduler falls back to LRU)."""
-        if not self._pooled:
+        opinion (the scheduler falls back to LRU), nor has a pool of state
+        rows."""
+        if not self._pooled or self._state_only:
             return None
         cands = list(candidates)
         if not cands:

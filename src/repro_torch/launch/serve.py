@@ -21,8 +21,11 @@ the default picks the pool when the engine has one and the budget fits:
 ``--hbm-budget-bytes`` small enough to bind makes preemption visible in the
 printed stats; ``--sequential`` runs the one-at-a-time dense reference
 instead (same tokens). ``--arch deepseek-v2-236b-noexperts`` serves the
-MLA latent pool. Weights are random, drawn from ``--seed``. Runs on the GPU
-unless ``--device cpu``.
+MLA latent pool; ``--arch mamba2-1.3b`` serves Mamba-2 from per-sequence
+state rows on ``paged`` (fused over the mirror on ``log``/``kvhybrid``),
+and ``--arch zamba2-1.2b`` serves the hybrid on the unfused mirror on
+every design (no cache descriptor). Weights are random, drawn from
+``--seed``. Runs on the GPU unless ``--device cpu``.
 
 ``--prefix-cache-tokens`` turns on the prefix cache (``--shared-prefix-
 tokens`` gives every prompt the same head to hit it); ``--speculate-k``

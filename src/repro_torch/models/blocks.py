@@ -1,7 +1,7 @@
-"""Decoder block: parameters as an ``nn.Module``, math as functions.
+"""Blocks: parameters as ``nn.Module``s, math as functions.
 
-The counterparts of the decoder-block functions of the JAX package's
-``models/blocks.py``: pre-norm attention — GQA, or MLA when ``cfg.mla`` is
+The counterparts of the block functions of the JAX package's
+``models/blocks.py``. The decoder block: pre-norm attention — GQA, or MLA when ``cfg.mla`` is
 set — and an FFN, each added back through ``residual_scale``. The FFN is
 the block's ``ffn_kind``: ``"dense"`` (gated for a GLU activation, two
 matrices for plain GELU) or ``"moe"`` (routed experts,
@@ -11,6 +11,14 @@ here the block carries it. The cache-bearing functions dispatch on the
 layer's cache planes as the JAX ones do: ``cfg.mla`` means the latent
 ``(c, kr)``, four planes mean int8 ``(k, v, k_scale, v_scale)``, two mean
 dense ``(k, v)``.
+
+The Mamba-2 block (:class:`SSMBlock`: a pre-norm SSD mixer, no FFN) and
+Zamba2's shared attention block — a dense decoder block shared by several
+call sites, each folding its own LoRA (:class:`LoRA`) into ``wq``/``wk``/
+``wv`` (:func:`apply_shared_block`, :func:`decode_shared_block`).
+:func:`step_ragged_ssm_block` is the SSM block's ragged step: the
+single-token mixer scanned over the query slots, which keeps the per-slot
+states a step may commit.
 """
 from __future__ import annotations
 
@@ -18,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_ffn, ffn_matrices, rmsnorm,
                                       truncated_normal_)
 from repro_torch.models.moe import apply_moe, moe_matrices
@@ -199,3 +208,161 @@ def jax_block_arrays(np_blocks: dict, i: int, cfg, ffn_kind: str) -> dict:
             node = node[key]
         out[name] = node[i]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 block
+# ---------------------------------------------------------------------------
+class SSMBlock(nn.Module):
+    """One Mamba-2 layer's parameters: the pre-norm scale ``ln`` and the
+    SSD mixer's (:func:`~repro_torch.models.ssm.mixer_shapes`), all in
+    the compute dtype."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = frozen_param((cfg.d_model,), dtype, device, 1.0)
+        for name, shape in ssm_mod.mixer_shapes(cfg).items():
+            setattr(self, name, frozen_param(shape, dtype, device))
+
+    def init_weights(self, generator) -> None:
+        self.ln.data.fill_(1.0)
+        ssm_mod.init_mixer_(self, self.cfg, generator)
+
+
+def apply_ssm_block(p, cfg, h, initial_state=None):
+    """Full-sequence block. Returns ``(h, (conv_state, ssm_state))``."""
+    x = rmsnorm(p.ln, h, cfg.norm_eps)
+    y, state = ssm_mod.apply_ssm(p, cfg, x, initial_state)
+    return h + y, state
+
+
+def decode_ssm_block(p, cfg, h, conv_state, ssm_state):
+    """Single-token block. Returns ``(h, conv_state, ssm_state)``, the
+    states new tensors."""
+    x = rmsnorm(p.ln, h, cfg.norm_eps)
+    y, (conv_state, ssm_state) = ssm_mod.ssm_decode(p, cfg, x, conv_state,
+                                                    ssm_state)
+    return h + y, conv_state, ssm_state
+
+
+def _keep_index(keep_from, n_keep: int, qmax: int, device):
+    """The slot captures of a ragged SSM step that keeps ``n_keep`` slot
+    states a row, row ``b``'s from slot ``keep_from[b]`` (host ints): one
+    ``(2, n)`` device tensor of ``(keep index, row)`` pairs ordered by slot,
+    and each slot's ``(start, end)`` span in it."""
+    pairs, spans = [], []
+    for j in range(qmax):
+        start = len(pairs)
+        pairs += [(j - f, b) for b, f in enumerate(keep_from)
+                  if 0 <= j - f < n_keep]
+        spans.append((start, len(pairs)))
+    idx = torch.tensor(pairs, dtype=torch.long).reshape(-1, 2).T
+    return idx.to(device), spans
+
+
+def step_ragged_ssm_block(p, cfg, h, conv_state, ssm_state, q_lens,
+                          keep=None):
+    """Ragged multi-token SSM block: the single-step mixer scanned over the
+    Qmax query slots, state updates masked past ``q_lens`` so padding slots
+    leave the state as it is. h: (B, Qmax, d). Returns ``(h, conv_steps,
+    ssm_steps)``, the per-slot states the caller commits from (an earlier
+    slot is the speculative rollback).
+
+    ``keep=None`` keeps every slot, ``(Qmax, B, ...)`` as in the
+    reference. ``keep = (keep_from, n_keep)`` keeps only the slots a row
+    can commit: ``(n_keep, B, ...)``, entry ``k`` of row ``b`` the state
+    after slot ``keep_from[b] + k`` (entries no slot reaches stay 0). The
+    kept states are the full stack's entries, bit for bit."""
+    B, Qm, _ = h.shape
+    live_all = (torch.arange(Qm, device=h.device)[:, None]
+                < q_lens.to(h.device)[None, :])                 # (Qm, B)
+    if keep is None:
+        conv_keep, ssm_keep = [], []
+    else:
+        keep_from, n_keep = keep
+        idx, spans = _keep_index(keep_from, n_keep, Qm, h.device)
+        conv_keep = conv_state.new_zeros((n_keep,) + conv_state.shape)
+        ssm_keep = ssm_state.new_zeros((n_keep,) + ssm_state.shape)
+    conv, ssm = conv_state, ssm_state
+    ys = []
+    for j in range(Qm):
+        x = rmsnorm(p.ln, h[:, j:j + 1], cfg.norm_eps)
+        y, (nc, ns) = ssm_mod.ssm_decode(p, cfg, x, conv, ssm)
+        live = live_all[j]
+        conv = torch.where(live[:, None, None], nc, conv)
+        ssm = torch.where(live[:, None, None, None], ns, ssm)
+        ys.append(y[:, 0])
+        if keep is None:
+            conv_keep.append(conv)
+            ssm_keep.append(ssm)
+        elif spans[j][0] < spans[j][1]:
+            k, b = idx[:, spans[j][0]:spans[j][1]]
+            conv_keep[k, b] = conv[b]
+            ssm_keep[k, b] = ssm[b]
+    if keep is None:
+        conv_keep, ssm_keep = torch.stack(conv_keep), torch.stack(ssm_keep)
+    return h + torch.stack(ys, dim=1), conv_keep, ssm_keep
+
+
+def ssm_block_arrays(np_blocks: dict, index) -> dict:
+    """One layer of a JAX package's stacked SSM block pytree
+    (``params["blocks"]``, ``["mamba_seg"]`` or ``["mamba_tail"]``) as
+    ``{port name: numpy array}``; ``index`` picks the layer (a tuple for
+    ``mamba_seg``'s ``(segment, layer)`` axes)."""
+    out = {"ln": np_blocks["ln"]["scale"][index]}
+    for name, arr in np_blocks["mixer"].items():
+        out[name] = arr[index]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Zamba2 shared block with per-invocation LoRA
+# ---------------------------------------------------------------------------
+class LoRA(nn.Module):
+    """One call site's LoRA on the shared block's fused q/k/v projection:
+    ``a`` (d, r), ``b`` (r, (H + 2K)·D)."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        r = cfg.hybrid.lora_rank
+        qkv_out = (cfg.num_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+        self.a = frozen_param((cfg.d_model, r), dtype, device)
+        self.b = frozen_param((r, qkv_out), dtype, device, 0.0)
+
+    def init_weights(self, generator) -> None:
+        truncated_normal_(self.a, 1.0, generator)
+        self.b.data.zero_()
+
+
+class _LoraPatched:
+    """A shared block's parameters with one call site's LoRA delta folded
+    into ``wq``/``wk``/``wv``; every other name reads the shared block."""
+
+    def __init__(self, shared, wq, wk, wv):
+        self._shared = shared
+        self.wq, self.wk, self.wv = wq, wk, wv
+
+    def __getattr__(self, name):
+        return getattr(self._shared, name)
+
+
+def _lora_patched_attn(shared, lora, cfg):
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    delta = lora.a @ lora.b                                # (d, qkv_out)
+    dq, dk, dv = torch.split(delta, [H * D, K * D, K * D], dim=-1)
+    return _LoraPatched(shared, shared.wq + dq, shared.wk + dk,
+                        shared.wv + dv)
+
+
+def apply_shared_block(shared, lora, cfg, h, positions, chunk_size=512):
+    """Full-sequence shared block at one call site. Returns ``(h, (k, v))``."""
+    return apply_decoder_block(_lora_patched_attn(shared, lora, cfg), cfg, h,
+                               positions, chunk_size=chunk_size)
+
+
+def decode_shared_block(shared, lora, cfg, h, cache, positions):
+    """Single-token shared block over the call site's ``(k, v)`` cache,
+    written in place."""
+    return decode_decoder_block(_lora_patched_attn(shared, lora, cfg), cfg,
+                                h, cache, positions)

@@ -1,24 +1,34 @@
-"""Decoder-only LM for ``family="attn_dense"`` and ``family="moe"``, as an
-``nn.Module``.
+"""Decoder-only LM for the ``attn_dense``, ``moe``, ``ssm`` and
+``hybrid`` families, as an ``nn.Module``.
 
 The counterpart of the JAX package's ``LM`` for the decoder families and
-their three cache families: GQA with a native cache, GQA with an int8
-cache (``kv_cache_dtype="int8"``; a MoE config keeps its native cache, as
-in JAX), and MLA (``cfg.mla``, the latent cache). A MoE config runs
+their cache families: GQA with a native cache, GQA with an int8 cache
+(``kv_cache_dtype="int8"``; a MoE config keeps its native cache, as in
+JAX), MLA (``cfg.mla``, the latent cache), Mamba-2 (``family="ssm"``: a
+fixed-size ``conv``/``ssm`` state row per sequence, no KV) and Zamba2
+(``family="hybrid"``: Mamba-2 layers in segments of
+``shared_block_period``, each segment followed by a shared attention
+block — ``seg_idx % num_shared_blocks`` — with the segment's own LoRA,
+then a tail of the remaining Mamba-2 layers; no cache descriptor, so it
+serves on the dense mirror, unfused). A MoE config runs
 ``cfg.moe.first_k_dense`` dense-FFN blocks, then MoE blocks (the JAX
 package's ``dense_blocks`` and ``moe_blocks`` scans); layer ``i`` of the
 stack is layer ``i`` of every cache plane.
 
 * ``init(generator)`` — random weights with the reference's distributions;
-* ``prefill(tokens, max_len) -> (logits, cache)`` — dense padded cache;
+* ``prefill(tokens, max_len) -> (logits, cache)`` — dense padded cache
+  (the SSM family: its final states; the hybrid: its segment, shared-KV
+  and tail caches);
 * ``decode_step`` — one token over the dense cache (the sequential
   reference's step and the unfused dense-mirror path's batched step);
 * ``step_ragged`` — one ragged mixed batch over the dense cache (the
-  dense-mirror path's fused tick: plain torch attention, no kernel);
+  dense-mirror path's fused tick: plain torch attention, no kernel; the
+  SSM family's per-slot state scan);
 * ``decode_step_paged`` / ``step_paged_ragged`` — one token / one ragged
   mixed batch over the KV engine's device page pool, through the family's
   hand-written paged-attention kernel. The pool planes are named by the
-  cache descriptor (``pool_<plane>`` in the cache dict).
+  cache descriptor (``pool_<plane>`` in the cache dict). The SSM family
+  has no pages: its ragged step runs over the engine's state rows.
 
 Parameters are stored once in the compute dtype (the JAX package casts
 every weight on every call, which is free inside ``jit`` but would copy
@@ -45,7 +55,7 @@ class LM(nn.Module):
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
                  chunk_size: int = 512, kv_cache_dtype: str = "native"):
         super().__init__()
-        if cfg.family not in ("attn_dense", "moe"):
+        if cfg.family not in ("attn_dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
                 f"queue 1: modules to port)")
@@ -65,17 +75,36 @@ class LM(nn.Module):
         self.head = (None if cfg.tie_embeddings
                      else B.frozen_param((V, d), dtype, self.device))
         self.final_ln = B.frozen_param((d,), dtype, self.device, 1.0)
-        n_dense = (cfg.moe.first_k_dense if cfg.family == "moe"
-                   else cfg.num_layers)
-        self.blocks = nn.ModuleList(
-            B.DecoderBlock(cfg, dtype, self.device,
-                           "dense" if i < n_dense else "moe")
-            for i in range(cfg.num_layers))
+        if cfg.family in ("ssm", "hybrid"):
+            # the hybrid's Mamba-2 layers in stack order: segment 0's
+            # shared_block_period layers, segment 1's, ..., then the tail
+            self.blocks = nn.ModuleList(
+                B.SSMBlock(cfg, dtype, self.device)
+                for _ in range(cfg.num_layers))
+        else:
+            n_dense = (cfg.moe.first_k_dense if cfg.family == "moe"
+                       else cfg.num_layers)
+            self.blocks = nn.ModuleList(
+                B.DecoderBlock(cfg, dtype, self.device,
+                               "dense" if i < n_dense else "moe")
+                for i in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            hy = cfg.hybrid
+            self.n_seg = cfg.num_layers // hy.shared_block_period
+            self.seg_len = hy.shared_block_period
+            self.tail_len = cfg.num_layers - self.n_seg * self.seg_len
+            self.shared_blocks = nn.ModuleList(
+                B.DecoderBlock(cfg, dtype, self.device, "dense")
+                for _ in range(hy.num_shared_blocks))
+            self.loras = nn.ModuleList(
+                B.LoRA(cfg, dtype, self.device) for _ in range(self.n_seg))
         # the cache planes by name, fixed by the descriptor: every step
-        # reads this instead of asking the descriptor again
+        # reads this instead of asking the descriptor again (none for the
+        # hybrid, which has no descriptor)
         desc = self.cache_descriptor()
-        self.plane_names = tuple(p.name for p in desc.paged_planes)
-        self.cache_family = desc.family
+        self.plane_names = (() if desc is None
+                            else tuple(p.name for p in desc.paged_planes))
+        self.cache_family = None if desc is None else desc.family
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> "LM":
@@ -88,6 +117,11 @@ class LM(nn.Module):
         self.final_ln.data.fill_(1.0)
         for blk in self.blocks:
             blk.init_weights(generator)
+        if self.cfg.family == "hybrid":
+            for blk in self.shared_blocks:
+                blk.init_weights(generator)
+            for lora in self.loras:
+                lora.init_weights(generator)
         return self
 
     # ------------------------------------------------------------- helpers
@@ -105,9 +139,10 @@ class LM(nn.Module):
 
     def cache_descriptor(self, page_tokens: int = 16):
         """This model's cache descriptor — dense ``(k, v)`` or MLA
-        ``(c, kr)`` in the compute dtype, or int8 ``(k, v)`` with bf16
-        ``(k_scale, v_scale)`` — the plane layout the pooled serving path
-        allocates."""
+        ``(c, kr)`` in the compute dtype, int8 ``(k, v)`` with bf16
+        ``(k_scale, v_scale)``, or the SSM family's ``conv``/``ssm`` state
+        rows — the layout the pooled serving path allocates; None for the
+        hybrid (mirror only, as in JAX)."""
         return descriptor_for(self.cfg, self.kv_cache_dtype, self.dtype,
                               page_tokens)
 
@@ -115,6 +150,15 @@ class LM(nn.Module):
         return self.cache_descriptor() is not None
 
     # -------------------------------------------------------------- prefill
+    @staticmethod
+    def _pad_stack(parts, S, T):
+        """Stack per-layer ``(B, S, *shape)`` arrays into one ``(n, B, T,
+        *shape)`` array, zero past ``S``."""
+        x = parts[0].new_zeros((len(parts), parts[0].shape[0], T)
+                               + parts[0].shape[2:])
+        x[:, :, :S] = torch.stack(parts)
+        return x
+
     @torch.no_grad()
     def prefill(self, tokens, max_len: int):
         """Run the prompt ``tokens`` (B, S); return the last position's
@@ -122,27 +166,47 @@ class LM(nn.Module):
         one ``(L, B, max(max_len, S), *shape)`` array per descriptor plane,
         zero past S — ``k``/``v``; int8 ``k``/``v`` with ``k_scale``/
         ``v_scale`` (the padded cache quantized, as in JAX); or MLA
-        ``c``/``kr``."""
+        ``c``/``kr``. The SSM family returns its final states, ``conv``
+        ``(L, B, d_conv-1, conv_dim)`` and ``ssm`` ``(L, B, H, P, N)`` fp32;
+        the hybrid ``seg_conv``/``seg_ssm`` ``(n_seg, seg_len, B, ...)``,
+        ``shared_k``/``shared_v`` ``(n_seg, B, T, K, D)`` and, with a
+        tail, ``tail_conv``/``tail_ssm`` ``(tail, B, ...)``."""
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device)
         Bz, S = tokens.shape
         h = self._embed_tokens(tokens)
         positions = torch.arange(S, device=self.device).expand(Bz, S)
+        cache = {"pos": torch.full((Bz,), S, dtype=torch.int32,
+                                   device=self.device)}
+        T = max(max_len, S)
+        if cfg.family == "ssm":
+            states = [], []
+            for blk in self.blocks:
+                h, st = B.apply_ssm_block(blk, cfg, h)
+                for acc, x in zip(states, st):
+                    acc.append(x)
+            cache["conv"], cache["ssm"] = (torch.stack(a) for a in states)
+            return self._logits(h[:, -1:]), cache
+        if cfg.family == "hybrid":
+            h, cache_parts = self._run_hybrid_stack(h, positions)
+            seg, kv, tail = cache_parts
+            n, m = self.n_seg, self.seg_len
+            for name, acc in zip(("seg_conv", "seg_ssm"), seg):
+                x = torch.stack(acc)
+                cache[name] = x.reshape((n, m) + x.shape[1:])
+            cache["shared_k"], cache["shared_v"] = (
+                self._pad_stack(acc, S, T) for acc in kv)
+            if self.tail_len:
+                cache["tail_conv"], cache["tail_ssm"] = (
+                    torch.stack(acc) for acc in tail)
+            return self._logits(h[:, -1:]), cache
         parts = ([], [])
         for blk in self.blocks:
             h, kv = B.apply_decoder_block(blk, cfg, h, positions,
                                           chunk_size=self.chunk_size)
             for acc, x in zip(parts, kv):
                 acc.append(x)
-        T = max(max_len, S)
-        padded = []
-        for acc in parts:
-            x = torch.zeros((cfg.num_layers, Bz, T) + acc[0].shape[2:],
-                            dtype=acc[0].dtype, device=self.device)
-            x[:, :, :S] = torch.stack(acc)
-            padded.append(x)
-        cache = {"pos": torch.full((Bz,), S, dtype=torch.int32,
-                                   device=self.device)}
+        padded = [self._pad_stack(acc, S, T) for acc in parts]
         if cfg.mla is not None:
             cache["c"], cache["kr"] = padded
         elif self.cache_family == "int8":
@@ -152,33 +216,141 @@ class LM(nn.Module):
             cache["k"], cache["v"] = padded
         return self._logits(h[:, -1:]), cache
 
+    def _run_hybrid_stack(self, h, positions):
+        """Zamba2's full-sequence stack: ``n_seg`` × (``seg_len`` Mamba-2
+        layers, then shared block ``seg % num_shared_blocks`` with LoRA
+        ``seg``), then the tail. Returns ``h`` and the per-layer caches:
+        segment states, shared-block K/V, tail states (lists)."""
+        cfg = self.cfg
+        seg_states, kv, tail_states = ([], []), ([], []), ([], [])
+        layers = iter(self.blocks)
+        for seg in range(self.n_seg):
+            for _ in range(self.seg_len):
+                h, st = B.apply_ssm_block(next(layers), cfg, h)
+                for acc, x in zip(seg_states, st):
+                    acc.append(x)
+            shared = self.shared_blocks[seg % cfg.hybrid.num_shared_blocks]
+            h, pair = B.apply_shared_block(shared, self.loras[seg], cfg, h,
+                                           positions,
+                                           chunk_size=self.chunk_size)
+            for acc, x in zip(kv, pair):
+                acc.append(x)
+        for blk in layers:
+            h, st = B.apply_ssm_block(blk, cfg, h)
+            for acc, x in zip(tail_states, st):
+                acc.append(x)
+        return h, (seg_states, kv, tail_states)
+
     # --------------------------------------------------------- decode steps
     @torch.no_grad()
     def decode_step(self, cache, tokens, positions):
-        """One token per row over the dense cache (written in place).
-        tokens: (B, 1); positions: (B,) write/query index."""
+        """One token per row over the dense cache (KV written in place; the
+        SSM states of the ``ssm`` and ``hybrid`` families come back as new
+        tensors). tokens: (B, 1); positions: (B,) write/query index."""
+        cfg = self.cfg
         h = self._embed_tokens(tokens)
         positions = positions.to(self.device, torch.long)
-        names = self.plane_names
-        for i, blk in enumerate(self.blocks):
-            h, _ = B.decode_decoder_block(
-                blk, self.cfg, h, tuple(cache[n][i] for n in names),
-                positions)
         new_cache = dict(cache)
         new_cache["pos"] = (positions + 1).to(torch.int32)
+        if cfg.family == "ssm":
+            h, new_cache["conv"], new_cache["ssm"] = self._decode_ssm_layers(
+                self.blocks, h, cache["conv"], cache["ssm"])
+        elif cfg.family == "hybrid":
+            h = self._decode_hybrid(h, cache, new_cache, positions)
+        else:
+            names = self.plane_names
+            for i, blk in enumerate(self.blocks):
+                h, _ = B.decode_decoder_block(
+                    blk, cfg, h, tuple(cache[n][i] for n in names),
+                    positions)
         return self._logits(h), new_cache
 
+    def _decode_ssm_layers(self, blocks, h, conv, ssm):
+        """Single-token SSM blocks over per-layer states ``conv[i]``/
+        ``ssm[i]``; returns ``h`` and the stacked new states."""
+        new = [], []
+        for i, blk in enumerate(blocks):
+            h, nc, ns = B.decode_ssm_block(blk, self.cfg, h, conv[i], ssm[i])
+            new[0].append(nc)
+            new[1].append(ns)
+        return h, torch.stack(new[0]), torch.stack(new[1])
+
+    def _decode_hybrid(self, h, cache, new_cache, positions):
+        """Zamba2's single-token stack: each segment's Mamba-2 layers, then
+        its shared block over ``shared_k[seg]``/``shared_v[seg]`` (written
+        in place), then the tail. Fills ``new_cache``; returns ``h``."""
+        cfg = self.cfg
+        n, m = self.n_seg, self.seg_len
+        convs, ssms = [], []
+        for seg in range(n):
+            h, nc, ns = self._decode_ssm_layers(
+                self.blocks[seg * m:(seg + 1) * m], h, cache["seg_conv"][seg],
+                cache["seg_ssm"][seg])
+            convs.append(nc)
+            ssms.append(ns)
+            shared = self.shared_blocks[seg % cfg.hybrid.num_shared_blocks]
+            h, _ = B.decode_shared_block(
+                shared, self.loras[seg], cfg, h,
+                (cache["shared_k"][seg], cache["shared_v"][seg]), positions)
+        new_cache["seg_conv"] = torch.stack(convs)
+        new_cache["seg_ssm"] = torch.stack(ssms)
+        if self.tail_len:
+            h, new_cache["tail_conv"], new_cache["tail_ssm"] = \
+                self._decode_ssm_layers(self.blocks[n * m:], h,
+                                        cache["tail_conv"], cache["tail_ssm"])
+        return h
+
+    def _step_ragged_ssm(self, cache, tokens, ctx_lens, q_lens, keep):
+        """Ragged multi-token SSM step: each layer scans its single-step
+        mixer over the Qmax slots (state updates masked past ``q_lens``)
+        and emits per-slot states ``conv_steps``/``ssm_steps`` shaped
+        ``(L, Qmax, B, ...)`` — slot ``i`` the state after token ``i`` —
+        or, with ``keep = (keep_from, n_keep)``, only the slots a row can
+        commit, ``(L, n_keep, B, ...)`` (see
+        :func:`~repro_torch.models.blocks.step_ragged_ssm_block`). The
+        serving engine commits each row's committed slot (an earlier slot
+        is the speculative rollback); ``cache["conv"]``/``cache["ssm"]``
+        stay the step's input states."""
+        h = self._embed_tokens(tokens)
+        conv_steps, ssm_steps = [], []
+        for i, blk in enumerate(self.blocks):
+            h, cs, ss = B.step_ragged_ssm_block(
+                blk, self.cfg, h, cache["conv"][i], cache["ssm"][i], q_lens,
+                keep)
+            conv_steps.append(cs)
+            ssm_steps.append(ss)
+        new_cache = dict(cache)
+        new_cache["pos"] = (ctx_lens + q_lens).to(torch.int32)
+        new_cache["conv_steps"] = torch.stack(conv_steps)
+        new_cache["ssm_steps"] = torch.stack(ssm_steps)
+        return self._logits(h), new_cache
+
+    def _ragged_desc(self, what: str):
+        desc = self.cache_descriptor()
+        if desc is None:
+            raise ValueError(
+                f"no cache descriptor for family={self.cfg.family!r} "
+                f"kv_cache_dtype={self.kv_cache_dtype!r}; {what} needs a "
+                f"pooled layout")
+        return desc
+
     @torch.no_grad()
-    def step_ragged(self, cache, tokens, ctx_lens, q_lens):
+    def step_ragged(self, cache, tokens, ctx_lens, q_lens, keep=None):
         """One fused mixed-batch step over the dense padded cache planes
         (``(L, B, T, *shape)`` in descriptor order, written in place).
         tokens: (B, Qmax) — row ``b``'s ``q_lens[b]`` new tokens at
         positions ``ctx_lens[b] + i`` (0 marks padding rows). Returns
         logits for every slot (B, Qmax, V) and the cache with
         ``pos = ctx_lens + q_lens``. With every ``q_len == 1`` this is
-        :meth:`decode_step` op for op."""
+        :meth:`decode_step` op for op. The SSM family runs the per-slot
+        state scan over ``cache["conv"]``/``cache["ssm"]`` (``keep``:
+        see :meth:`_step_ragged_ssm`)."""
+        desc = self._ragged_desc("ragged step")
         ctx_lens = ctx_lens.to(self.device, torch.long)
         q_lens = q_lens.to(self.device, torch.long)
+        if not desc.has_pages:
+            return self._step_ragged_ssm(cache, tokens, ctx_lens, q_lens,
+                                         keep)
         h = self._embed_tokens(tokens)
         names = self.plane_names
         for i, blk in enumerate(self.blocks):
@@ -216,15 +388,21 @@ class LM(nn.Module):
         return self._logits(h), new_cache
 
     @torch.no_grad()
-    def step_paged_ragged(self, cache, tokens, ctx_lens, q_lens):
+    def step_paged_ragged(self, cache, tokens, ctx_lens, q_lens, keep=None):
         """One fused mixed-batch step over the device page pool. tokens:
         (B, Qmax) — row ``b``'s ``q_lens[b]`` new tokens (0 marks padding
         rows); ctx_lens: (B,) tokens already pooled. Returns logits for
         every slot (B, Qmax, V) — callers read slot ``q_lens[b] - 1`` —
-        and the cache with ``pos = ctx_lens + q_lens``."""
-        cfg, table = self.cfg, cache["block_table"]
+        and the cache with ``pos = ctx_lens + q_lens``. The SSM family has
+        no pages: its cache is the engine's ``conv``/``ssm`` state rows
+        (``(L, B, ...)``) and the step is :meth:`_step_ragged_ssm`."""
+        desc = self._ragged_desc("ragged paged step")
         ctx_lens = ctx_lens.to(self.device, torch.long)
         q_lens = q_lens.to(self.device, torch.long)
+        if not desc.has_pages:
+            return self._step_ragged_ssm(cache, tokens, ctx_lens, q_lens,
+                                         keep)
+        cfg, table = self.cfg, cache["block_table"]
         h, pools = self._paged_layers(
             cache, self._embed_tokens(tokens),
             lambda blk, hh, planes: B.step_paged_ragged_block(
@@ -238,24 +416,48 @@ def params_from_jax(np_params: dict, cfg) -> dict:
     """A state dict for :class:`LM` from the JAX package's ``LM.init``
     pytree as numpy arrays (``jax.tree.map(np.asarray, params)``). The
     stacked ``params["blocks"]`` (leading L axis) — for a MoE config
-    ``params["dense_blocks"]`` then ``params["moe_blocks"]`` — split into
-    the ``ModuleList``; matrices keep the ``(d_in, d_out)`` layout (the
-    experts their stacked ``(E, d_in, d_out)``). A tied config has no
+    ``params["dense_blocks"]`` then ``params["moe_blocks"]``; for the
+    hybrid ``params["mamba_seg"]`` (leading ``(n_seg, seg_len)``) then
+    ``params["mamba_tail"]``, with ``shared_blocks`` and ``loras`` — split
+    into the ``ModuleList``s; matrices keep the ``(d_in, d_out)`` layout
+    (the experts their stacked ``(E, d_in, d_out)``). A tied config has no
     ``head``."""
     sd = {"embed": np_params["embed"]["table"],
           "final_ln": np_params["final_ln"]["scale"]}
     if not cfg.tie_embeddings:
         sd["head"] = np_params["head"]["table"]
-    if cfg.family == "moe":
-        n_dense = cfg.moe.first_k_dense
-        layers = [("dense_blocks", i, "dense") for i in range(n_dense)]
-        layers += [("moe_blocks", i, "moe")
-                   for i in range(cfg.num_layers - n_dense)]
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.family == "ssm":
+            layers = [("blocks", i) for i in range(cfg.num_layers)]
+        else:
+            hy = cfg.hybrid
+            n_seg = cfg.num_layers // hy.shared_block_period
+            layers = [("mamba_seg", (s, i)) for s in range(n_seg)
+                      for i in range(hy.shared_block_period)]
+            layers += [("mamba_tail", i)
+                       for i in range(cfg.num_layers - len(layers))]
+            for j in range(hy.num_shared_blocks):
+                for name, arr in B.jax_block_arrays(
+                        np_params["shared_blocks"], j, cfg, "dense").items():
+                    sd[f"shared_blocks.{j}.{name}"] = arr
+            for s in range(n_seg):
+                for name in ("a", "b"):
+                    sd[f"loras.{s}.{name}"] = np_params["loras"][name][s]
+        for j, (stack, index) in enumerate(layers):
+            for name, arr in B.ssm_block_arrays(np_params[stack],
+                                                index).items():
+                sd[f"blocks.{j}.{name}"] = arr
     else:
-        layers = [("blocks", i, "dense") for i in range(cfg.num_layers)]
-    for j, (stack, i, kind) in enumerate(layers):
-        for name, arr in B.jax_block_arrays(np_params[stack], i, cfg,
-                                            kind).items():
-            sd[f"blocks.{j}.{name}"] = arr
+        if cfg.family == "moe":
+            n_dense = cfg.moe.first_k_dense
+            layers = [("dense_blocks", i, "dense") for i in range(n_dense)]
+            layers += [("moe_blocks", i, "moe")
+                       for i in range(cfg.num_layers - n_dense)]
+        else:
+            layers = [("blocks", i, "dense") for i in range(cfg.num_layers)]
+        for j, (stack, i, kind) in enumerate(layers):
+            for name, arr in B.jax_block_arrays(np_params[stack], i, cfg,
+                                                kind).items():
+                sd[f"blocks.{j}.{name}"] = arr
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in sd.items()}

@@ -2,8 +2,15 @@
 
 The counterparts of the JAX package's ``serving/batching.py`` helpers.
 Per-sequence caches are *rows* whose arrays keep their batch dimension at
-size 1: ``pos`` (B,) on axis 0, every cache plane (``k``/``v``, the int8
-scales, MLA's ``c``/``kr``) ``(L, B, T, *shape)`` on axis 1.
+size 1. The batch axis differs per cache key:
+
+* ``pos`` — ``(B,)``: axis 0;
+* ``seg_conv``/``seg_ssm`` (the Zamba2 hybrid) — ``(n_seg, seg_len, B,
+  ...)``, and ``conv_steps``/``ssm_steps`` (the ragged SSM step's
+  per-slot states, ``(L, slots, B, ...)``): axis 2;
+* every other plane (``k``/``v``, the int8 scales, MLA's ``c``/``kr``,
+  SSM ``conv``/``ssm``, the hybrid's ``shared_k``/``shared_v`` and
+  ``tail_*``) — ``(L, B, ...)``: axis 1.
 
 On the dense-mirror path a row holds its whole padded cache on the
 device: :func:`concat_rows` copies rows into one batch for a step (so a
@@ -19,7 +26,8 @@ from __future__ import annotations
 
 import torch
 
-_SPECIAL_BATCH_AXIS = {"pos": 0}
+_SPECIAL_BATCH_AXIS = {"pos": 0, "seg_conv": 2, "seg_ssm": 2,
+                       "conv_steps": 2, "ssm_steps": 2}
 
 
 def batch_axis(key: str) -> int:

@@ -12,7 +12,10 @@ is built from the :class:`EngineSpec` in :class:`ServeConfig`. Two paths:
   whose attention is the model family's hand-written ragged kernel
   (dense, int8 or MLA paged attention) over the pool, through the block
   table. No KV byte crosses the device→host link: ``mirror_d2h_bytes``
-  stays 0.
+  stays 0. The SSM family (Mamba-2) pools no pages: the engine holds one
+  fixed-size state row per sequence beside the block tables, and the tick
+  reads the batch's rows, runs the ragged state scan and commits each
+  row's committed slot (:meth:`ServingEngine._step_state_batch`).
 * **Dense mirror** (``log``, ``kvhybrid``, or ``paged_decode=False``): the
   model's working KV stays in dense per-request cache rows on the device,
   and every tick is one ragged forward over them (``LM.step_ragged``,
@@ -22,7 +25,11 @@ is built from the :class:`EngineSpec` in :class:`ServeConfig`. Two paths:
   (under ``kvhybrid`` a large write, routed to pages), decode tokens one
   per row (small writes, the log) — so rows can be preempted to disk and
   restored. ``mirror_d2h_bytes`` counts those bytes exactly. An MLA row
-  has no ``k``/``v`` and mirrors nothing, as in the reference.
+  has no ``k``/``v`` and mirrors nothing, as in the reference; nor does an
+  SSM row (its state rides in the row) or a Zamba2 hybrid row, whose
+  shared-attention KV stays in the row's ``shared_k``/``shared_v``. The
+  hybrid has no cache descriptor, so it runs this path unfused on every
+  engine, as in the reference.
 
 ``ServeConfig.paged_decode`` picks the path: None = pooled when the
 engine has a pool and the budget fits, True = require it (``ValueError``
@@ -168,26 +175,38 @@ class ServingEngine:
                           "step_cache_hits": 0}
         self._step_shapes: set = set()
         self.max_pages = -(-cfg.max_len // cfg.page_tokens)
-        # liveness floor: the pool must hold one max-length sequence plus
-        # a reserve page, or a lone running sequence could exhaust it
-        budget_pages = spec_cfg.kv_hbm_bytes // self.desc.page_group_bytes
-        pool_ok = self.tiered.supports_pool()
-        pool_fits = budget_pages >= self.max_pages + 1
+        budget = spec_cfg.kv_hbm_bytes
+        if self.desc is None:
+            pool_fits, budget_pages = False, 0
+        elif self.desc.has_pages:
+            # liveness floor: the pool must hold one max-length sequence
+            # plus a reserve page, or a lone running sequence could
+            # exhaust it with nothing left to preempt
+            budget_pages = budget // self.desc.page_group_bytes
+            pool_fits = budget_pages >= self.max_pages + 1
+        else:
+            # state-row family (SSM): fixed-size rows, need one running row
+            # plus one restore in flight
+            budget_pages = budget // max(self.desc.seq_state_bytes, 1)
+            pool_fits = budget_pages >= 2
+        pool_ok = self.tiered.supports_pool() and self.desc is not None
         if cfg.paged_decode and not (pool_ok and pool_fits):
             raise ValueError(
-                f"paged_decode=True needs a pool-capable KV engine and an "
-                f"HBM budget of at least {self.max_pages + 1} pool pages; "
-                f"got engine={self.tiered.engine_name!r} (supports_pool="
-                f"{pool_ok}), budget_pages={budget_pages}")
+                f"paged_decode=True needs a pool-capable KV engine, a model "
+                f"family with a cache descriptor, and an HBM budget of at "
+                f"least {self.max_pages + 1} pool pages; got engine="
+                f"{self.tiered.engine_name!r} (supports_pool="
+                f"{self.tiered.supports_pool()}), family="
+                f"{mcfg.family!r}, budget_pages={budget_pages}")
         self.pooled = (pool_ok and pool_fits) if cfg.paged_decode is None \
             else bool(cfg.paged_decode)
         # host-facing mirror appends are dense-layout: an int8 or MLA pool
-        # cannot absorb them, so the sequential reference counts its
-        # mirror bytes but skips the tiered append (generate() never
-        # mirrors when pooled)
+        # (or SSM state rows) cannot absorb them, so the sequential
+        # reference counts its mirror bytes but skips the tiered append
+        # (generate() never mirrors when pooled)
         self._mirror_appends_ok = True
         if self.pooled:
-            if cfg.max_len % cfg.page_tokens:
+            if self.desc.has_pages and cfg.max_len % cfg.page_tokens:
                 raise ValueError(
                     f"pooled decode needs max_len ({cfg.max_len}) to be a "
                     f"multiple of page_tokens ({cfg.page_tokens})")
@@ -212,7 +231,8 @@ class ServingEngine:
         # pool pages; a cache-hit admission splices the block table instead
         # of prefilling. Pooled path only: the mirror keeps sharing off
         self.prefix_cache = None
-        if self.pooled and spec_cfg.prefix_cache_tokens > 0:
+        if self.pooled and spec_cfg.prefix_cache_tokens > 0 \
+                and self.desc.has_pages:
             self.prefix_cache = PrefixCache(
                 self.tiered, capacity_tokens=spec_cfg.prefix_cache_tokens)
 
@@ -340,8 +360,13 @@ class ServingEngine:
     def _pool_admit(self, rid: int, cache, n: int) -> dict:
         """Move a fresh prompt's prefilled cache into the engine-owned pool
         (one on-device scatter — zero device→host bytes) and shrink the
-        row's cache to its position vector."""
+        row's cache to its position vector. The state-row family (SSM)
+        commits the prompt-final state rows instead."""
         if n == 0:
+            return {"pos": cache["pos"]}
+        if not self.desc.has_pages:
+            self.tiered.commit_state(
+                [rid], [n], tuple(cache[p.name] for p in self.desc.seq_planes))
             return {"pos": cache["pos"]}
         phys = self.tiered.alloc_prefill(rid, n)
         pools = batching.scatter_prefill_planes(
@@ -470,6 +495,9 @@ class ServingEngine:
         if not self.pooled:
             return self._mirror_step_batch(rids, caches, tok_rows, tokens,
                                            qarr, q_lens, spec, mirrored)
+        if not self.desc.has_pages:
+            return self._step_state_batch(rids, caches, tok_rows, tokens,
+                                          qarr, q_lens, spec)
         names = [p.name for p in self.desc.paged_planes]
         # any exception between prepare_step and commit_step must rewind
         # the pages prepare_step allocated for this tick, or they leak
@@ -508,24 +536,105 @@ class ServingEngine:
         logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
         return logit_rows, new_rows, committed
 
+    @staticmethod
+    def _keep_slots(q_lens, spec, Bb: int, Qb: int):
+        """The per-slot states a ragged SSM step keeps: a row commits slot
+        ``q_len - 1`` without drafts, and one of its last ``1 + drafts``
+        slots with them, so ``1 + max(drafts)`` slots a row suffice (the
+        full stack would hold Qmax). Returns ``(keep_from, n_keep)``;
+        padding rows keep none."""
+        keep_from = [max(q - 1 - s, 0) for q, s in zip(q_lens, spec)]
+        return keep_from + [Qb] * (Bb - len(q_lens)), 1 + max(spec)
+
+    def _step_state_batch(self, rids, caches, tok_rows, tokens, qarr,
+                          q_lens, spec):
+        """:meth:`step_batch` for the state-row (SSM) family: the engine
+        holds per-sequence state rows instead of pages, so the tick reads
+        them back as a batch, runs the ragged state scan (keeping only the
+        slots a row can commit) and commits each row's committed slot —
+        committing an earlier slot IS the speculative rollback, and a
+        padding row commits nothing. Zero device→host bytes, as on the
+        paged pool."""
+        B = len(rids)
+        Bb, Qb = tokens.shape
+        ctx = torch.cat([c["pos"] for c in caches]).cpu().numpy()
+        eng_len = [int(self.tiered.seq_len.get(r, 0)) for r in rids]
+        if eng_len != [int(c) for c in ctx]:
+            raise RuntimeError(
+                f"state-row drift: engine lengths {eng_len} != model "
+                f"positions {ctx.tolist()}")
+        ctx_p = np.zeros(Bb, np.int32)
+        ctx_p[:B] = ctx
+        # bucket-ladder padding rows replicate row 0's state: they carry
+        # q_len = 0, so their outputs are discarded and nothing commits
+        views = self.tiered.state_views(list(rids) + [rids[0]] * (Bb - B))
+        cache = {p.name: v for p, v in zip(self.desc.seq_planes, views)}
+        keep_from, n_keep = self._keep_slots(q_lens, spec, Bb, Qb)
+        self._count_step("pool", Bb, Qb)
+        logits, out = self.model.step_paged_ragged(
+            cache, torch.from_numpy(tokens).to(self.device),
+            torch.from_numpy(ctx_p).to(self.device),
+            torch.from_numpy(qarr).to(self.device), keep=(keep_from, n_keep))
+        committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
+        states = []
+        for j, p in enumerate(self.desc.seq_planes):
+            steps = out[p.name + "_steps"]       # (L, n_keep, Bb, ...)
+            states.append(torch.stack(
+                [steps[:, committed[i] - 1 - keep_from[i], i]
+                 if committed[i] > 0 else views[j][:, i] for i in range(B)],
+                dim=1))
+        self.tiered.commit_state(rids, committed, tuple(states))
+        new_rows = [{"pos": torch.tensor([int(ctx[i]) + committed[i]],
+                                         dtype=torch.int32,
+                                         device=self.device)}
+                    for i in range(B)]
+        logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
+        return logit_rows, new_rows, committed
+
+    @staticmethod
+    def _select_state_slots(batch: dict, committed: list, B: int,
+                            keep_from: list) -> dict:
+        """Mirror-path twin of the state commit: fold the ragged SSM step's
+        kept per-slot states (``<plane>_steps``, ``(L, n_keep, Bb, ...)``)
+        down to each row's committed slot before the batch splits back
+        into rows. Rows with ``committed == 0`` keep the step's INPUT
+        state; the ``_steps`` stacks never leave this method."""
+        step_keys = [k for k in batch if k.endswith("_steps")]
+        if not step_keys:
+            return batch
+        out = {k: v for k, v in batch.items() if k not in step_keys}
+        for key in step_keys:
+            name = key[:-len("_steps")]
+            steps = batch[key]
+            out[name] = torch.stack(
+                [steps[:, committed[i] - 1 - keep_from[i], i]
+                 if i < B and committed[i] > 0 else batch[name][:, i]
+                 for i in range(steps.shape[2])], dim=1)
+        return out
+
     def _mirror_step_batch(self, rids, caches, tok_rows, tokens, qarr,
                            q_lens, spec, mirrored):
         """:meth:`step_batch` on the dense mirror: the rows concatenate
         (padding rows are copies of row 0 that write nothing), one
-        ``step_ragged`` runs over them, the new tokens are mirrored, and
-        the batch splits back into rows (views of the step's batch)."""
+        ``step_ragged`` runs over them, the new tokens are mirrored, an
+        SSM row's committed slot state is selected, and the batch splits
+        back into rows (views of the step's batch)."""
         B = len(rids)
-        Bb = tokens.shape[0]
+        Bb, Qb = tokens.shape
         batch = batching.concat_rows(caches + [caches[0]] * (Bb - B))
         ctx = batch["pos"]
-        self._count_step("mirror", Bb, tokens.shape[1])
+        keep = (self._keep_slots(q_lens, spec, Bb, Qb)
+                if self.desc.has_state else None)
+        self._count_step("mirror", Bb, Qb)
         logits, nbatch = self.model.step_ragged(
             batch, torch.from_numpy(tokens).to(self.device), ctx,
-            torch.from_numpy(qarr).to(self.device))
+            torch.from_numpy(qarr).to(self.device), keep=keep)
         committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
         if mirrored:
-            self._mirror_step_ragged(rids, nbatch, ctx, q_lens,
-                                     tokens.shape[1], committed)
+            self._mirror_step_ragged(rids, nbatch, ctx, q_lens, Qb,
+                                     committed)
+        if keep is not None:
+            nbatch = self._select_state_slots(nbatch, committed, B, keep[0])
         new_rows = [batching.split_row(nbatch, i) for i in range(B)]
         rewind = [i for i in range(B) if committed[i] != q_lens[i]]
         ctx_np = ctx.cpu().numpy() if rewind else None
@@ -548,6 +657,23 @@ class ServingEngine:
         row's dense cache with the chunk's KV mirrored as ONE batched
         append. Returns (logits, cache) positioned after the chunk."""
         logits = None
+        if self.pooled and not self.desc.has_pages:
+            # state-row family: check the rows out of the engine, run the
+            # chunk through the decode step at batch=1, commit the final
+            # state
+            views = self.tiered.state_views([rid])
+            pc = {"pos": cache["pos"]}
+            for p, v in zip(self.desc.seq_planes, views):
+                pc[p.name] = v
+            for t in toks:
+                self._count_step("pool-chunk1", 1, 1)
+                logits, pc = self.model.decode_step(
+                    pc, torch.tensor([[int(t)]], device=self.device),
+                    pc["pos"])
+            self.tiered.commit_state(
+                [rid], [len(toks)],
+                tuple(pc[p.name] for p in self.desc.seq_planes))
+            return logits, {"pos": pc["pos"]}
         if not self.pooled:
             for t in toks:
                 self._count_step("mirror-chunk1", 1, 1)

@@ -1008,3 +1008,112 @@ def test_moe_block_is_deterministic_on_card(cuda_device, arch, dtype):
     y2, aux2 = apply_moe(blk, cfg, x)
     assert torch.equal(y1, y2) and torch.equal(aux1, aux2)
     assert bool(torch.isfinite(y1).all())
+
+
+# ------------------------------------------- state-space families (SSM)
+def _card_and_cpu_models(arch, **cut):
+    """The same random weights on the CPU and on the card (fp32)."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    card = LM(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    return cfg, cpu, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b-smoke", "zamba2-1.2b-smoke"])
+def test_ssm_steps_on_card_match_cpu(cuda_device, arch):
+    """Smoke-width Mamba-2 and Zamba2 (fp32) on the card against the same
+    weights on the CPU: prefill logits and every cache key, a decode step,
+    and (Mamba-2) the ragged state scan's per-slot states, within fp32
+    tolerance. No kernel runs on these paths."""
+    cfg, cpu, card = _card_and_cpu_models(arch)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 50)))
+    kernels.reset_launch_counts()
+    got = card.prefill(toks.to(cuda_device), 64)
+    want = cpu.prefill(toks, 64)
+    nxt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 1)))
+    got2 = card.decode_step(got[1], nxt.to(cuda_device), got[1]["pos"])
+    want2 = cpu.decode_step(want[1], nxt, want[1]["pos"])
+    atol, rtol = _TOL[torch.float32]
+    for (gl, gc), (wl, wc) in ((got, want), (got2, want2)):
+        torch.testing.assert_close(gl.cpu(), wl, atol=atol, rtol=rtol)
+        assert set(gc) == set(wc)
+        for key in wc:
+            torch.testing.assert_close(gc[key].cpu(), wc[key], atol=atol,
+                                       rtol=rtol)
+    if cfg.family == "ssm":
+        tk = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4)))
+        ql, ctx = torch.tensor([4, 2]), want[1]["pos"]
+        gl, gc = card.step_ragged(got[1], tk.to(cuda_device),
+                                  ctx.to(cuda_device), ql.to(cuda_device))
+        wl, wc = cpu.step_ragged(want[1], tk, ctx, ql)
+        torch.testing.assert_close(gl.cpu(), wl, atol=atol, rtol=rtol)
+        for key in ("conv_steps", "ssm_steps"):
+            torch.testing.assert_close(gc[key].cpu(), wc[key], atol=atol,
+                                       rtol=rtol)
+    assert sum(e.launches for e in kernels.ENTRIES) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,engine,k", [
+    ("mamba2-1.3b-smoke", "paged", 0), ("mamba2-1.3b-smoke", "paged", 2),
+    ("mamba2-1.3b-smoke", "log", 2), ("zamba2-1.2b-smoke", "log", 0),
+    ("zamba2-1.2b-smoke", "paged", 0)])
+def test_ssm_serving_on_card_matches_sequential(cuda_device, arch, engine,
+                                                k):
+    """Smoke-width Mamba-2 (pooled state rows on ``paged``, the fused
+    mirror on ``log``, with and without speculation) and Zamba2 (the
+    unfused mirror) serving on the card, fp32: token-identical to the
+    sequential reference, mirror-free."""
+    from repro_torch.core.engines import EngineSpec
+    cfg = get_config(arch)
+    model = LM(cfg, device=cuda_device).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (8, 12, 8)]
+
+    def run(method, **kw):
+        reqs = [Request(rid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        eng = ServingEngine(model, ServeConfig(
+            max_len=32, page_tokens=8,
+            engine_spec=EngineSpec(engine=engine), **kw), device=cuda_device)
+        getattr(eng, method)(reqs)
+        return [r.generated for r in reqs], eng
+
+    ref, _ = run("generate_sequential")
+    got, eng = run("generate", prefill_chunk_tokens=5, speculate_k=k)
+    assert got == ref and eng.stats()["mirror_d2h_bytes"] == 0
+    assert eng.pooled == (cfg.family == "ssm" and engine == "paged")
+    assert eng.fused == (cfg.family == "ssm")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1100, 600])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_zamba2_shared_attention_shape(cuda_device, dtype,
+                                                       S):
+    """#9 at Zamba2's shared-attention heads (H = K = 32, D = 64, MHA),
+    causal, against its plain version (a bf16 output also against the
+    plain fp32 version, to half an ulp)."""
+    H, K, D = chip_smoke.ZAMBA2_FLASH
+    rng = np.random.default_rng(S)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((1, S, H, D), (1, S, K, D), (1, S, K, D)))
+    before = kernels.flash_attention.launches
+    out = kernels.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), flash_attention_ref(q, k, v, causal=True).float(),
+        atol=atol, rtol=rtol)
+    ref32 = flash_attention_ref(q.float(), k.float(), v.float(), causal=True)
+    atol, rtol = _TOL_BF16_VS_FP32 if dtype == torch.bfloat16 \
+        else _TOL[torch.float32]
+    torch.testing.assert_close(out.float(), ref32, atol=atol, rtol=rtol)

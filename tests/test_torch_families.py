@@ -58,8 +58,7 @@ FAMILIES = {
 
 
 # ------------------------------------------------------- descriptors, config
-# (port config, JAX config) of each config family (stand-ins for the
-# families still to be ported)
+# (port config, JAX config) of each config family
 def _family_configs():
     dense = get_config("internlm2-1.8b-smoke")
     mla = get_config(MLA_ARCH)
@@ -72,9 +71,9 @@ def _family_configs():
                     jax_get_config("deepseek-v2-236b-smoke")),
         "moe": (get_config("arctic-480b-smoke"),
                 jax_get_config("arctic-480b-smoke")),
-        "ssm": (dataclasses.replace(dense, family="ssm"),
+        "ssm": (get_config("mamba2-1.3b-smoke"),
                 jax_get_config("mamba2-1.3b-smoke")),
-        "hybrid": (dataclasses.replace(dense, family="hybrid"),
+        "hybrid": (get_config("zamba2-1.2b-smoke"),
                    jax_get_config("zamba2-1.2b-smoke")),
     }
 
@@ -84,16 +83,22 @@ def _family_configs():
                                  "hybrid"])
 def test_descriptor_family_matches_jax(fam, kd):
     """The port picks the JAX family (int8 only for non-MoE, non-MLA
-    attention), or raises NotImplementedError for a family still to be
-    ported (SSM)."""
+    attention; SSM state rows whatever the KV dtype; no descriptor for
+    the hybrid)."""
     cfg, jcfg = _family_configs()[fam]
     jdesc = jax_descriptor_for(jcfg, kd)
-    if fam == "ssm":
-        assert jdesc.family == "ssm"
-        with pytest.raises(NotImplementedError):
-            descriptor_for(cfg, kd)
-        return
     desc = descriptor_for(cfg, kd)
+    if fam == "ssm":
+        # the JAX planes: conv in the compute dtype, ssm in float32, both
+        # state rows; no pages and no kernel
+        assert desc.family == jdesc.family == "ssm"
+        assert desc.kernel == jdesc.kernel == "none"
+        assert not desc.has_pages and desc.has_state
+        assert [(p.name, p.shape, p.dtype, p.kind)
+                for p in desc.seq_planes] == \
+            [(p.name, p.shape, p.dtype, p.kind) for p in jdesc.seq_planes]
+        assert desc.seq_state_bytes == jdesc.seq_state_bytes
+        return
     if jdesc is None:
         assert desc is None
         return

@@ -1,6 +1,7 @@
 """The port stands alone: serving through it — dense, int8 and MLA cache
-families, the MoE configs (DeepSeek-V2 with its experts, Arctic) and an
-ungated FFN (StarCoder2), with speculative decode, a prefix cache, a
+families, the MoE configs (DeepSeek-V2 with its experts, Arctic), an
+ungated FFN (StarCoder2) and the state-space families (Mamba-2 on its
+state rows, the Zamba2 hybrid), with speculative decode, a prefix cache, a
 token journal and a fault plan (a crash, then recovery), a dense prompt
 longer than
 ``chunk_size`` (the flash-attention prefill), and the dense mirror through
@@ -81,6 +82,24 @@ _SCRIPT = textwrap.dedent("""
                 device="cpu")
             eng.generate(reqs)
             assert not eng.pooled and eng.stats()["mirror_d2h_bytes"] > 0
+            assert all(len(r.generated) == 3 for r in reqs)
+
+    # the state-space families: Mamba-2 on pooled state rows (and the
+    # fused mirror), Zamba2 on the unfused mirror
+    for arch in ("mamba2-1.3b-smoke", "zamba2-1.2b-smoke"):
+        model = LM(get_config(arch), device="cpu").init(
+            torch.Generator().manual_seed(0))
+        for name in ("paged", "log"):
+            reqs = [Request(rid=i, prompt=prompt, max_new=3)
+                    for i in range(2)]
+            eng = ServingEngine(model, ServeConfig(
+                max_len=16, page_tokens=4, prefill_chunk_tokens=4,
+                engine_spec=EngineSpec(engine=name, drain_shards=2)),
+                device="cpu")
+            eng.generate(reqs)
+            assert eng.pooled == (arch.startswith("mamba") and
+                                  name == "paged")
+            assert eng.stats()["mirror_d2h_bytes"] == 0
             assert all(len(r.generated) == 3 for r in reqs)
 
     # a prompt past chunk_size: prefill through flash_attention

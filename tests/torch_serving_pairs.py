@@ -12,7 +12,9 @@ Cache families, each on its smoke config with the JAX ``LM.init`` weights
 carried across (fp32): ``dense`` (``internlm2-1.8b-smoke``), ``int8`` (the
 same with an int8 KV pool) and ``mla`` (DeepSeek-V2 without experts).
 :func:`arch_models` and :func:`serve_arch` do the same for any registered
-``-smoke`` config, a MoE one at any capacity factor.
+``-smoke`` config, a MoE one at any capacity factor; :func:`hybrid_models`
+for a Zamba2 cut to show its structure (two segments, both shared blocks,
+a tail layer, a nonzero LoRA).
 """
 import dataclasses
 
@@ -108,6 +110,40 @@ def arch_models(arch: str, capacity_factor=None):
             jax.tree.map(np.asarray, jparams), cfg))
         _ARCH_MODELS[key] = (jmodel, jparams, tmodel)
     return _ARCH_MODELS[key]
+
+
+# Zamba2 at smoke width with the structure the smoke config hides: 5
+# layers at period 2 are 2 segments and a tail of 1, and 2 shared blocks
+# alternate between the segments
+HYBRID_ARCH = "zamba2-1.2b-smoke"
+HYBRID_LAYERS, HYBRID_SHARED = 5, 2
+_HYBRID_MODELS: dict = {}
+
+
+def hybrid_config(cfg):
+    """``cfg`` (either package's ``zamba2-1.2b-smoke``) cut as above."""
+    return dataclasses.replace(
+        cfg, num_layers=HYBRID_LAYERS, hybrid=dataclasses.replace(
+            cfg.hybrid, num_shared_blocks=HYBRID_SHARED))
+
+
+def hybrid_models(chunk_size=512):
+    """(JAX model, JAX params, port model) of the cut Zamba2, with every
+    LoRA ``b`` (zeros at init) drawn from a seeded numpy normal, so an
+    unfolded LoRA shows."""
+    if chunk_size not in _HYBRID_MODELS:
+        jcfg = hybrid_config(jax_get_config(HYBRID_ARCH))
+        cfg = hybrid_config(get_config(HYBRID_ARCH))
+        jmodel = build_model(jcfg, remat=False, chunk_size=chunk_size)
+        npp = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+        b = npp["loras"]["b"]
+        npp["loras"]["b"] = 0.2 * np.random.default_rng(4).standard_normal(
+            b.shape).astype(b.dtype)
+        jparams = jax.tree.map(jax.numpy.asarray, npp)
+        tmodel = LM(cfg, device="cpu", chunk_size=chunk_size)
+        tmodel.load_state_dict(params_from_jax(npp, cfg))
+        _HYBRID_MODELS[chunk_size] = (jmodel, jparams, tmodel)
+    return _HYBRID_MODELS[chunk_size]
 
 
 # (KV engine, fused) runs of serve_arch: the pool and the dense mirror on
