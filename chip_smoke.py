@@ -42,8 +42,14 @@ each raises on failure, and any failure ends the run with a traceback:
                 attention: one InternLM2-1.8B layer of a 4096-token
                 prefill (B=1, H=16, K=8, D=128, causal), one Zamba2-1.2B
                 shared-attention block (H=K=32, D=64, causal) at 1100
-                and 4096 tokens, and the JAX package's test cases, with a
-                causal Sq > Skv case whose dead rows are 0;
+                and 4096 tokens, phases 24-29's shapes (``FLASH_SHAPES``:
+                DeepSeek-V2's MLA prefill, H=K=128 at qk width 192 and v
+                width 128, causal at 4096 and 1100 tokens; Seamless-M4T
+                v2's encoder, 16/16/64 non-causal at 4096 x 4096, its
+                cross-attention at 600 x 4096 and 1 x 4096; LLaVA-NeXT's
+                prefill, 32/8/128 causal at 2880 + 64 tokens), and the
+                JAX package's test cases, with a causal Sq > Skv case
+                whose dead rows are 0;
                 log patch: P=682, T=16, C=2048 (K and V of one token in
                 one InternLM2-1.8B layer), N=256 records with colliding
                 targets, skipped records and out-of-range indices, bit for
@@ -157,6 +163,30 @@ each raises on failure, and any failure ends the run with a traceback:
                 blocks, a tail of 2), a 1100-token prompt among three:
                 ``generate()`` token-identical to
                 ``generate_sequential()``.
+24. serve-mla-long — phase 14 on DeepSeek-V2 without experts (60 layers,
+                bf16): prompts of 4096 to 1100 tokens prefilled whole
+                through #9 at MLA's (192, 128) widths, once a layer and
+                prompt, then decode through #7 on the latent pool.
+25. parity-mla-long — phase 15 on it in fp32 at 4 layers: ``generate()``
+                against ``generate_sequential()``, then the 2048-token
+                ``LM.prefill`` through #9 against the plain branch (last
+                logits and every layer's ``c``/``kr``).
+26. model-encdec — Seamless-M4T v2 at published widths (24 encoder + 24
+                decoder layers, bf16), B = 1, 4096 frames of width 1024
+                and a 64- and a 600-token text prompt: ``LM.prefill`` (#9
+                non-causal in the encoder and the cross-attention, causal
+                in the decoder past 512 tokens) and 32 greedy
+                ``decode_step``s (#9 at Sq = 1 over the 4096 frames, once
+                a layer). Model level: neither package serves it.
+27. model-vlm — LLaVA-NeXT-Mistral-7B at published widths (32 layers,
+                bf16), 2880 image patches of width 1024 through the
+                projector before 64 text tokens: one 2944-token causal #9
+                a layer, then 32 greedy decode steps (no kernel).
+28. parity-encdec, 29. parity-vlm — fp32, 4 (+ 4 encoder) layers at
+                published widths, phases 26-27's inputs: prefill through
+                #9 against the plain branch (last logits, every layer's
+                K/V and, for Seamless, cross K/V), then 8 greedy decode
+                steps token-identical to the plain branch's.
 
 Each serving path is driven with the launch counts set to 0 just before
 it and read just after; a row's ``serving_launches`` is the sum of its
@@ -221,11 +251,26 @@ PREFIX_TOKENS = 384          # serve-prefix's shared prompt head
 PREFIX_MAX_LEN = 688         # the head, a 256-token tail and 32 new tokens
 LAYERS, MLA_LAYERS = 24, 8   # depth of the multi-layer kernel cases
 # one InternLM2-1.8B layer of a 4096-token prefill
-FLASH_GEOM = dict(B=1, S=4096, H=16, K=8, D=128)
+FLASH_GEOM = dict(B=1, Sq=4096, Skv=4096, H=16, K=8, D=128, DV=128,
+                  causal=True)
 # (H, K, D) of Zamba2-1.2B's shared attention blocks (MHA), and the prompt
 # lengths phase 2 runs #9 there at
 ZAMBA2_FLASH = (32, 32, 64)
 ZAMBA2_FLASH_S = (1100, 4096)
+# #9 at phases 24-29's shapes: DeepSeek-V2's MLA prefill (qk width 192, v
+# width 128, 128 heads) at serve-mla-long's longest and shortest prompts;
+# Seamless-M4T v2's encoder over 4096 frames, its cross-attention from a
+# 600-token prompt and from one decode step (16/16/64, non-causal); and
+# LLaVA-NeXT-Mistral-7B's prefill of 2880 image and 64 text tokens
+# (32/8/128, causal): (what, Sq, Skv, H, K, D, DV, causal)
+FLASH_SHAPES = [
+    ("deepseek-v2-236b MLA", 4096, 4096, 128, 128, 192, 128, True),
+    ("deepseek-v2-236b MLA", 1100, 1100, 128, 128, 192, 128, True),
+    ("seamless-m4t-large-v2 encoder", 4096, 4096, 16, 16, 64, 64, False),
+    ("seamless-m4t-large-v2 cross", 600, 4096, 16, 16, 64, 64, False),
+    ("seamless-m4t-large-v2 decode cross", 1, 4096, 16, 16, 64, 64, False),
+    ("llava-next-mistral-7b", 2944, 2944, 32, 8, 128, 128, True),
+]
 # the JAX package's flash cases (tests/test_kernels.py), and one causal
 # Sq > Skv case whose first 32 query rows see no key
 # (B, Sq, Skv, H, K, D, causal)
@@ -240,11 +285,14 @@ LONG_PROMPTS = (4096, 3072, 2048, 1100)
 # GHz): longer than the host takes to enqueue the loop
 SLEEP_CYCLES = 50_000_000
 # mangled names of the kernels the main paths run (bf16 or int8 pages, D
-# 128 or MLA's 512, 16-token pages), whose registers phase 1 logs
+# 128 or MLA's 512, 16-token pages; flash at (128, 128), Seamless's (64,
+# 64) and MLA's (192, 128), bf16, and fp32 at (192, 128)), whose registers
+# phase 1 logs
 MAIN_PATH_KERNELS = (
     r"paged_attention_part_kernelI13__nv_bfloat16(S1_|a)Li128ELi16EE"
     r"|paged_attention_combine_kernelI13__nv_bfloat16Li128EE"
-    r"|flash_attention_mma_kernelILi128EE"
+    r"|flash_attention_mma_kernelILi(128ELi128|192ELi128|64ELi64)EE"
+    r"|flash_attention_kernelILi192ELi128EE"
     r"|mla_paged_attention_part_kernelI13__nv_bfloat16Li512EE"
     r"|mla_paged_attention_combine_kernelILi512EE")
 
@@ -726,27 +774,39 @@ def flash_checks(torch, dev, dtype, seed):
 
 
 def flash_case(torch, dev, dtype, seed, geom=FLASH_GEOM):
-    """One layer of a causal prefill at ``geom``: by default
-    InternLM2-1.8B's at 4096 tokens."""
+    """One layer's attention at ``geom`` (B, Sq, Skv, H, K, D, DV,
+    causal): by default InternLM2-1.8B's causal prefill at 4096 tokens.
+    The work counts the (query, key) pairs a row sees: all Skv keys
+    non-causal, the keys at or before its position causal."""
     import repro_torch.kernels as K
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-    B, S, H, Kh, D = (geom[k] for k in "B S H K D".split())
+    B, Sq, Skv, H, Kh, D, DV, causal = (
+        geom[k] for k in "B Sq Skv H K D DV causal".split())
     scale = 1.0 / D ** 0.5
     g = torch.Generator(dev).manual_seed(seed)
-    q = torch.randn((B, S, H, D), generator=g, device=dev).to(dtype)
-    k = torch.randn((B, S, Kh, D), generator=g, device=dev).to(dtype)
-    v = torch.randn((B, S, Kh, D), generator=g, device=dev).to(dtype)
+    q = torch.randn((B, Sq, H, D), generator=g, device=dev).to(dtype)
+    k = torch.randn((B, Skv, Kh, D), generator=g, device=dev).to(dtype)
+    v = torch.randn((B, Skv, Kh, DV), generator=g, device=dev).to(dtype)
     c = Case()
-    c.kern = lambda *a: K.flash_attention(*a, causal=True, scale=scale)
-    c.plain = lambda *a: flash_attention_ref(*a, causal=True, scale=scale)
+    c.kern = lambda *a: K.flash_attention(*a, causal=causal, scale=scale)
+    c.plain = lambda *a: flash_attention_ref(*a, causal=causal, scale=scale)
     c.args, c.args32 = (q, k, v), (q.float(), k.float(), v.float())
-    c.pins = lambda out: flash_checks(torch, dev, dtype, seed)
+
+    def pins(out):
+        if out.shape != (B, Sq, H, DV):
+            raise AssertionError(f"flash_attention: output {out.shape}")
+        flash_checks(torch, dev, dtype, seed)
+    c.pins = pins
+    # SDPA's causal mask is aligned top-left: every causal case here has
+    # Sq == Skv, where it is the kernel's
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     c.library = lambda: torch.nn.functional.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True, scale=scale)
+        qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale)
     c.out_dtype, c.rate_dtype = dtype, str(dtype).split(".")[-1]
-    c.work = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-              4 * D * H * B * S * (S + 1) // 2)
+    pairs = (sum(min(Skv, max(0, i + Skv - Sq + 1)) for i in range(Sq))
+             if causal else Sq * Skv)
+    c.work = ((q.numel() + k.numel() + v.numel() + B * Sq * H * DV)
+              * q.element_size(), 2 * (D + DV) * H * B * pairs)
     c.iters = (5, 2, 10)
     return c
 
@@ -936,12 +996,20 @@ def phase_kernels(torch, dev, seed):
                 torch, dev, d, qm, seed, layers=MLA_LAYERS))
             for qm in (CHUNK, 1) for d in (bf16, f32)],
         "flash_attention": [
-            (f"{d} S={FLASH_GEOM['S']} causal", lambda d=d: flash_case(
+            (f"{d} S={FLASH_GEOM['Sq']} causal", lambda d=d: flash_case(
                 torch, dev, d, seed)) for d in (bf16, f32)] + [
             (f"{d} S={S} causal zamba2-1.2b H={H} K={Kh} D={D}",
-             lambda d=d, g=dict(B=1, S=S, H=H, K=Kh, D=D): flash_case(
+             lambda d=d, g=dict(B=1, Sq=S, Skv=S, H=H, K=Kh, D=D, DV=D,
+                                causal=True): flash_case(
                  torch, dev, d, seed, geom=g))
             for H, Kh, D in (ZAMBA2_FLASH,) for S in ZAMBA2_FLASH_S
+            for d in (bf16, f32)] + [
+            (f"{d} Sq={Sq} Skv={Skv} {'causal' if causal else 'non-causal'}"
+             f" {what} H={H} K={Kh} D={D} DV={DV}",
+             lambda d=d, g=dict(B=1, Sq=Sq, Skv=Skv, H=H, K=Kh, D=D, DV=DV,
+                                causal=causal): flash_case(
+                 torch, dev, d, seed, geom=g))
+            for what, Sq, Skv, H, Kh, D, DV, causal in FLASH_SHAPES
             for d in (bf16, f32)],
         "log_patch": [
             (f"{d} P={LOG_GEOM['P']} N={LOG_GEOM['N']}",
@@ -1121,11 +1189,13 @@ def check_identical(torch, model, got, ref, what, first=None, max_len=560):
                                  f"{step} with a clear margin")
 
 
-def serve_long(torch, dev, seed, model):
-    """Phase 10: whole-prompt prefill of ``LONG_PROMPTS`` (no prefill
-    chunks) through the flash-attention kernel, then pooled, fused decode,
-    on a 2 GiB pool, with the launch counts set to 0 just before and read
-    just after. Returns every entry's launches."""
+def serve_long(torch, dev, seed, model, what="serve-long",
+               entry="paged_attention_ragged"):
+    """Phases 14 and 24: whole-prompt prefill of ``LONG_PROMPTS`` (no
+    prefill chunks) through the flash-attention kernel, then pooled, fused
+    decode through the family's ragged ``entry``, on a 2 GiB pool, with
+    the launch counts set to 0 just before and read just after. Returns
+    every entry's launches."""
     import repro_torch.kernels as K
     cfg = model.cfg
     reqs = requests_of(LONG_PROMPTS, 32, cfg.vocab_size, seed)
@@ -1151,34 +1221,33 @@ def serve_long(torch, dev, seed, model):
     wall = time.perf_counter() - t0
     counts = launch_counts(K)
     s = eng.stats()
-    flash, paged = (counts["flash_attention"],
-                    counts["paged_attention_ragged"])
+    flash, paged = counts["flash_attention"], counts[entry]
     others = {k: n for k, n in counts.items() if n and k not in (
-        "flash_attention", "paged_attention_ragged")}
+        "flash_attention", entry)}
     n_long = sum(n > model.chunk_size for n in LONG_PROMPTS)
     if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
             0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
-        raise AssertionError("serve-long: a request did not finish in vocab")
+        raise AssertionError(f"{what}: a request did not finish in vocab")
     if s["mirror_d2h_bytes"] != 0 or s["sched_prefill_chunks"] != 0:
-        raise AssertionError(f"serve-long: mirror bytes "
+        raise AssertionError(f"{what}: mirror bytes "
                              f"{s['mirror_d2h_bytes']}, prefill chunks "
                              f"{s['sched_prefill_chunks']}")
     if flash != cfg.num_layers * n_long or sorted(prefill_ms) != list(
             range(len(reqs))):
-        raise AssertionError(f"serve-long: {flash} flash launches for "
+        raise AssertionError(f"{what}: {flash} flash launches for "
                              f"{n_long} long prompts; prefills {prefill_ms}")
     if s["step_calls"] != s["sched_ticks"] or others \
             or paged != cfg.num_layers * s["step_calls"]:
-        raise AssertionError(f"serve-long: {paged} paged launches for "
+        raise AssertionError(f"{what}: {paged} {entry} launches for "
                              f"{s['step_calls']} steps; others {others}")
     new = sum(len(r.generated) for r in reqs)
-    log(f"[serve-long] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
+    log(f"[{what}] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
         f"whole-prompt prefill of prompts {list(LONG_PROMPTS)}: {new} new "
         f"tokens in {wall:.3f} s = {new / wall:.2f} tok/s (incl. prefill); "
         f"prefill ms per request "
         f"{ {r.rid: round(prefill_ms[r.rid], 3) for r in reqs} }; ticks "
         f"{s['sched_ticks']}, flash_attention launches {flash} (= "
-        f"{cfg.num_layers} x {n_long}), paged_attention_ragged launches "
+        f"{cfg.num_layers} x {n_long}), {entry} launches "
         f"{paged} (= {cfg.num_layers} x {s['step_calls']}), mirror_d2h_bytes "
         f"{s['mirror_d2h_bytes']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, pool pages "
@@ -1186,14 +1255,16 @@ def serve_long(torch, dev, seed, model):
     return counts
 
 
-def parity_long(torch, dev, seed, cfg):
-    """Phase 11: fp32 at full width, whole-prompt prefill of 1100- and
-    2048-token prompts: ``generate()`` against ``generate_sequential()``
-    (both prefill through the flash kernel), token-identical apart from
-    reference near-ties; then ``LM.prefill`` of the 2048-token prompt
-    through the flash kernel against the same model's plain
-    ``full_attention`` branch (``chunk_size`` past the prompt): last
-    logits and every layer's K/V within fp32 tolerance. Returns every
+def parity_long(torch, dev, seed, cfg, what="parity-long",
+                entry="paged_attention_ragged"):
+    """Phases 15 and 25: fp32 at ``cfg``'s width, whole-prompt prefill of
+    1100- and 2048-token prompts: ``generate()`` against
+    ``generate_sequential()`` (both prefill through the flash kernel),
+    token-identical apart from reference near-ties; then ``LM.prefill`` of
+    the 2048-token prompt through the flash kernel against the same
+    model's plain ``full_attention`` branch (``chunk_size`` past the
+    prompt): last logits and every layer's cache planes (K/V; MLA's
+    latent ``c`` and rope key ``kr``) within fp32 tolerance. Returns every
     entry's launches in the ``generate()`` run."""
     import repro_torch.kernels as K
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1211,12 +1282,12 @@ def parity_long(torch, dev, seed, cfg):
     counts = launch_counts(K)
     flash = counts["flash_attention"]
     others = {k: n for k, n in counts.items() if n and k not in (
-        "flash_attention", "paged_attention_ragged")}
+        "flash_attention", entry)}
     if flash != cfg.num_layers * len(lens) or others:
-        raise AssertionError(f"parity-long: {flash} flash launches; others "
+        raise AssertionError(f"{what}: {flash} flash launches; others "
                              f"{others}")
-    check_identical(torch, model, got, ref, "parity-long", max_len=max_len)
-    log(f"[parity-long] {cfg.name} {cfg.num_layers} layers fp32: generate() "
+    check_identical(torch, model, got, ref, what, max_len=max_len)
+    log(f"[{what}] {cfg.name} {cfg.num_layers} layers fp32: generate() "
         f"== generate_sequential() on prompts {list(lens)} x 8 tokens "
         f"(flash launches {flash}, ticks {eng.stats()['sched_ticks']})")
     del eng
@@ -1233,24 +1304,33 @@ def parity_long(torch, dev, seed, cfg):
         model.chunk_size = chunk
     torch.cuda.synchronize()
     if flash != cfg.num_layers or K.flash_attention.launches != flash:
-        raise AssertionError(f"parity-long: flash launches {flash}, then "
+        raise AssertionError(f"{what}: flash launches {flash}, then "
                              f"{K.flash_attention.launches - flash} more")
-    atol, rtol = TOL["float32"]
-    errs = {}
-    for name, a, b in (("logits", logits, plain_logits),
-                       ("k", cache["k"], plain_cache["k"]),
-                       ("v", cache["v"], plain_cache["v"])):
-        errs[name] = float((a - b).abs().max())
-        log(f"[parity-long] prefill {name} {tuple(a.shape)}: flash vs "
-            f"full_attention max abs err {errs[name]:.3e} (atol {atol}, "
-            f"rtol {rtol})")
-        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
-    log(f"[parity-long] {tokens.shape[1]}-token LM.prefill through the flash "
+    errs = compare_planes(torch, what, "prefill", (logits, cache),
+                          (plain_logits, plain_cache), model.plane_names)
+    log(f"[{what}] {tokens.shape[1]}-token LM.prefill through the flash "
         f"kernel ({flash} launches) == the full_attention branch within fp32 "
         f"tolerance: {errs}")
     del model, cache, plain_cache
     free(torch)
     return counts
+
+
+def compare_planes(torch, what, step, got, want, planes):
+    """The last logits and each named cache plane of ``got`` against
+    ``want`` (``(logits, cache)`` pairs) at fp32 tolerance, flash against
+    the plain branch; returns the max abs errors by name."""
+    atol, rtol = TOL["float32"]
+    errs = {}
+    for name in ("logits",) + tuple(planes):
+        a, b = ((got[0], want[0]) if name == "logits"
+                else (got[1][name], want[1][name]))
+        errs[name] = float((a - b).abs().max())
+        log(f"[{what}] {step} {name} {tuple(a.shape)}: flash vs "
+            f"full_attention max abs err {errs[name]:.3e} (atol {atol}, "
+            f"rtol {rtol})")
+        torch.testing.assert_close(a, b, atol=atol, rtol=rtol)
+    return errs
 
 
 def reference(torch, model, dev, reqs, first):
@@ -2181,6 +2261,205 @@ def parity_hybrid(torch, dev, seed):
     return counts
 
 
+# ---------------------------------------------------------- phases 24-29
+# Seamless-M4T v2: 4096 frames of width d_model and two text prompts (the
+# 600-token one takes the decoder's self- and cross-attention past
+# chunk_size); LLaVA-NeXT: 2880 image patches and 64 text tokens
+ENCDEC_FRAMES, ENCDEC_PROMPTS = 4096, (64, 600)
+VLM_IMAGE, VLM_PROMPTS = 2880, (64,)
+MODEL_STEPS, PARITY_STEPS = 32, 8
+FRONTEND_PARITY_LAYERS = 4
+
+
+def frontend_inputs(torch, cfg, dev, seed, n_text):
+    """A text prompt of ``n_text`` tokens (numpy, from ``seed``) and the
+    frontend embeddings drawn on the card: Seamless's ``ENCDEC_FRAMES``
+    frames of width d_model, or LLaVA's ``VLM_IMAGE`` patches of width
+    d_frontend."""
+    import numpy as np
+    toks = np.random.default_rng(seed + n_text).integers(
+        0, cfg.vocab_size, (1, n_text), dtype=np.int64)
+    shape = ((1, ENCDEC_FRAMES, cfg.d_model) if cfg.family == "encdec"
+             else (1, VLM_IMAGE, cfg.frontend.d_frontend))
+    fe = torch.randn(shape, generator=torch.Generator(dev).manual_seed(seed),
+                     device=dev)
+    return torch.as_tensor(toks, device=dev), fe
+
+
+def frontend_len(cfg, n_text):
+    """The decoder's prompt length: the image patches and the text for the
+    VLM, the text for the encoder-decoder."""
+    return n_text + (VLM_IMAGE if cfg.family == "vlm" else 0)
+
+
+def expected_flash(model, n_text, steps):
+    """#9's launches in a prefill of ``n_text`` tokens and ``steps``
+    decode steps, by the model's own lengths and ``chunk_size``: the
+    encoder, cross-attention and decoder self-attention each launch once a
+    layer past it (a decode step's cross-attention past the default 512,
+    as in the reference); the VLM's decoder once a layer past it."""
+    cfg, chunk = model.cfg, model.chunk_size
+    S = frontend_len(cfg, n_text)
+    if cfg.family == "vlm":
+        return cfg.num_layers * (S > chunk), 0
+    prefill = (cfg.num_encoder_layers * (ENCDEC_FRAMES > chunk)
+               + cfg.num_layers * (max(S, ENCDEC_FRAMES) > chunk)
+               + cfg.num_layers * (S > chunk))
+    return prefill, cfg.num_layers * steps * (ENCDEC_FRAMES > 512)
+
+
+def greedy(torch, model, toks, fe, steps, keep_prefill=False):
+    """``LM.prefill`` then ``steps`` greedy ``decode_step``s, each timed on
+    the host clock after a sync, the tokens kept on the card until the
+    end. Returns (tokens, the logits each token was picked from, the
+    prefill's (logits, cache) when ``keep_prefill`` (a copy: decode writes
+    the cache in place) else the last step's, prefill ms, ms per decode
+    step)."""
+    max_len = frontend_len(model.cfg, toks.shape[1]) + steps + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks, max_len, frontend_embeds=fe)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    first = ((logits, {k: v.clone() for k, v in cache.items()})
+             if keep_prefill else None)
+    picked, seen = [], []
+    for _ in range(steps):
+        seen.append(logits[0, -1])
+        picked.append(logits[:, -1].argmax(-1, keepdim=True))
+        logits, cache = model.decode_step(cache, picked[-1], cache["pos"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tokens = torch.cat(picked, 1)[0].tolist() if picked else []
+    return (tokens, seen, first or (logits, cache), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / max(steps, 1))
+
+
+def model_frontend(torch, dev, seed, what, arch, prompts):
+    """Phases 26-27: ``arch`` at published widths in bf16 (random weights
+    from ``seed``), B = 1: for each text prompt, ``LM.prefill`` with its
+    frontend embeddings and ``MODEL_STEPS`` greedy decode steps, with the
+    launch counts set to 0 just before and read after the prefill and
+    after the steps. Returns every entry's launches."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    model = make_model(torch, get_config(arch), torch.bfloat16, dev, seed)
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    log(f"[{what}] weights {weight_gb(model):.2f} GB drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    served = collections.Counter()
+    for n in prompts:
+        toks, fe = frontend_inputs(torch, cfg, dev, seed, n)
+        want = expected_flash(model, n, MODEL_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        tokens, _, (logits, cache), pre_ms, step_ms = greedy(
+            torch, model, toks, fe, MODEL_STEPS)
+        counts = launch_counts(K)
+        flash = counts["flash_attention"]
+        others = {k: c for k, c in counts.items() if c and
+                  k != "flash_attention"}
+        S = frontend_len(cfg, n)
+        if flash != sum(want) or others:
+            raise AssertionError(f"{what}: {flash} flash launches (expected "
+                                 f"{want[0]} + {want[1]}); others {others}")
+        if len(tokens) != MODEL_STEPS or not all(
+                0 <= t < cfg.vocab_size for t in tokens) or not bool(
+                torch.isfinite(logits[..., :cfg.vocab_size]).all()):
+            raise AssertionError(f"{what}: tokens {tokens}")
+        if cache["k"].shape[:3] != (cfg.num_layers, 1, S + MODEL_STEPS + 1) \
+                or int(cache["pos"][0]) != S + MODEL_STEPS:
+            raise AssertionError(f"{what}: cache {tuple(cache['k'].shape)}, "
+                                 f"pos {cache['pos'].tolist()}")
+        served.update(counts)
+        enc = (f"{cfg.num_encoder_layers} encoder layers over "
+               f"{ENCDEC_FRAMES} frames, " if cfg.family == "encdec"
+               else f"{VLM_IMAGE} image tokens + ")
+        log(f"[{what}] {cfg.name} {enc}{cfg.num_layers} decoder layers, "
+            f"{model.dtype}, a {n}-token text prompt: prefill {pre_ms:.3f} "
+            f"ms, {MODEL_STEPS} greedy decode steps at {step_ms:.3f} ms a "
+            f"step, flash_attention launches {flash} (prefill {want[0]}, "
+            f"decode {want[1]}), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model
+    free(torch)
+    return served
+
+
+def parity_frontend(torch, dev, seed, what, arch, prompts):
+    """Phases 28-29: fp32, ``arch`` at published widths cut to
+    ``FRONTEND_PARITY_LAYERS`` layers (encoder and decoder), phases 26-27's
+    inputs: ``LM.prefill`` through #9 against the same model's plain
+    branch (``chunk_size`` past every length: ``full_attention``; a decode
+    step's cross-attention, at the default 512 whatever the model's, runs
+    #9's plain version) — the last logits and every layer's cache planes
+    (``k``/``v``, for the encoder-decoder also ``ek``/``ev``) within fp32
+    tolerance — then ``PARITY_STEPS`` greedy decode steps token-identical
+    to the plain branch's, a divergence only at its near-tie. Returns
+    every entry's launches in the runs through #9."""
+    import repro_torch.kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(
+        cfg, num_layers=FRONTEND_PARITY_LAYERS,
+        num_encoder_layers=min(cfg.num_encoder_layers,
+                               FRONTEND_PARITY_LAYERS))
+    model = make_model(torch, cfg, torch.float32, dev, seed)
+    planes = ("k", "v") + (("ek", "ev") if cfg.family == "encdec" else ())
+    served = collections.Counter()
+    for n in prompts:
+        toks, fe = frontend_inputs(torch, cfg, dev, seed, n)
+        want = expected_flash(model, n, PARITY_STEPS)
+        K.reset_launch_counts()
+        got = greedy(torch, model, toks, fe, PARITY_STEPS, keep_prefill=True)
+        counts = launch_counts(K)
+        if counts["flash_attention"] != sum(want) or sum(counts.values()) \
+                != counts["flash_attention"] or not want[0]:
+            raise AssertionError(f"{what}: launches {counts}, expected "
+                                 f"{want}")
+        served.update(counts)
+        chunk, kernel = model.chunk_size, attention.flash_attention
+        model.chunk_size = ENCDEC_FRAMES + frontend_len(cfg, n)
+        attention.flash_attention = flash_attention_ref
+        try:
+            ref = greedy(torch, model, toks, fe, PARITY_STEPS,
+                         keep_prefill=True)
+        finally:
+            model.chunk_size, attention.flash_attention = chunk, kernel
+        if any(launch_counts(K)[k] != c for k, c in counts.items()):
+            raise AssertionError(f"{what}: the plain branch launched a "
+                                 f"kernel")
+        errs = compare_planes(torch, what, f"{n}-token prefill", got[2],
+                              ref[2], planes)
+        if got[0] != ref[0]:
+            step = next(i for i, (a, b) in enumerate(zip(got[0], ref[0]))
+                        if a != b)
+            lv = ref[1][step][:cfg.vocab_size].double()
+            top = torch.topk(lv, 2).values
+            margin, std = float(top[0] - top[1]), float(lv.std())
+            log(f"[{what}] differs at step {step}: reference top-2 margin "
+                f"{margin:.3e}, logit std {std:.3e}")
+            if margin >= 1e-4 * std:
+                raise AssertionError(f"{what}: diverged at step {step} with "
+                                     f"a clear margin")
+        log(f"[{what}] {cfg.name} {cfg.num_encoder_layers} + "
+            f"{cfg.num_layers} layers fp32, a {n}-token prompt: prefill "
+            f"through #9 ({want[0]} launches) == the plain branch within "
+            f"fp32 tolerance {errs}; {PARITY_STEPS} greedy decode steps "
+            f"identical: {got[0] == ref[0]} ({want[1]} launches)")
+        del got, ref
+    del model
+    free(torch)
+    return served
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -2351,6 +2630,39 @@ def main(argv=None) -> int:
     stamp("parity-ssm")
     served.update(parity_hybrid(torch, dev, args.seed))
     stamp("parity-hybrid")
+
+    # MLA prefill past chunk_size: #9 at (192, 128), then #7
+    model = make_model(torch, mla, torch.bfloat16, dev, args.seed)
+    counts = serve_long(torch, dev, args.seed, model, "serve-mla-long",
+                        "mla_paged_attention_ragged")
+    rows["flash_attention"]["mla_long_launches"] = counts["flash_attention"]
+    rows["mla_paged_attention_ragged"]["long_prompt_launches"] = counts[
+        "mla_paged_attention_ragged"]
+    served.update(counts)
+    del model
+    free(torch)
+    stamp("serve-mla-long")
+    served.update(parity_long(torch, dev, args.seed, cut(mla, 4),
+                              "parity-mla-long",
+                              "mla_paged_attention_ragged"))
+    stamp("parity-mla-long")
+    # the encoder-decoder and the VLM at model level: #9 non-causal over
+    # the encoder's frames and in cross-attention, causal over the image
+    for what, arch, prompts, key in (
+            ("model-encdec", "seamless-m4t-large-v2", ENCDEC_PROMPTS,
+             "encdec_launches"),
+            ("model-vlm", "llava-next-mistral-7b", VLM_PROMPTS,
+             "vlm_launches")):
+        counts = model_frontend(torch, dev, args.seed, what, arch, prompts)
+        rows["flash_attention"][key] = counts["flash_attention"]
+        served.update(counts)
+        stamp(what)
+    for what, arch, prompts in (
+            ("parity-encdec", "seamless-m4t-large-v2", ENCDEC_PROMPTS),
+            ("parity-vlm", "llava-next-mistral-7b", VLM_PROMPTS)):
+        served.update(parity_frontend(torch, dev, args.seed, what, arch,
+                                      prompts))
+        stamp(what)
 
     for name, row in rows.items():
         row["serving_launches"] = served[name]

@@ -1,4 +1,4 @@
-"""Config registry of the port: the architectures it serves so far.
+"""Config registry of the port: every architecture of the JAX package.
 
 Usage::
 
@@ -7,20 +7,26 @@ Usage::
     cfg = get_config("starcoder2-15b-smoke")    # reduced smoke sibling
     cfg = get_config("deepseek-v2-236b-noexperts")   # MLA, dense FFN
     cfg = get_config("mamba2-1.3b")             # SSM: state rows, no KV
+    cfg = get_config("seamless-m4t-large-v2")   # encoder-decoder (model only)
+    cfg = get_config("llava-next-mistral-7b")   # VLM (model only)
 """
 from __future__ import annotations
 
 from repro_torch.configs import (arctic_480b, deepseek_v2_236b, gemma_7b,
-                                 internlm2_1p8b, mamba2_1p3b, minicpm_2b,
-                                 starcoder2_15b, zamba2_1p2b)
-from repro_torch.configs.base import (HybridConfig, MLAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig)
+                                 internlm2_1p8b, llava_next_mistral_7b,
+                                 mamba2_1p3b, minicpm_2b,
+                                 seamless_m4t_large_v2, starcoder2_15b,
+                                 zamba2_1p2b)
+from repro_torch.configs.base import (FrontendConfig, HybridConfig,
+                                      MLAConfig, ModelConfig, MoEConfig,
+                                      SSMConfig)
 
 REGISTRY: dict[str, ModelConfig] = {}
 for _cfg in (starcoder2_15b.CONFIG, internlm2_1p8b.CONFIG, minicpm_2b.CONFIG,
              gemma_7b.CONFIG, arctic_480b.CONFIG, deepseek_v2_236b.CONFIG,
-             deepseek_v2_236b.NOEXPERTS, mamba2_1p3b.CONFIG,
-             zamba2_1p2b.CONFIG):
+             deepseek_v2_236b.NOEXPERTS, seamless_m4t_large_v2.CONFIG,
+             mamba2_1p3b.CONFIG, zamba2_1p2b.CONFIG,
+             llava_next_mistral_7b.CONFIG):
     REGISTRY[_cfg.name] = _cfg
     REGISTRY[_cfg.name + "-smoke"] = _cfg.reduced()
 
@@ -34,5 +40,5 @@ def get_config(name: str) -> ModelConfig:
         ) from None
 
 
-__all__ = ["HybridConfig", "MLAConfig", "MoEConfig", "ModelConfig",
-           "REGISTRY", "SSMConfig", "get_config"]
+__all__ = ["FrontendConfig", "HybridConfig", "MLAConfig", "MoEConfig",
+           "ModelConfig", "REGISTRY", "SSMConfig", "get_config"]

@@ -5,14 +5,15 @@ The port's own copy of the decoder part of the JAX package's
 attention) decoder reads — with a gated or plain FFN, or a routed
 mixture of experts (``MoEConfig``) — a Mamba-2 state-space stack
 (``SSMConfig``) and the Zamba2 hybrid of it with shared attention blocks
-(``HybridConfig``), the padded-vocab rule, and ``reduced()`` for the
-smoke-sized sibling. The encoder-decoder and frontend sub-configs wait
-for the slices that port those families.
+(``HybridConfig``), an encoder-decoder's encoder depth and a stub
+modality frontend (``FrontendConfig``: precomputed audio frames or image
+patches), the padded-vocab rule, and ``reduced()`` for the smoke-sized
+sibling.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional
 
 
@@ -61,6 +62,19 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class FrontendConfig:
+    """Stub modality frontend: the caller hands in precomputed embeddings
+    (``frontend_embeds``) — audio frames of width ``d_model`` for an
+    encoder-decoder, or ``num_tokens`` image patches of width
+    ``d_frontend`` that a ``projector_layers``-deep MLP projects into
+    ``d_model`` and prepends to the text (a VLM)."""
+    kind: str = "none"              # "audio" | "vision" | "none"
+    num_tokens: int = 0             # frontend tokens prepended to the text
+    d_frontend: int = 0             # embedding width the stub delivers
+    projector_layers: int = 2       # MLP projector depth (vision)
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str
@@ -86,6 +100,8 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
+    num_encoder_layers: int = 0    # encoder-decoder: the encoder's depth
     has_kv_cache: bool = True      # False for pure SSM
     # embedding tables are allocated padded to this multiple; the padded
     # logit columns are masked
@@ -120,6 +136,8 @@ class ModelConfig:
             head_dim=32,
             max_seq_len=1024,
         )
+        if self.num_encoder_layers:
+            small["num_encoder_layers"] = 2
         if self.moe is not None:
             small["moe"] = dataclasses.replace(
                 self.moe,
@@ -140,5 +158,8 @@ class ModelConfig:
             small["hybrid"] = dataclasses.replace(
                 self.hybrid, shared_block_period=2, num_shared_blocks=1,
                 lora_rank=4)
+        if self.frontend.kind != "none":
+            small["frontend"] = dataclasses.replace(
+                self.frontend, num_tokens=16, d_frontend=64)
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)

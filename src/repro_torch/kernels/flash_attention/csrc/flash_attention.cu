@@ -2,8 +2,14 @@
 //
 // Replaces the Pallas TPU kernel flash_attention_pallas (body _fa_kernel)
 // of src/repro/kernels/flash_attention/kernel.py: causal or non-causal GQA
-// attention of q (B, Sq, H, D) over k, v (B, Skv, K, D), query head h
-// reading KV head h / (H / K). Causal queries are the LAST Sq positions of
+// attention of q (B, Sq, H, D) over k (B, Skv, K, D) and v (B, Skv, K, DV)
+// into out (B, Sq, H, DV), query head h reading KV head h / (H / K). The
+// Pallas kernel takes one width for all four; here the qk width D and the v
+// width DV are two template parameters, so MLA prefill (DeepSeek-V2: D =
+// qk_nope + qk_rope = 192, DV = v_head = 128) runs without padding q and k
+// to 256 (a third more qk bytes) or v to 192 (wasted output registers).
+// Built for (D, DV) = (32, 32), (64, 64), (128, 128), (256, 256) and
+// (192, 128). Causal queries are the LAST Sq positions of
 // the Skv keys: query i sits at position i + Skv - Sq and sees the keys at
 // or before it. q, k and v are fp32 or bf16 of one type; the softmax and
 // every sum are fp32 (bf16 products are exact), the output has q's type. A
@@ -31,7 +37,8 @@
 //   * S = Q.K^T on the tensor cores: q and k are bf16, so each product is
 //     exact and only the order of the fp32 sum differs from the plain
 //     version; Q fragments stay in registers for D <= 128 and are re-read
-//     from shared memory at D = 256 (registers: 128 fp32 of output alone);
+//     from shared memory at D = 192 and 256 (registers: 24 or 32 more
+//     fragment words would join the DV / 2 fp32 of output);
 //   * the online softmax runs in fp32 registers on the mma accumulator
 //     layout (a row's 4 lanes reduce with two xor shuffles) with kernel.py's
 //     rules: running max from -1e30, masked probabilities forced to 0,
@@ -44,21 +51,23 @@
 //     bf16(p - hi) (residual <= 2^-18 p), and two mma's, hi.V and lo.V, go
 //     into one fp32 accumulator: 1.5x plain FA2's products, and a bf16
 //     output stays within half an ulp of the plain fp32 version.
-// Shared memory (64 + 4 * 64 rows of D + 8 bf16): 87 KB at D = 128 (two
-// blocks an SM), 169 KB at D = 256 (one). Registers bound it too: 188 at
-// D = 128; two 16-row tiles a warp (FA2's fragment reuse) need more than
-// 255 and spill.
+// Shared memory: Q and two stages of K in rows of D + 8 bf16, two stages of
+// V in rows of DV + 8 ((64 + 2 * 64) (D + 8) + 2 * 64 (DV + 8) bf16): 87 KB
+// at D = DV = 128 (two blocks an SM), 109 KB at (192, 128) (two), 169 KB at
+// D = DV = 256 (one). Registers bound it too: 188 at D = 128; two 16-row
+// tiles a warp (FA2's fragment reuse) need more than 255 and spill.
 //
 // fp32 — flash_attention_kernel, scalar fp32 FMAs on the CUDA cores (the
 // fp32 products have no exact tensor-core form; 3xTF32 is not done):
 //   * one block = one (b, KV head) and a tile of 32 query rows, row r as
 //     above; the block walks the keys in tiles of 32, staged in shared
-//     memory as fp32 rows padded to D + 1 floats (conflict-free column
-//     reads);
+//     memory as fp32 rows padded to D + 1 (K) and DV + 1 (V) floats
+//     (conflict-free column reads);
 //   * each warp owns 4 rows: lane t scores key t of the tile for all 4 rows
-//     at once (one sequential fp32 dot per row), the warp reduces max and
-//     sum with xor butterflies, and lane t owns output features t, t + 32,
-//     ...; the same online-softmax rules, p stays fp32 into the P.V sum.
+//     at once (one sequential fp32 dot of D per row), the warp reduces max
+//     and sum with xor butterflies, and lane t owns output features t,
+//     t + 32, ... of DV; the same online-softmax rules, p stays fp32 into
+//     the P.V sum.
 //
 // Both stop each block's key walk at its last row's causal diagonal (the
 // Pallas kernel's `live` block skip). A key tile that is fully masked for a
@@ -79,21 +88,22 @@ constexpr int kRows = kWarps * kRowsPerWarp;     // query rows per block
 constexpr int kKeys = 32;                        // keys per tile: one a lane
 constexpr unsigned kFull = 0xffffffffu;
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v,
                        float* __restrict__ out, int Sq, int Skv, int H,
                        int K, int causal, float scale) {
-  constexpr int kDPL = D / 32;                   // output features per lane
-  constexpr int kDP = D + 1;                     // padded smem row
-  static_assert(D % 32 == 0, "head dim");
+  constexpr int kDPL = DV / 32;                  // output features per lane
+  constexpr int kDP = D + 1;                     // padded smem row: q, k
+  constexpr int kDPV = DV + 1;                   // ... and v
+  static_assert(D % 32 == 0 && DV % 32 == 0 && DV <= D, "head dims");
 
   extern __shared__ float smem[];
   float* k_s = smem;                             // (kKeys, kDP)
-  float* v_s = k_s + kKeys * kDP;                // (kKeys, kDP)
-  float* q_s = v_s + kKeys * kDP;                // (kRows, kDP)
+  float* v_s = k_s + kKeys * kDP;                // (kKeys, kDPV)
+  float* q_s = v_s + kKeys * kDPV;               // (kRows, kDP)
 
   const int G = H / K;
   const int n_rows = Sq * G;
@@ -141,15 +151,15 @@ flash_attention_kernel(const float* __restrict__ q,
     __syncthreads();                 // the previous tile's readers are done
     for (int idx = threadIdx.x; idx < kKeys * D; idx += blockDim.x) {
       const int t = idx / D, d = idx % D;
+      const bool has_v = DV == D || d < DV;        // v rows are DV <= D wide
       float kx = 0.f, vx = 0.f;
       if (k0 + t < Skv) {
-        const int64_t off =
-            ((static_cast<int64_t>(b) * Skv + k0 + t) * K + kvh) * D + d;
-        kx = k[off];
-        vx = v[off];
+        const int64_t row = (static_cast<int64_t>(b) * Skv + k0 + t) * K + kvh;
+        kx = k[row * D + d];
+        if (has_v) vx = v[row * DV + d];
       }
       k_s[t * kDP + d] = kx;
-      v_s[t * kDP + d] = vx;
+      if (has_v) v_s[t * kDPV + d] = vx;
     }
     __syncthreads();
 
@@ -197,7 +207,7 @@ flash_attention_kernel(const float* __restrict__ q,
         pt[p] = __shfl_sync(kFull, pr[p], t);
 #pragma unroll
       for (int j = 0; j < kDPL; ++j) {
-        const float vx = v_s[t * kDP + lane + 32 * j];
+        const float vx = v_s[t * kDPV + lane + 32 * j];
 #pragma unroll
         for (int p = 0; p < kRowsPerWarp; ++p)
           pv[p][j] = fmaf(pt[p], vx, pv[p][j]);
@@ -215,7 +225,7 @@ flash_attention_kernel(const float* __restrict__ q,
     const int row = row0 + warp * kRowsPerWarp + p;
     if (row >= n_rows) continue;
     const int qi = row / G, h = kvh * G + row % G;
-    float* o = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
+    float* o = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * DV;
     const float denom = fmaxf(l[p], 1e-30f);     // a row with no key: 0 / .
 #pragma unroll
     for (int j = 0; j < kDPL; ++j) o[lane + 32 * j] = acc[p][j] / denom;
@@ -285,20 +295,23 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-template <int D>
+template <int D, int DV>
 __global__ void __launch_bounds__(kMmaWarps * 32)
 flash_attention_mma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, bf16* __restrict__ out,
                            int Sq, int Skv, int H, int K, int causal,
                            float scale) {
-  static_assert(D % 32 == 0, "head dim");
-  constexpr int kStride = D + 8;                 // padded smem row (bf16)
+  static_assert(D % 32 == 0 && DV % 16 == 0 && DV <= D, "head dims");
+  constexpr int kStride = D + 8;                 // padded smem row: q, k
+  constexpr int kStrideV = DV + 8;               // ... and v (bf16)
   constexpr int kChunks = D / 8;                 // 16-byte chunks a row
+  constexpr int kChunksV = DV / 8;
   constexpr int kNT = kMmaKeys / 8;              // 8-key tiles of S
-  constexpr int kDT = D / 8;                     // 8-feature tiles of O
+  constexpr int kDT = DV / 8;                    // 8-feature tiles of O
   constexpr bool kQRegs = D <= 128;
-  constexpr int kTile = kMmaKeys * kStride;
+  constexpr int kTileK = kMmaKeys * kStride;
+  constexpr int kStage = kTileK + kMmaKeys * kStrideV;
 
   extern __shared__ __align__(16) unsigned char fa_smem[];
   bf16* q_s = reinterpret_cast<bf16*>(fa_smem);  // (kMmaRows, kStride)
@@ -332,19 +345,18 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     cp_async16(q_s + r * kStride + c * 8, src, row < n_rows);
   }
   auto load_tile = [&](int t) {
-    bf16* ks = kv_s + (t & 1) * 2 * kTile;
-    bf16* vs = ks + kTile;
+    bf16* ks = kv_s + (t & 1) * kStage;
+    bf16* vs = ks + kTileK;
     const int k0 = t * kMmaKeys;
     for (int idx = threadIdx.x; idx < kMmaKeys * kChunks;
          idx += blockDim.x) {
       const int r = idx / kChunks, c = idx % kChunks;
       const bool live = k0 + r < Skv;
-      const int64_t off =
-          live ? ((static_cast<int64_t>(b) * Skv + k0 + r) * K + kvh) * D +
-                     c * 8
-               : 0;
-      cp_async16(ks + r * kStride + c * 8, k + off, live);
-      cp_async16(vs + r * kStride + c * 8, v + off, live);
+      const int64_t row =
+          live ? (static_cast<int64_t>(b) * Skv + k0 + r) * K + kvh : 0;
+      cp_async16(ks + r * kStride + c * 8, k + row * D + c * 8, live);
+      if (DV == D || c < kChunksV)                 // v rows are DV <= D wide
+        cp_async16(vs + r * kStrideV + c * 8, v + row * DV + c * 8, live);
     }
   };
   if (n_tiles > 0) load_tile(0);
@@ -387,8 +399,8 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
           ldmatrix_x4(qf[kc], q_s + a_row * kStride + kc * 16 + a_col);
       }
     }
-    const bf16* ks = kv_s + (t & 1) * 2 * kTile;
-    const bf16* vs = ks + kTile;
+    const bf16* ks = kv_s + (t & 1) * kStage;
+    const bf16* vs = ks + kTileK;
 
     float s[kNT][4];
 #pragma unroll
@@ -467,10 +479,10 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
       split_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1], ph[2], pl[2]);
       split_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dt2 = 0; dt2 < D / 16; ++dt2) {
+      for (int dt2 = 0; dt2 < DV / 16; ++dt2) {
         uint32_t vb[4];
         ldmatrix_x4_trans(vb, vs + (kc * 16 + (lane & 7) +
-                                    ((lane >> 3) & 1) * 8) * kStride +
+                                    ((lane >> 3) & 1) * 8) * kStrideV +
                                   dt2 * 16 + (lane >> 4) * 8);
         mma_bf16(o[2 * dt2], ph, vb[0], vb[1]);
         mma_bf16(o[2 * dt2 + 1], ph, vb[2], vb[3]);
@@ -486,7 +498,7 @@ flash_attention_mma_kernel(const bf16* __restrict__ q,
     const int row = row0 + warp * 16 + gid + 8 * i;
     if (row >= n_rows) continue;
     const int qi = row / G, h = kvh * G + row % G;
-    bf16* o_row = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * D;
+    bf16* o_row = out + ((static_cast<int64_t>(b) * Sq + qi) * H + h) * DV;
     const float denom = fmaxf(l[i], 1e-30f);     // a row with no key: 0 / .
 #pragma unroll
     for (int dt = 0; dt < kDT; ++dt)
@@ -504,12 +516,13 @@ cudaError_t set_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v,
                        void* out, int B, int Sq, int Skv, int H, int K,
                        int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_kernel<D>;
-  const size_t smem = sizeof(float) * (2 * kKeys + kRows) * (D + 1);
+  auto kernel = flash_attention_kernel<D, DV>;
+  const size_t smem =
+      sizeof(float) * ((kKeys + kRows) * (D + 1) + kKeys * (DV + 1));
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t tiles =
@@ -523,12 +536,13 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, int B, int Sq, int Skv, int H, int K,
                         int causal, float scale, cudaStream_t stream) {
-  auto kernel = flash_attention_mma_kernel<D>;
-  const size_t smem = sizeof(bf16) * (kMmaRows + 4 * kMmaKeys) * (D + 8);
+  auto kernel = flash_attention_mma_kernel<D, DV>;
+  const size_t smem = sizeof(bf16) * ((kMmaRows + 2 * kMmaKeys) * (D + 8) +
+                                      2 * kMmaKeys * (DV + 8));
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t tiles =
@@ -544,26 +558,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q (B, Sq, H, D), k and v (B, Skv, K, D), out (B, Sq, H, D), all
-// contiguous and of dtype (0 = float32, 1 = bfloat16); causal 0 or 1.
-// Returns a cudaError_t (0 = launched).
+// q (B, Sq, H, D), k (B, Skv, K, D), v (B, Skv, K, DV), out (B, Sq, H,
+// DV), all contiguous and of dtype (0 = float32, 1 = bfloat16); causal 0
+// or 1. Returns a cudaError_t (0 = launched; cudaErrorInvalidValue for a
+// (D, DV) pair the file is not built for).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, int B,
                                       int Sq, int Skv, int H, int K, int D,
-                                      int causal, float scale, int dtype,
-                                      void* stream) {
+                                      int DV, int causal, float scale,
+                                      int dtype, void* stream) {
   if (B <= 0 || Sq <= 0) return cudaSuccess;
   if (Skv < 0 || K <= 0 || H % K != 0 || K > 65535 || B > 65535)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FA_CASE(DD)                                                          \
-  if (D == DD)                                                               \
-    return dtype == 0 ? launch_f32<DD>(q, k, v, out, B, Sq, Skv, H, K,       \
-                                       causal, scale, s)                     \
-                      : launch_bf16<DD>(q, k, v, out, B, Sq, Skv, H, K,      \
-                                        causal, scale, s);
+#define FA_CASE(DD, DDV)                                                     \
+  if (D == DD && DV == DDV)                                                  \
+    return dtype == 0 ? launch_f32<DD, DDV>(q, k, v, out, B, Sq, Skv, H, K,  \
+                                            causal, scale, s)                \
+                      : launch_bf16<DD, DDV>(q, k, v, out, B, Sq, Skv, H, K, \
+                                             causal, scale, s);
   if (dtype == 0 || dtype == 1) {
-    FA_CASE(32) FA_CASE(64) FA_CASE(128) FA_CASE(256)
+    FA_CASE(32, 32) FA_CASE(64, 64) FA_CASE(128, 128) FA_CASE(256, 256)
+    FA_CASE(192, 128)
   }
 #undef FA_CASE
   return cudaErrorInvalidValue;

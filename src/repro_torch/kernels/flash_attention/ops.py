@@ -17,21 +17,25 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+# the (qk, v) head widths the kernel is built for: the four equal pairs,
+# and MLA's (qk_nope + qk_rope, v_head) at DeepSeek-V2's widths
+HEAD_DIMS = ((32, 32), (64, 64), (128, 128), (256, 256), (192, 128))
 _C, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     scale: float | None = None, block_q: int = 128,
                     block_k: int = 128):
-    """Flash attention, forward: q (B, Sq, H, D), k and v (B, Skv, K, D)
-    with H = K * G; query head ``h`` reads KV head ``h // G``. Causal
-    queries are the last Sq positions of the Skv keys; a query that sees
-    no key (Sq > Skv) returns 0. ``scale`` defaults to 1/sqrt(D). The math
-    is fp32; q, k and v are fp32 or bf16 of one dtype and the output has
-    q's. ``block_q``/``block_k`` are the TPU kernel's block sizes: the
-    CUDA kernel tiles on its own, and no block size changes a bit of the
-    result."""
+    """Flash attention, forward: q (B, Sq, H, D), k (B, Skv, K, D) and v
+    (B, Skv, K, DV) with H = K * G; query head ``h`` reads KV head
+    ``h // G``. The output is (B, Sq, H, DV): DV is D, or MLA's v width
+    beside its qk width (``HEAD_DIMS`` lists the pairs the kernel is built
+    for). Causal queries are the last Sq positions of the Skv keys; a
+    query that sees no key (Sq > Skv) returns 0. ``scale`` defaults to
+    1/sqrt(D). The math is fp32; q, k and v are fp32 or bf16 of one dtype
+    and the output has q's. ``block_q``/``block_k`` are the TPU kernel's
+    block sizes: the CUDA kernel tiles on its own, and no block size
+    changes a bit of the result."""
     if block_q <= 0 or block_k <= 0:
         raise ValueError(f"block sizes must be positive, got {block_q}, "
                          f"{block_k}")
@@ -40,26 +44,28 @@ def flash_attention(q, k, v, *, causal: bool = True,
     require_cuda("flash-attention", q)
     B, Sq, H, D = q.shape
     Bk, Skv, K, Dk = k.shape
+    DV = v.shape[-1]
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must be on one device")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise TypeError(f"the kernel takes float32 or bfloat16 q, k, v of "
                         f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if v.shape != k.shape or Bk != B or Dk != D or K == 0 or H % K:
+    if v.ndim != 4 or v.shape[:3] != k.shape[:3] or Bk != B or Dk != D \
+            or K == 0 or H % K:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"the kernel is built for head_dim in "
-                         f"{_HEAD_DIMS}; got {D}")
+    if (D, DV) not in HEAD_DIMS:
+        raise ValueError(f"the kernel is built for (qk, v) head widths in "
+                         f"{HEAD_DIMS}; got ({D}, {DV})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
+    out = q.new_empty((B, Sq, H, DV))
     if scale is None:
         scale = 1.0 / (D ** 0.5)
     fn = c_entry(SOURCE, "flash_attention_launch",
-                 [_C] * 4 + [_I] * 7 + [ctypes.c_float, _I, _C])
+                 [_C] * 4 + [_I] * 8 + [ctypes.c_float, _I, _C])
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, H, K, D, int(bool(causal)), float(scale),
+            Skv, H, K, D, DV, int(bool(causal)), float(scale),
             _DTYPE_CODE[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     check_launch(rc, "flash_attention")

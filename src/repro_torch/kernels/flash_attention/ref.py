@@ -18,11 +18,13 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
                         scale: float | None = None):
-    """q: (B, Sq, H, D); k, v: (B, Skv, K, D) with H = K * G (query head
-    ``h`` reads KV head ``h // G``). Returns (B, Sq, H, D) in q's dtype;
-    the math is fp32."""
+    """q: (B, Sq, H, D); k: (B, Skv, K, D); v: (B, Skv, K, DV) with H = K *
+    G (query head ``h`` reads KV head ``h // G``); DV may differ from D
+    (MLA: 192 and 128). Returns (B, Sq, H, DV) in q's dtype; the math is
+    fp32."""
     B, Sq, H, D = q.shape
     Skv, K = k.shape[1], k.shape[2]
+    DV = v.shape[-1]
     G = H // K
     if scale is None:
         scale = 1.0 / (D ** 0.5)
@@ -37,4 +39,4 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     if causal and Sq > Skv:                     # rows that see no key
         sees = (torch.arange(Sq, device=q.device) + (Skv - Sq)) >= 0
         out = torch.where(sees[None, :, None, None, None], out, 0.0)
-    return out.reshape(B, Sq, H, D).to(q.dtype)
+    return out.reshape(B, Sq, H, DV).to(q.dtype)

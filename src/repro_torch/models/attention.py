@@ -1,14 +1,16 @@
 """Attention over a dense cache or the paged KV pool: dense GQA, GQA over
-an int8 cache, and DeepSeek-V2 multi-head latent attention (MLA).
+an int8 cache, DeepSeek-V2 multi-head latent attention (MLA), and an
+encoder-decoder's bidirectional and cross-attention.
 
 The counterparts of the JAX package's ``models/attention.py`` for these
-three cache families. Prefill attention up to ``chunk_size`` tokens
+families. Prefill attention up to ``chunk_size`` tokens
 (``full_attention``) is plain torch, as it is XLA code there; a longer
 prefill runs the hand-written flash-attention kernel
 (:mod:`~repro_torch.kernels.flash_attention`), which computes the function
 of the JAX package's ``chunked_attention``/``chunked_attention_tri`` at
-positions ``arange(S)``. The paged steps call the hand-written
-paged-attention kernels through
+positions ``arange(S)``: causal or not (an encoder, cross-attention), and
+for MLA at its qk width (192) beside its v width (128). The paged steps
+call the hand-written paged-attention kernels through
 :mod:`~repro_torch.kernels.paged_attention.ops` (dense, int8 with
 in-kernel dequant, MLA over the latent plane). The projections around the
 kernels — ``w_uk`` absorption, ``w_uv``, ``wo``, the quantize-on-write
@@ -70,29 +72,60 @@ def _project_qkv(p, cfg, x, positions):
     return q.reshape(B, S, K, H // K, D), k, v
 
 
-def attn_train(p, cfg, x, positions, *, chunk_size=512):
-    """Causal self-attention over a full sequence (prefill compute). Up to
-    ``chunk_size`` tokens one plain einsum; past it the flash-attention
-    kernel (the JAX package's chunked branches compute the same function),
-    whose causal mask is the token order: it takes only ``positions`` that
-    rise along S, as ``arange(S)`` and any offset of it do. Returns
+def _check_rising(positions, what, chunk_size):
+    """The flash kernel's causal mask is the token order: a causal prefill
+    past ``chunk_size`` takes only positions that rise along S, as
+    ``arange(S)`` and any offset of it do."""
+    if not bool((positions.diff(dim=-1) > 0).all()):
+        raise ValueError(
+            f"{what} past chunk_size={chunk_size} takes positions that rise "
+            f"along the sequence (the flash kernel's causal mask is the "
+            f"token order)")
+
+
+def attn_train(p, cfg, x, positions, *, causal=True, chunk_size=512):
+    """Self-attention over a full sequence (prefill compute; ``causal``
+    False for an encoder). Up to ``chunk_size`` tokens one plain einsum;
+    past it the flash-attention kernel (the JAX package's chunked branches
+    compute the same function). Causal, it takes only ``positions`` that
+    rise along S (:func:`_check_rising`); non-causal, every query sees
+    every key and positions only rotate q and k. Returns
     ``(out, (k, v))``."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
     scale = 1.0 / math.sqrt(cfg.head_dim)
     if S <= chunk_size:
         out = full_attention(q, k, v, scale=scale, q_positions=positions,
-                             kv_positions=positions, causal=True)
+                             kv_positions=positions, causal=causal)
     else:
-        if not bool((positions.diff(dim=-1) > 0).all()):
-            raise ValueError(
-                f"attn_train past chunk_size={chunk_size} takes positions "
-                f"that rise along the sequence (the flash kernel's causal "
-                f"mask is the token order)")
-        out = flash_attention(q.flatten(2, 3), k, v, causal=True,
+        if causal:
+            _check_rising(positions, "attn_train", chunk_size)
+        out = flash_attention(q.flatten(2, 3), k, v, causal=causal,
                               scale=scale)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return out @ p.wo, (k, v)
+
+
+def attn_cross(p, cfg, x, enc_k, enc_v, *, chunk_size=512):
+    """Cross-attention of decoder ``x`` (B, S, d) over precomputed encoder
+    K/V (B, T, K, D): no RoPE, no mask. ``full_attention`` while
+    ``max(S, T) <= chunk_size``, the flash kernel non-causal past it (the
+    JAX package's ``chunked_attention`` there). A decode step calls it
+    with the default ``chunk_size`` whatever the model's, as the JAX
+    decoder block does."""
+    B, S, _ = x.shape
+    K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(B, S, K, H // K, D)
+    scale = 1.0 / math.sqrt(D)
+    T = enc_k.shape[1]
+    if max(S, T) <= chunk_size:
+        pos = torch.zeros((B, S), dtype=torch.long, device=x.device)
+        out = full_attention(q, enc_k, enc_v, scale=scale, q_positions=pos,
+                             kv_positions=pos.new_zeros(T), causal=False)
+    else:
+        out = flash_attention(q.flatten(2, 3), enc_k, enc_v, causal=False,
+                              scale=scale)
+    return out.reshape(B, S, H * D) @ p.wo
 
 
 def attn_decode(p, cfg, x, cache_k, cache_v, positions):
@@ -352,19 +385,14 @@ def _mla_out(p, cfg, o_c, dtype):
 
 def mla_train(p, cfg, x, positions, *, chunk_size=512):
     """MLA over a full sequence (prefill compute), with K and V expanded
-    from the latent. Returns ``(out, (c_kv, k_rope))`` for caching."""
+    from the latent: q and k of width qk_nope + qk_rope, v of width
+    v_head. Up to ``chunk_size`` tokens one plain einsum; past it the
+    flash-attention kernel at that (qk, v) width pair, causal (positions
+    rising along S, :func:`_check_rising`). Returns ``(out, (c_kv,
+    k_rope))`` for caching."""
     m = cfg.mla
     B, S, _ = x.shape
     H = cfg.num_heads
-    if S > chunk_size:
-        raise NotImplementedError(
-            f"MLA prompt of {S} tokens > chunk_size={chunk_size}: MLA "
-            f"prefill over chunk_size is not ported (ROADMAP.md, queue 1: "
-            f"MLA prefill past chunk_size) — the flash-attention kernel takes one head "
-            f"width for q, k and v, and MLA's qk width "
-            f"({m.qk_nope_head_dim + m.qk_rope_head_dim}) is not its v "
-            f"width ({m.v_head_dim}); split the prompt with "
-            f"prefill_chunk_tokens")
     q_nope, q_rope = _mla_queries(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
     k_nope = torch.einsum("btc,chd->bthd", c_kv, p.w_uk)
@@ -372,9 +400,13 @@ def mla_train(p, cfg, x, positions, *, chunk_size=512):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
-    out = full_attention(q[:, :, :, None, :], k, v, scale=_mla_scale(cfg),
-                         q_positions=positions, kv_positions=positions,
-                         causal=True)
+    if S <= chunk_size:
+        out = full_attention(q[:, :, :, None, :], k, v, scale=_mla_scale(cfg),
+                             q_positions=positions, kv_positions=positions,
+                             causal=True)
+    else:
+        _check_rising(positions, "mla_train", chunk_size)
+        out = flash_attention(q, k, v, causal=True, scale=_mla_scale(cfg))
     out = out.reshape(B, S, H * m.v_head_dim)
     return out @ p.wo, (c_kv, k_rope)
 

@@ -12,6 +12,13 @@ layer's cache planes as the JAX ones do: ``cfg.mla`` means the latent
 ``(c, kr)``, four planes mean int8 ``(k, v, k_scale, v_scale)``, two mean
 dense ``(k, v)``.
 
+An encoder-decoder's blocks: the encoder block (a dense decoder block's
+parameters, run bidirectionally: :func:`apply_encoder_block`) and the
+decoder block with cross-attention (a :class:`DecoderBlock` of
+``ffn_kind="encdec"``: causal self-attention, cross-attention over the
+encoder's K/V from :func:`cross_kv`, a dense FFN;
+:func:`apply_encdec_decoder_block`, :func:`decode_encdec_decoder_block`).
+
 The Mamba-2 block (:class:`SSMBlock`: a pre-norm SSD mixer, no FFN) and
 Zamba2's shared attention block — a dense decoder block shared by several
 call sites, each folding its own LoRA (:class:`LoRA`) into ``wq``/``wk``/
@@ -32,17 +39,31 @@ from repro_torch.models.layers import (apply_ffn, ffn_matrices, rmsnorm,
 from repro_torch.models.moe import apply_moe, moe_matrices
 
 
+def _gqa_matrices(c) -> dict:
+    d = c.d_model
+    return {"wq": (d, c.num_heads * c.head_dim),
+            "wk": (d, c.num_kv_heads * c.head_dim),
+            "wv": (d, c.num_kv_heads * c.head_dim),
+            "wo": (c.num_heads * c.head_dim, d)}
+
+
 def _matrices(c, ffn_kind: str) -> dict:
     """Block matrix name → (shape, JAX pytree path), for ``cfg``'s
-    attention flavour and the block's FFN; matrices keep the JAX
-    ``(d_in, ..., d_out)`` layout. A dotted name lives in a sub-module
-    (``experts.w_gate``)."""
+    attention flavour and the block's FFN (``ffn_kind`` ``"encdec"``: the
+    enc-dec decoder block, GQA ``self_attn`` and ``cross_attn`` and a
+    dense FFN); matrices keep the JAX ``(d_in, ..., d_out)`` layout. A
+    dotted name lives in a sub-module (``experts.w_gate``,
+    ``cross_attn.wq``)."""
     d = c.d_model
+    if ffn_kind == "encdec":
+        out = {f"{a}.{n}": (shape, (a, n))
+               for a in ("self_attn", "cross_attn")
+               for n, shape in _gqa_matrices(c).items()}
+        for n, shape in ffn_matrices(d, c.d_ff, c.ffn_activation).items():
+            out[n] = (shape, ("ffn", n))
+        return out
     if c.mla is None:
-        attn = {"wq": (d, c.num_heads * c.head_dim),
-                "wk": (d, c.num_kv_heads * c.head_dim),
-                "wv": (d, c.num_kv_heads * c.head_dim),
-                "wo": (c.num_heads * c.head_dim, d)}
+        attn = _gqa_matrices(c)
     else:
         m, H = c.mla, c.num_heads
         qk = m.qk_nope_head_dim + m.qk_rope_head_dim
@@ -64,8 +85,11 @@ def _matrices(c, ffn_kind: str) -> dict:
     return out
 
 
-def _norms(c) -> dict:
+def _norms(c, ffn_kind: str) -> dict:
     """Block RMSNorm scale name → (size, JAX pytree path)."""
+    if ffn_kind == "encdec":
+        return {n: (c.d_model, (n, "scale"))
+                for n in ("ln_self", "ln_cross", "ln_ffn")}
     out = {"ln_attn": (c.d_model, ("ln_attn", "scale")),
            "ln_ffn": (c.d_model, ("ln_ffn", "scale"))}
     if c.mla is not None:
@@ -84,12 +108,17 @@ def frozen_param(shape, dtype, device, fill=None):
 
 class DecoderBlock(nn.Module):
     """One decoder layer's parameters (GQA or MLA attention; a dense or
-    MoE FFN, ``ffn_kind``), stored in the compute dtype."""
+    MoE FFN, ``ffn_kind``), stored in the compute dtype. An encoder
+    layer's parameters are a dense decoder layer's (the JAX
+    ``init_encoder_block``); ``ffn_kind="encdec"`` is the enc-dec decoder
+    layer: ``ln_self``, ``ln_cross`` and ``ln_ffn``, the ``self_attn`` and
+    ``cross_attn`` GQA projections (sub-modules with ``wq``/``wk``/``wv``/
+    ``wo``) and a dense FFN."""
 
     def __init__(self, cfg, dtype, device, ffn_kind: str):
         super().__init__()
         self.ffn_kind = ffn_kind
-        norms, matrices = _norms(cfg), _matrices(cfg, ffn_kind)
+        norms, matrices = _norms(cfg, ffn_kind), _matrices(cfg, ffn_kind)
         self._norm_names, self._matrix_names = tuple(norms), tuple(matrices)
         for name, (size, _) in norms.items():
             setattr(self, name, frozen_param((size,), dtype, device, 1.0))
@@ -196,13 +225,65 @@ def step_paged_ragged_block(p, cfg, h, planes, block_table, ctx_lens,
     return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(planes)
 
 
+def apply_encoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
+    """Bidirectional encoder block over a full sequence: non-causal
+    self-attention (the flash kernel past ``chunk_size``), then the FFN;
+    no ``residual_scale``, as in JAX."""
+    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    a, _ = attn_mod.attn_train(p, cfg, x, positions, causal=False,
+                               chunk_size=chunk_size)
+    h = h + a
+    x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
+    return h + apply_ffn(p, x, cfg.ffn_activation)
+
+
+def cross_kv(p, cfg, enc_out):
+    """The cross-attention K/V (B, T, K, D) of encoder output ``enc_out``
+    (B, T, d), computed once a prompt."""
+    B, T, _ = enc_out.shape
+    K, D = cfg.num_kv_heads, cfg.head_dim
+    return ((enc_out @ p.cross_attn.wk).reshape(B, T, K, D),
+            (enc_out @ p.cross_attn.wv).reshape(B, T, K, D))
+
+
+def apply_encdec_decoder_block(p, cfg, h, positions, enc_k, enc_v, *,
+                               chunk_size: int = 512):
+    """Full-sequence enc-dec decoder block: causal self-attention,
+    cross-attention over ``enc_k``/``enc_v``, FFN. Returns ``(h, (k, v))``,
+    the self-attention cache pair."""
+    x = rmsnorm(p.ln_self, h, cfg.norm_eps)
+    a, kv = attn_mod.attn_train(p.self_attn, cfg, x, positions, causal=True,
+                                chunk_size=chunk_size)
+    h = h + a
+    x = rmsnorm(p.ln_cross, h, cfg.norm_eps)
+    h = h + attn_mod.attn_cross(p.cross_attn, cfg, x, enc_k, enc_v,
+                                chunk_size=chunk_size)
+    x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
+    return h + apply_ffn(p, x, cfg.ffn_activation), kv
+
+
+def decode_encdec_decoder_block(p, cfg, h, cache, positions):
+    """Single-token enc-dec decoder block over ``(k, v, ek, ev)``: the
+    self-attention cache written in place, cross-attention at the default
+    ``chunk_size`` (as the JAX block calls it). Returns ``(h, (k, v))``."""
+    ck, cv, ek, ev = cache
+    x = rmsnorm(p.ln_self, h, cfg.norm_eps)
+    a, ck, cv = attn_mod.attn_decode(p.self_attn, cfg, x, ck, cv, positions)
+    h = h + a
+    x = rmsnorm(p.ln_cross, h, cfg.norm_eps)
+    h = h + attn_mod.attn_cross(p.cross_attn, cfg, x, ek, ev)
+    x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
+    return h + apply_ffn(p, x, cfg.ffn_activation), (ck, cv)
+
+
 def jax_block_arrays(np_blocks: dict, i: int, cfg, ffn_kind: str) -> dict:
     """Layer ``i`` of one of the JAX package's stacked block pytrees
-    (``params["blocks"]``, ``["dense_blocks"]`` or ``["moe_blocks"]``,
-    leading L axis) as ``{port name: numpy array}``."""
+    (``params["blocks"]``, ``["dense_blocks"]``, ``["moe_blocks"]`` or
+    ``["enc_blocks"]``, leading L axis; ``["dec_blocks"]`` with
+    ``ffn_kind="encdec"``) as ``{port name: numpy array}``."""
     out = {}
     for name, (_, path) in {**_matrices(cfg, ffn_kind),
-                            **_norms(cfg)}.items():
+                            **_norms(cfg, ffn_kind)}.items():
         node = np_blocks
         for key in path:
             node = node[key]

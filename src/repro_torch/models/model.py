@@ -1,8 +1,14 @@
-"""Decoder-only LM for the ``attn_dense``, ``moe``, ``ssm`` and
-``hybrid`` families, as an ``nn.Module``.
+"""The LM of every family of the JAX package, as an ``nn.Module``.
 
-The counterpart of the JAX package's ``LM`` for the decoder families and
-their cache families: GQA with a native cache, GQA with an int8 cache
+The counterpart of the JAX package's ``LM`` for the decoder families
+(``attn_dense``, ``moe``, ``ssm``, ``hybrid``), the VLM (``vlm``: a dense
+decoder whose prompt is ``frontend_embeds`` image patches, projected by
+the ``projector`` MLP, then the text) and the encoder-decoder (``encdec``:
+``enc_blocks`` over ``frontend_embeds`` frames, ``enc_ln``, then
+``blocks`` of enc-dec decoder layers — JAX's ``dec_blocks`` — with
+cross-attention; a dense ``k``/``v`` cache and the cross K/V ``ek``/``ev``,
+no cache descriptor: it serves nowhere, as in JAX), and their cache
+families: GQA with a native cache, GQA with an int8 cache
 (``kv_cache_dtype="int8"``; a MoE config keeps its native cache, as in
 JAX), MLA (``cfg.mla``, the latent cache), Mamba-2 (``family="ssm"``: a
 fixed-size ``conv``/``ssm`` state row per sequence, no KV) and Zamba2
@@ -16,9 +22,11 @@ package's ``dense_blocks`` and ``moe_blocks`` scans); layer ``i`` of the
 stack is layer ``i`` of every cache plane.
 
 * ``init(generator)`` — random weights with the reference's distributions;
-* ``prefill(tokens, max_len) -> (logits, cache)`` — dense padded cache
-  (the SSM family: its final states; the hybrid: its segment, shared-KV
-  and tail caches);
+* ``prefill(tokens, max_len, frontend_embeds=None) -> (logits, cache)``
+  — dense padded cache (the SSM family: its final states; the hybrid: its
+  segment, shared-KV and tail caches; the VLM and the encoder-decoder
+  need ``frontend_embeds``, which the serving engine never passes, as the
+  JAX engine never does);
 * ``decode_step`` — one token over the dense cache (the sequential
   reference's step and the unfused dense-mirror path's batched step);
 * ``step_ragged`` — one ragged mixed batch over the dense cache (the
@@ -55,10 +63,9 @@ class LM(nn.Module):
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
                  chunk_size: int = 512, kv_cache_dtype: str = "native"):
         super().__init__()
-        if cfg.family not in ("attn_dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (ROADMAP.md, "
-                f"queue 1: modules to port)")
+        if cfg.family not in ("attn_dense", "moe", "ssm", "hybrid", "vlm",
+                              "encdec"):
+            raise ValueError(f"unknown family {cfg.family!r}")
         if kv_cache_dtype not in ("native", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'native' or 'int8', "
                              f"got {kv_cache_dtype!r}")
@@ -81,6 +88,16 @@ class LM(nn.Module):
             self.blocks = nn.ModuleList(
                 B.SSMBlock(cfg, dtype, self.device)
                 for _ in range(cfg.num_layers))
+        elif cfg.family == "encdec":
+            # the encoder layers are dense decoder layers run
+            # bidirectionally; ``blocks`` are the decoder layers
+            self.enc_blocks = nn.ModuleList(
+                B.DecoderBlock(cfg, dtype, self.device, "dense")
+                for _ in range(cfg.num_encoder_layers))
+            self.enc_ln = B.frozen_param((d,), dtype, self.device, 1.0)
+            self.blocks = nn.ModuleList(
+                B.DecoderBlock(cfg, dtype, self.device, "encdec")
+                for _ in range(cfg.num_layers))
         else:
             n_dense = (cfg.moe.first_k_dense if cfg.family == "moe"
                        else cfg.num_layers)
@@ -98,6 +115,12 @@ class LM(nn.Module):
                 for _ in range(hy.num_shared_blocks))
             self.loras = nn.ModuleList(
                 B.LoRA(cfg, dtype, self.device) for _ in range(self.n_seg))
+        if cfg.frontend.kind == "vision":
+            fe = cfg.frontend
+            self.projector = nn.ParameterList(
+                B.frozen_param((fe.d_frontend if i == 0 else d, d), dtype,
+                               self.device)
+                for i in range(fe.projector_layers))
         # the cache planes by name, fixed by the descriptor: every step
         # reads this instead of asking the descriptor again (none for the
         # hybrid, which has no descriptor)
@@ -122,6 +145,13 @@ class LM(nn.Module):
                 blk.init_weights(generator)
             for lora in self.loras:
                 lora.init_weights(generator)
+        if self.cfg.family == "encdec":
+            for blk in self.enc_blocks:
+                blk.init_weights(generator)
+            self.enc_ln.data.fill_(1.0)
+        if self.cfg.frontend.kind == "vision":
+            for w in self.projector:
+                truncated_normal_(w, 1.0, generator)
         return self
 
     # ------------------------------------------------------------- helpers
@@ -129,6 +159,27 @@ class LM(nn.Module):
         h = embed(self.embed, tokens.to(self.device, torch.long),
                   self.cfg.embedding_scale)
         return h.to(self.dtype)
+
+    def _project_frontend(self, embeds):
+        """Image patches (B, n, d_frontend) → (B, n, d_model) through the
+        projector MLP, tanh-GELU between its layers."""
+        h = embeds.to(self.dtype)
+        for i, w in enumerate(self.projector):
+            if i:
+                h = torch.nn.functional.gelu(h, approximate="tanh")
+            h = h @ w
+        return h
+
+    def _run_encoder(self, src):
+        """The encoder stack over frames ``src`` (B, T, d_model) at
+        positions ``arange(T)``, then ``enc_ln``."""
+        Bz, T, _ = src.shape
+        positions = torch.arange(T, device=self.device).expand(Bz, T)
+        h = src.to(self.dtype)
+        for blk in self.enc_blocks:
+            h = B.apply_encoder_block(blk, self.cfg, h, positions,
+                                      chunk_size=self.chunk_size)
+        return rmsnorm(self.enc_ln, h, self.cfg.norm_eps)
 
     def _logits(self, h):
         cfg = self.cfg
@@ -160,7 +211,7 @@ class LM(nn.Module):
         return x
 
     @torch.no_grad()
-    def prefill(self, tokens, max_len: int):
+    def prefill(self, tokens, max_len: int, frontend_embeds=None):
         """Run the prompt ``tokens`` (B, S); return the last position's
         logits (B, 1, V) fp32 and the decode cache: ``pos`` (B,) int32 and
         one ``(L, B, max(max_len, S), *shape)`` array per descriptor plane,
@@ -170,15 +221,46 @@ class LM(nn.Module):
         ``(L, B, d_conv-1, conv_dim)`` and ``ssm`` ``(L, B, H, P, N)`` fp32;
         the hybrid ``seg_conv``/``seg_ssm`` ``(n_seg, seg_len, B, ...)``,
         ``shared_k``/``shared_v`` ``(n_seg, B, T, K, D)`` and, with a
-        tail, ``tail_conv``/``tail_ssm`` ``(tail, B, ...)``."""
+        tail, ``tail_conv``/``tail_ssm`` ``(tail, B, ...)``.
+
+        ``frontend_embeds`` is what the VLM and the encoder-decoder need
+        (the other families ignore it, as in JAX): the VLM's image patches
+        (B, n_img, d_frontend) go before the text, at positions
+        ``arange(n_img + S)`` with ``pos = n_img + S``, and its cache is
+        ``max(max_len, n_img + S)`` long (never cut); the encoder-decoder's
+        frames (B, T_enc, d_model) run the encoder, and its cache adds the
+        cross-attention K/V ``ek``/``ev`` (L, B, T_enc, K, D)."""
         cfg = self.cfg
+        if cfg.family in ("vlm", "encdec"):
+            if frontend_embeds is None:
+                raise ValueError(f"family {cfg.family!r} needs "
+                                 f"frontend_embeds (image patches or audio "
+                                 f"frames) beside the tokens")
+            frontend_embeds = torch.as_tensor(frontend_embeds,
+                                              device=self.device)
         tokens = torch.as_tensor(tokens, device=self.device)
         Bz, S = tokens.shape
         h = self._embed_tokens(tokens)
+        if cfg.family == "vlm":
+            h = torch.cat([self._project_frontend(frontend_embeds), h], 1)
+            S = h.shape[1]                  # image tokens, then the text
         positions = torch.arange(S, device=self.device).expand(Bz, S)
         cache = {"pos": torch.full((Bz,), S, dtype=torch.int32,
                                    device=self.device)}
         T = max(max_len, S)
+        if cfg.family == "encdec":
+            enc_out = self._run_encoder(frontend_embeds)
+            kv, cross = ([], []), ([], [])
+            for blk in self.blocks:
+                ek_ev = B.cross_kv(blk, cfg, enc_out)
+                h, pair = B.apply_encdec_decoder_block(
+                    blk, cfg, h, positions, *ek_ev,
+                    chunk_size=self.chunk_size)
+                for acc, x in zip(kv + cross, pair + ek_ev):
+                    acc.append(x)
+            cache["k"], cache["v"] = (self._pad_stack(a, S, T) for a in kv)
+            cache["ek"], cache["ev"] = (torch.stack(a) for a in cross)
+            return self._logits(h[:, -1:]), cache
         if cfg.family == "ssm":
             states = [], []
             for blk in self.blocks:
@@ -246,7 +328,8 @@ class LM(nn.Module):
     def decode_step(self, cache, tokens, positions):
         """One token per row over the dense cache (KV written in place; the
         SSM states of the ``ssm`` and ``hybrid`` families come back as new
-        tensors). tokens: (B, 1); positions: (B,) write/query index."""
+        tensors; the encoder-decoder reads its cross K/V ``ek``/``ev``).
+        tokens: (B, 1); positions: (B,) write/query index."""
         cfg = self.cfg
         h = self._embed_tokens(tokens)
         positions = positions.to(self.device, torch.long)
@@ -257,6 +340,11 @@ class LM(nn.Module):
                 self.blocks, h, cache["conv"], cache["ssm"])
         elif cfg.family == "hybrid":
             h = self._decode_hybrid(h, cache, new_cache, positions)
+        elif cfg.family == "encdec":
+            for i, blk in enumerate(self.blocks):
+                h, _ = B.decode_encdec_decoder_block(
+                    blk, cfg, h, tuple(cache[n][i] for n in
+                                       ("k", "v", "ek", "ev")), positions)
         else:
             names = self.plane_names
             for i, blk in enumerate(self.blocks):
@@ -418,14 +506,27 @@ def params_from_jax(np_params: dict, cfg) -> dict:
     stacked ``params["blocks"]`` (leading L axis) — for a MoE config
     ``params["dense_blocks"]`` then ``params["moe_blocks"]``; for the
     hybrid ``params["mamba_seg"]`` (leading ``(n_seg, seg_len)``) then
-    ``params["mamba_tail"]``, with ``shared_blocks`` and ``loras`` — split
-    into the ``ModuleList``s; matrices keep the ``(d_in, d_out)`` layout
-    (the experts their stacked ``(E, d_in, d_out)``). A tied config has no
-    ``head``."""
+    ``params["mamba_tail"]``, with ``shared_blocks`` and ``loras``; for the
+    encoder-decoder ``params["enc_blocks"]`` and ``params["dec_blocks"]``
+    (the port's ``blocks``) with ``enc_ln`` — split into the
+    ``ModuleList``s; matrices keep the ``(d_in, d_out)`` layout (the
+    experts their stacked ``(E, d_in, d_out)``), as do the VLM's
+    ``projector`` matrices. A tied config has no ``head``."""
     sd = {"embed": np_params["embed"]["table"],
           "final_ln": np_params["final_ln"]["scale"]}
     if not cfg.tie_embeddings:
         sd["head"] = np_params["head"]["table"]
+    for i, w in enumerate(np_params.get("projector", ())):
+        sd[f"projector.{i}"] = w
+    if cfg.family == "encdec":
+        sd["enc_ln"] = np_params["enc_ln"]["scale"]
+        for stack, n, kind, prefix in (
+                ("enc_blocks", cfg.num_encoder_layers, "dense", "enc_blocks"),
+                ("dec_blocks", cfg.num_layers, "encdec", "blocks")):
+            for j in range(n):
+                for name, arr in B.jax_block_arrays(np_params[stack], j, cfg,
+                                                    kind).items():
+                    sd[f"{prefix}.{j}.{name}"] = arr
     if cfg.family in ("ssm", "hybrid"):
         if cfg.family == "ssm":
             layers = [("blocks", i) for i in range(cfg.num_layers)]
@@ -447,7 +548,7 @@ def params_from_jax(np_params: dict, cfg) -> dict:
             for name, arr in B.ssm_block_arrays(np_params[stack],
                                                 index).items():
                 sd[f"blocks.{j}.{name}"] = arr
-    else:
+    elif cfg.family != "encdec":
         if cfg.family == "moe":
             n_dense = cfg.moe.first_k_dense
             layers = [("dense_blocks", i, "dense") for i in range(n_dense)]

@@ -721,6 +721,73 @@ def test_flash_bf16_tensor_core_kernel(cuda_device, case):
     assert torch.equal(_bits(part), _bits(out[:, -tail:]))
 
 
+# ------------------------- flash attention at (qk, v) width pairs, non-causal
+# (B, Sq, Skv, H, K, D, DV, causal): MLA's (192, 128) pair causal at Sq =
+# Skv, Sq < Skv and Sq > Skv (dead rows), and non-causal; the encoder's
+# and the cross-attention's non-causal shapes at 16/16/64 (Sq = Skv, Sq <
+# Skv, Sq = 1, Sq > Skv) and a GQA one at Sq = 1
+FLASH_PAIR_CASES = [
+    (1, 300, 300, 16, 16, 192, 128, True),
+    (1, 77, 200, 8, 8, 192, 128, True),
+    (1, 96, 40, 4, 4, 192, 128, True),
+    (1, 130, 130, 8, 8, 192, 128, False),
+    (1, 700, 700, 16, 16, 64, 64, False),
+    (1, 200, 700, 16, 16, 64, 64, False),
+    (1, 1, 700, 16, 16, 64, 64, False),
+    (1, 300, 90, 16, 16, 64, 64, False),
+    (2, 1, 129, 32, 8, 128, 128, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_PAIR_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_width_pairs_and_non_causal_shapes(cuda_device, case,
+                                                           dtype):
+    """#9 with v narrower than q and k (MLA prefill) and non-causal at
+    Sq != Skv and Sq = 1 (an encoder, cross-attention, a decode step's
+    cross-attention) against its plain version (a bf16 output also against
+    the plain fp32 version, to half an ulp); the output is (B, Sq, H, DV),
+    rows that see no key are 0, and the last queries' rows are bit for bit
+    the same when fewer queries tile the call differently."""
+    B, Sq, Skv, H, K, D, DV, causal = case
+    rng = np.random.default_rng(Sq + Skv + D)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device, dtype)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, DV)))
+    before = kernels.flash_attention.launches
+    out = kernels.flash_attention(q, k, v, causal=causal, scale=0.1)
+    torch.cuda.synchronize()
+    assert kernels.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == (B, Sq, H, DV)
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(
+        out.float(),
+        flash_attention_ref(q, k, v, causal=causal, scale=0.1).float(),
+        atol=atol, rtol=rtol)
+    ref32 = flash_attention_ref(q.float(), k.float(), v.float(),
+                                causal=causal, scale=0.1)
+    atol, rtol = _TOL_BF16_VS_FP32 if dtype == torch.bfloat16 \
+        else _TOL[torch.float32]
+    torch.testing.assert_close(out.float(), ref32, atol=atol, rtol=rtol)
+    if causal and Sq > Skv:
+        assert torch.all(out[:, :Sq - Skv] == 0)
+    if Sq > 1:
+        tail = Sq // 2
+        part = kernels.flash_attention(q[:, -tail:].contiguous(), k, v,
+                                       causal=causal, scale=0.1)
+        assert torch.equal(_bits(part), _bits(out[:, -tail:]))
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_a_width_pair_it_is_not_built_for(cuda_device):
+    """A (qk, v) pair without an instantiation raises; no fallback."""
+    q = torch.zeros((1, 4, 2, 64), device=cuda_device)
+    v = torch.zeros((1, 4, 2, 32), device=cuda_device)
+    with pytest.raises(ValueError, match="built for"):
+        kernels.flash_attention(q, q, v)
+
+
 # ------------------------------------ MLA: tensor cores, split-KV routes
 def _mla_pages_per_part():
     """The pages of one MLA split-KV partition, as the built kernel has it."""

@@ -75,16 +75,20 @@ def _family_configs():
                 jax_get_config("mamba2-1.3b-smoke")),
         "hybrid": (get_config("zamba2-1.2b-smoke"),
                    jax_get_config("zamba2-1.2b-smoke")),
+        "vlm": (get_config("llava-next-mistral-7b-smoke"),
+                jax_get_config("llava-next-mistral-7b-smoke")),
+        "encdec": (get_config("seamless-m4t-large-v2-smoke"),
+                   jax_get_config("seamless-m4t-large-v2-smoke")),
     }
 
 
 @pytest.mark.parametrize("kd", ["native", "int8"])
 @pytest.mark.parametrize("fam", ["dense", "mla", "mla+moe", "moe", "ssm",
-                                 "hybrid"])
+                                 "hybrid", "vlm", "encdec"])
 def test_descriptor_family_matches_jax(fam, kd):
     """The port picks the JAX family (int8 only for non-MoE, non-MLA
-    attention; SSM state rows whatever the KV dtype; no descriptor for
-    the hybrid)."""
+    attention, the VLM's decoder included; SSM state rows whatever the KV
+    dtype; no descriptor for the hybrid or the encoder-decoder)."""
     cfg, jcfg = _family_configs()[fam]
     jdesc = jax_descriptor_for(jcfg, kd)
     desc = descriptor_for(cfg, kd)
@@ -99,11 +103,11 @@ def test_descriptor_family_matches_jax(fam, kd):
             [(p.name, p.shape, p.dtype, p.kind) for p in jdesc.seq_planes]
         assert desc.seq_state_bytes == jdesc.seq_state_bytes
         return
-    if jdesc is None:
-        assert desc is None
+    if fam in ("hybrid", "encdec"):
+        assert jdesc is None and desc is None
         return
     assert desc.family == jdesc.family and desc.kernel == jdesc.kernel
-    if fam in ("dense", "mla", "mla+moe", "moe"):   # same config: same planes
+    if fam in ("dense", "mla", "mla+moe", "moe", "vlm"):  # same config
         assert [(p.name, p.shape, p.dtype, p.kind)
                 for p in desc.paged_planes] == \
             [(p.name, p.shape, p.dtype, p.kind) for p in jdesc.paged_planes]
@@ -119,7 +123,7 @@ def test_mla_config_is_jax_deepseek_without_experts(suffix):
         if f.name == "name":
             continue
         mine, ref = getattr(cfg, f.name), getattr(jcfg, f.name)
-        if f.name == "mla":
+        if f.name in ("mla", "frontend"):     # the port's own dataclasses
             assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
         else:
             assert mine == ref, f.name

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels import flash_attention as jax_flash_attention
 from repro.kernels.flash_attention.ref import flash_attention_ref as jax_ref
+from repro.models.attention import chunked_attention as jax_chunked_attention
 from repro_torch.kernels import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -79,3 +80,38 @@ def test_plain_version_is_the_oracle_where_every_row_sees_a_key():
     k2[:, 30:], v2[:, 30:] = 1e4, -1e4            # after query 13's position
     again = flash_attention_ref(q, k2, v2, causal=True)
     assert torch.equal(again[:, :14], got[:, :14])
+
+
+# (B, Sq, Skv, H, K, D, DV, causal): MLA's (qk, v) width pairs at smoke
+# and at full width (192, 128), causal and not, Sq < Skv and Sq = 1
+WIDTH_PAIR_CASES = [
+    (1, 40, 40, 4, 4, 48, 32, True),
+    (2, 24, 56, 4, 2, 48, 32, False),
+    (1, 33, 33, 2, 2, 192, 128, True),
+    (1, 1, 70, 2, 2, 192, 128, False),
+]
+
+
+@pytest.mark.parametrize("case", WIDTH_PAIR_CASES)
+def test_plain_version_with_a_v_width_matches_jax_chunked_attention(case):
+    """v narrower than q and k (MLA): the plain version — the function the
+    CUDA kernel's (192, 128) instantiation is held to — against the JAX
+    ``chunked_attention`` that ``mla_train`` runs past ``chunk_size``
+    (the Pallas kernel takes one width), the queries the last Sq
+    positions. fp32: atol 1e-5, rtol 2e-5."""
+    B, Sq, Skv, H, K, D, DV, causal = case
+    rng = np.random.default_rng(Sq + D)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, DV)))
+    q_pos = np.broadcast_to(np.arange(Skv - Sq, Skv, dtype=np.int32),
+                            (B, Sq))
+    want = jax_chunked_attention(
+        jnp.asarray(q.reshape(B, Sq, K, H // K, D)), jnp.asarray(k),
+        jnp.asarray(v), scale=0.3, q_positions=jnp.asarray(q_pos),
+        kv_positions=jnp.arange(Skv), causal=causal, chunk_size=16)
+    got = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)),
+                          causal=causal, scale=0.3)
+    assert got.shape == (B, Sq, H, DV)
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(want).reshape(B, Sq, H, DV),
+                               atol=1e-5, rtol=2e-5)

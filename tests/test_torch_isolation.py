@@ -2,11 +2,12 @@
 families, the MoE configs (DeepSeek-V2 with its experts, Arctic), an
 ungated FFN (StarCoder2) and the state-space families (Mamba-2 on its
 state rows, the Zamba2 hybrid), with speculative decode, a prefix cache, a
-token journal and a fault plan (a crash, then recovery), a dense prompt
-longer than
-``chunk_size`` (the flash-attention prefill), and the dense mirror through
-the ``log`` and ``kvhybrid`` engines and host-mode ``paged`` — and every
-public kernel entry load neither JAX nor any module of the JAX package."""
+token journal and a fault plan (a crash, then recovery), dense and MLA
+prompts longer than ``chunk_size`` (the flash-attention prefill), and the
+dense mirror through the ``log`` and ``kvhybrid`` engines and host-mode
+``paged`` — the encoder-decoder and VLM configs at model level (prefill
+with frontend embeddings, decode steps), and every public kernel entry
+load neither JAX nor any module of the JAX package."""
 import os
 import subprocess
 import sys
@@ -111,6 +112,35 @@ _SCRIPT = textwrap.dedent("""
                   device="cpu").generate(reqs)
     assert len(reqs[0].generated) == 3
 
+    # MLA past chunk_size: prefill through flash_attention at the (qk, v)
+    # width pair, on both DeepSeek-V2 configs
+    for arch in ("deepseek-v2-236b-noexperts-smoke",
+                 "deepseek-v2-236b-smoke"):
+        model = LM(get_config(arch), device="cpu", chunk_size=8).init(
+            torch.Generator().manual_seed(0))
+        reqs = [Request(rid=0, prompt=np.arange(20, dtype=np.int32),
+                        max_new=3)]
+        ServingEngine(model, ServeConfig(max_len=32, page_tokens=4),
+                      device="cpu").generate(reqs)
+        assert len(reqs[0].generated) == 3
+
+    # the encoder-decoder and the VLM at model level: prefill past
+    # chunk_size with their frontend embeddings, then decode steps
+    for arch, n_front in (("seamless-m4t-large-v2-smoke", 24),
+                          ("llava-next-mistral-7b-smoke", 16)):
+        cfg = get_config(arch)
+        model = LM(cfg, device="cpu", chunk_size=8).init(
+            torch.Generator().manual_seed(0))
+        width = cfg.d_model if cfg.family == "encdec" else \
+            cfg.frontend.d_frontend
+        logits, cache = model.prefill(
+            torch.arange(12)[None], 32,
+            frontend_embeds=torch.randn(1, n_front, width))
+        for _ in range(2):
+            nxt = logits[:, -1].argmax(-1, keepdim=True)
+            logits, cache = model.decode_step(cache, nxt, cache["pos"])
+        assert bool(torch.isfinite(logits).all())
+
     # every public kernel entry, on CPU tensors (their plain versions)
     import repro_torch.kernels as K
     g = torch.Generator().manual_seed(0)
@@ -123,6 +153,8 @@ _SCRIPT = textwrap.dedent("""
     k8 = (pk * 40).to(torch.int8)
     outs = [
         K.flash_attention(r(1, 6, 4, 32), r(1, 6, 2, 32), r(1, 6, 2, 32)),
+        K.flash_attention(r(1, 6, 4, 48), r(1, 6, 4, 48), r(1, 6, 4, 32),
+                          causal=False),
         K.log_patch(r(4, 4, 8), r(3, 8), torch.tensor([0, 1, 5]),
                     torch.tensor([0, 3, 1])),
         K.paged_attention_layers(r(2, 2, 4, 32), pk, pv, tbl, lens),

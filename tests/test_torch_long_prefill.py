@@ -5,9 +5,14 @@ The JAX ``attn_train`` takes two branches past ``chunk_size``:
 ``chunked_attention_tri`` when S is a multiple of it (S = 48 at
 ``chunk_size = 16``) and ``chunked_attention`` otherwise (S = 40). The port
 computes both with ``flash_attention`` — its plain version here, the CUDA
-kernel on the card. Logits agree within 1e-4 and float cache planes within
-1e-5 (fp32), as ``tests/test_torch_model.py`` holds the short prefill.
+kernel on the card. MLA past ``chunk_size`` (the JAX ``mla_train``'s
+``chunked_attention`` branch) runs it at MLA's qk width beside its v width,
+at S = 600 and 1024 over the default 512. Logits agree within 1e-4 and
+float cache planes within 1e-5 (fp32), as ``tests/test_torch_model.py``
+holds the short prefill.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,13 +23,16 @@ from repro.configs import get_config as jax_get_config
 from repro.core.engines import EngineSpec as JaxEngineSpec
 from repro.models import build_model
 from repro.models.attention import attn_train as jax_attn_train
+from repro.models.attention import init_mla as jax_init_mla
+from repro.models.attention import mla_train as jax_mla_train
 from repro.serving import Request as JaxRequest
 from repro.serving import ServeConfig as JaxServeConfig
 from repro.serving import ServingEngine as JaxServingEngine
 from repro_torch.configs import get_config
 from repro_torch.core.engines import EngineSpec
 from repro_torch.models import LM, params_from_jax
-from repro_torch.models.attention import attn_train
+from repro_torch.kernels import flash_attention
+from repro_torch.models.attention import attn_train, mla_train
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 from test_torch_families import _close_planes
@@ -159,15 +167,76 @@ def test_attn_train_past_chunk_size_takes_rising_positions(S):
                    torch.from_numpy(pos[:, ::-1].copy()), chunk_size=CHUNK)
 
 
-def test_mla_prefill_past_chunk_size_still_raises():
-    """MLA's qk width (192 at full size) is not its v width (128), which
-    the flash kernel does not take: MLA prefill past ``chunk_size`` raises
-    and names its ROADMAP queue entry by title."""
-    cfg = get_config("deepseek-v2-236b-noexperts-smoke")
-    model = LM(cfg, device="cpu", chunk_size=CHUNK).init(
-        torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError,
-                       match="queue 1: MLA prefill past chunk_size"):
-        model.prefill(torch.zeros((1, CHUNK + 1), dtype=torch.int32), 32)
-    logits, _ = model.prefill(torch.zeros((1, CHUNK), dtype=torch.int32), 32)
-    assert logits.shape[:2] == (1, 1)
+# ------------------------------------------------- MLA past chunk_size
+MLA_ARCHS = ("deepseek-v2-236b-noexperts-smoke", "deepseek-v2-236b-smoke")
+# past the JAX package's default chunk_size (512): not a multiple of it,
+# and one that is
+MLA_LENGTHS = [600, 1024]
+
+
+def _jax_mla_config(arch):
+    if "noexperts" in arch:       # JAX's DeepSeek-V2 without its experts
+        return dataclasses.replace(
+            jax_get_config(arch.replace("-noexperts", "")), name=arch,
+            family="attn_dense", moe=None)
+    return jax_get_config(arch)
+
+
+@pytest.mark.parametrize("S", MLA_LENGTHS)
+def test_mla_train_past_chunk_size_matches_jax(S):
+    """``mla_train`` past ``chunk_size`` (512): the flash kernel's plain
+    version at the (qk, v) width pair (48, 32) of the smoke config — (192,
+    128) at full width — against the JAX ``chunked_attention`` branch, on
+    the JAX ``init_mla`` weights. fp32: output atol 1e-4, rtol 2e-5;
+    latent and rope key 1e-5."""
+    arch = MLA_ARCHS[0]
+    cfg, jcfg = get_config(arch), _jax_mla_config(arch)
+    w = jax.tree.map(np.asarray, jax_init_mla(jax.random.PRNGKey(S), jcfg,
+                                              jnp.float32))
+    tw = _P(**{n: torch.from_numpy(np.array(a["scale"] if isinstance(
+        a, dict) else a)) for n, a in w.items()})
+    rng = np.random.default_rng(S)
+    x = rng.standard_normal((1, S, cfg.d_model)).astype(np.float32)
+    pos = np.arange(S, dtype=np.int32)[None]
+    jout, (jc, jkr) = jax_mla_train(w, jcfg, jnp.asarray(x),
+                                    jnp.asarray(pos))
+    before = flash_attention.launches
+    out, (c, kr) = mla_train(tw, cfg, torch.from_numpy(x),
+                             torch.from_numpy(pos.copy()))
+    assert flash_attention.launches == before     # the CPU runs no kernel
+    np.testing.assert_allclose(out.numpy(), np.asarray(jout), atol=1e-4,
+                               rtol=2e-5)
+    np.testing.assert_allclose(c.numpy(), np.asarray(jc), atol=1e-5)
+    np.testing.assert_allclose(kr.numpy(), np.asarray(jkr), atol=1e-5)
+
+
+_MLA_MODELS: dict = {}
+
+
+def _mla_models(arch):
+    """(JAX model, JAX params, port model) at the default chunk_size."""
+    if arch not in _MLA_MODELS:
+        jmodel = build_model(_jax_mla_config(arch), remat=False)
+        jparams = jmodel.init(jax.random.PRNGKey(2))
+        cfg = get_config(arch)
+        tmodel = LM(cfg, device="cpu")
+        tmodel.load_state_dict(params_from_jax(
+            jax.tree.map(np.asarray, jparams), cfg))
+        _MLA_MODELS[arch] = (jmodel, jparams, tmodel)
+    return _MLA_MODELS[arch]
+
+
+@pytest.mark.parametrize("S", MLA_LENGTHS)
+@pytest.mark.parametrize("arch", MLA_ARCHS)
+def test_mla_prefill_past_chunk_size_matches_jax(arch, S):
+    """``LM.prefill`` of a prompt past 512 tokens on both DeepSeek-V2
+    smoke configs (dense FFN, and its MoE experts): the last logits within
+    1e-4 and the latent cache planes ``c``/``kr`` within 1e-5 (fp32) of
+    the JAX ``LM.prefill``, which runs ``chunked_attention`` there."""
+    jmodel, jparams, tmodel = _mla_models(arch)
+    toks = np.random.default_rng(S).integers(0, 512, (1, S)).astype(
+        np.int32)
+    jl, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, S + 8)
+    tl, tc = tmodel.prefill(torch.from_numpy(toks), S + 8)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_ATOL)
+    _close_planes("native", {n: tc[n] for n in tmodel.plane_names}, jc)

@@ -250,14 +250,15 @@ def test_fused_tick_with_drafts_is_one_launch(fam, monkeypatch):
              "mla": "mla_paged_attention_ragged"}[fam]
     qmax = []
     real = getattr(attention, entry)
+    ps = prompts(0, LENS)
+    want = truth(fam, ps)         # before the patch: a cold cache generates
 
     def counted(q, *a, **kw):
         qmax.append(q.shape[1])
         return real(q, *a, **kw)
     monkeypatch.setattr(attention, entry, counted)
     side = Side("torch", fam)
-    ps = prompts(0, LENS)
-    eng = side.engine(k=K, proposer=OracleProposer(truth(fam, ps), None))
+    eng = side.engine(k=K, proposer=OracleProposer(want, None))
     reqs = side.requests(ps, MAX_NEW)
     eng.generate(reqs)
     s = eng.stats()
