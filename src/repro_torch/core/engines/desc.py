@@ -211,3 +211,51 @@ def dense_descriptor(num_layers: int, kv_heads: int, head_dim: int,
         paged_planes=(PlaneSpec("k", (kv_heads, head_dim), dt),
                       PlaneSpec("v", (kv_heads, head_dim), dt)),
         kernel="dense")
+
+
+# ---------------------------------------------------------------------------
+# Family-support matrix (``python -m repro_torch.core.engines --list``)
+# ---------------------------------------------------------------------------
+# one representative smoke config per config family, descriptor-resolvable
+# without building a model
+MATRIX_FAMILIES: tuple = (
+    ("dense-gqa", "internlm2-1.8b-smoke", "native"),
+    ("int8", "internlm2-1.8b-smoke", "int8"),
+    ("mla(+moe)", "deepseek-v2-236b-smoke", "native"),
+    ("moe", "arctic-480b-smoke", "native"),
+    ("ssm", "mamba2-1.3b-smoke", "native"),
+    ("hybrid", "zamba2-1.2b-smoke", "native"),
+    ("encdec", "seamless-m4t-large-v2-smoke", "native"),
+)
+
+
+def family_mode(desc: Optional[CacheDescriptor],
+                engine_supports_pool: bool) -> str:
+    """What path an (engine, config family) pair runs: ``pooled+fused``
+    (descriptor + device pool: mirror-free ragged ticks), ``mirror+fused``
+    (descriptor but no pool: dense mirror, still one ragged launch per
+    tick), or ``mirror`` (no descriptor: unfused per-chunk fallback)."""
+    if desc is None:
+        return "mirror"
+    return "pooled+fused" if engine_supports_pool else "mirror+fused"
+
+
+def support_matrix() -> list:
+    """Rows of (engine, family, mode) over every registered KV engine and
+    every config family — sourced from descriptors, not ``supports_*``
+    introspection."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.clock import SimClock
+    from repro_torch.core.engines.base import EngineSpec
+    from repro_torch.core.engines.kv import create_kv_engine, list_kv_engines
+    from repro_torch.core.kvcache import KVSpec
+
+    rows = []
+    for name in list_kv_engines():
+        eng = create_kv_engine(EngineSpec(engine=name),
+                               KVSpec(num_layers=1, kv_heads=1, head_dim=1),
+                               SimClock())
+        for fam, cfg_name, kv_dtype in MATRIX_FAMILIES:
+            desc = descriptor_for(get_config(cfg_name), kv_dtype)
+            rows.append((name, fam, family_mode(desc, eng.supports_pool())))
+    return rows

@@ -453,9 +453,14 @@ def get_kv_engine(name: str) -> type[KVCacheEngine]:
     try:
         return _KV_REGISTRY[name]
     except KeyError:
+        from repro_torch.core.engines.base import list_engines
+        fs = list_engines()
+        hint = (f"; {name!r} is in the file-system engine registry "
+                f"({', '.join(sorted(fs))}): NVCacheFS builds it"
+                if name in fs else "")
         raise ValueError(
             f"unknown KV engine {name!r}; registered KV engines: "
-            f"{', '.join(sorted(_KV_REGISTRY))}") from None
+            f"{', '.join(sorted(_KV_REGISTRY))}{hint}") from None
 
 
 def create_kv_engine(spec: EngineSpec, kvspec: "KVSpec",

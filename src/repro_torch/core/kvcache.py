@@ -224,8 +224,9 @@ class _TieredKV(KVCacheEngine):
 
 @register_kv_engine("paged")
 class PagedKVCache(_TieredKV):
-    """NVPages design over (layer, seq) KV pages, in one of two modes that
-    share the block table and the (seq → [phys]) indirection:
+    """NVPages design over (layer, seq) KV pages.
+
+    Two modes share the block table and the (seq → [phys]) indirection:
 
     * **host mode** (default): pages live in a host pool of CPU tensors,
       an HBM LRU of ``(layer, phys)`` pages models the device working set,

@@ -1,10 +1,11 @@
 """Token-sequence radix trie: the shared-prefix index.
 
-The port's copy of the JAX package's ``TokenRadixTree`` (the int-keyed
-NVPages ``RadixTree`` wrapper belongs to the file-system tier, not ported
-yet). A token-keyed prefix trie with longest-prefix match,
-insert-along-path and per-node refcounts; the serving tier's prefix cache
-hangs refcounted pool pages off its value nodes.
+The port's copy of the JAX package's ``TokenRadixTree`` and of NVPages'
+int-keyed ``RadixTree``. A token-keyed prefix trie with longest-prefix
+match, insert-along-path and per-node refcounts; the serving tier's prefix
+cache hangs refcounted pool pages off its value nodes. NVPages indexes its
+frames through :class:`RadixTree`, a thin wrapper that maps a page number
+to its 4 radix bytes (the paper's "radix tree in volatile memory").
 
 Invariants the prefix cache relies on:
 
@@ -145,3 +146,46 @@ class TokenRadixTree:
             for t, child in node.children.items():
                 yield from walk(child, prefix + (t,))
         yield from walk(self._root, ())
+
+
+# --------------------------------------------------------------------------
+# NVPages' int-keyed page index, a wrapper over the token trie
+# --------------------------------------------------------------------------
+
+_LEVELS = 4
+_FANOUT = 256
+_SHIFTS = [(8 * (_LEVELS - 1 - i)) for i in range(_LEVELS)]   # 24,16,8,0
+_MAX_KEY = _FANOUT ** _LEVELS
+
+
+class RadixTree:
+    """4-level 256-ary radix tree: page number → metadata (NVPages)."""
+
+    __slots__ = ("_trie",)
+
+    def __init__(self):
+        self._trie = TokenRadixTree()
+
+    def _indices(self, key: int) -> list[int]:
+        if not (0 <= key < _MAX_KEY):
+            raise KeyError(f"key {key} out of radix range")
+        return [(key >> s) & 0xFF for s in _SHIFTS]
+
+    def lookup(self, key: int) -> Optional[Any]:
+        return self._trie.lookup(self._indices(key))
+
+    def insert(self, key: int, value: Any) -> None:
+        self._trie.insert(self._indices(key), value)
+
+    def delete(self, key: int) -> None:
+        self._trie.delete(self._indices(key))
+
+    def __len__(self) -> int:
+        return self._trie._values
+
+    def items(self) -> Iterator[tuple[int, Any]]:
+        for bytes_, value in self._trie.items():
+            key = 0
+            for b, s in zip(bytes_, _SHIFTS):
+                key |= b << s
+            yield key, value

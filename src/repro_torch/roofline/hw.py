@@ -35,3 +35,5 @@ NVMM = TierSpec("nvmm", read_bw=8.1e9, write_bw=4.6e9,
 SSD = TierSpec("ssd", read_bw=3.0e9, write_bw=1.5e9,
                rand_read_bw=0.5e9, rand_write_bw=0.3e9,
                read_latency=80e-6, write_latency=20e-6)
+
+SSD_FSYNC_LATENCY = 1e-3   # s per fsync barrier (paper §III: psync+fsync > 1 h)

@@ -1184,3 +1184,30 @@ def test_flash_kernel_at_zamba2_shared_attention_shape(cuda_device, dtype,
     atol, rtol = _TOL_BF16_VS_FP32 if dtype == torch.bfloat16 \
         else _TOL[torch.float32]
     torch.testing.assert_close(out.float(), ref32, atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["paged", "log", "nvhybrid"])
+def test_checkpoint_restores_card_weights_onto_the_card(cuda_device,
+                                                        design):
+    """Smoke-width InternLM2 in bf16 on the card: saved through
+    ``CheckpointManager`` (host FS tier), crashed, restored into a model
+    drawn from another seed on the card, bit for bit and on the card; the
+    same CPU ``like`` restores onto the CPU."""
+    from repro_torch.checkpoint import CheckpointManager
+    cfg = get_config("internlm2-1.8b-smoke")
+    saved = LM(cfg, dtype=torch.bfloat16, device="cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+    mgr = CheckpointManager(design, nvmm_bytes=1 << 20)
+    mgr.save(1, saved.state_dict())
+    mgr.crash()
+    other = LM(cfg, dtype=torch.bfloat16, device="cuda").init(
+        torch.Generator("cuda").manual_seed(1))
+    step, out = mgr.restore(other.state_dict())
+    assert step == 1
+    for k, t in saved.state_dict().items():
+        assert out[k].device.type == "cuda"
+        assert torch.equal(out[k].view(torch.int16), t.view(torch.int16)), k
+    _, cpu = mgr.restore({k: v.cpu() for k, v in out.items()})
+    assert all(v.device.type == "cpu" and torch.equal(v, out[k].cpu())
+               for k, v in cpu.items())

@@ -7,7 +7,9 @@ prompts longer than ``chunk_size`` (the flash-attention prefill), and the
 dense mirror through the ``log`` and ``kvhybrid`` engines and host-mode
 ``paged`` — the encoder-decoder and VLM configs at model level (prefill
 with frontend embeddings, decode steps), and every public kernel entry
-load neither JAX nor any module of the JAX package."""
+load neither JAX nor any module of the JAX package; nor do the file-system
+tier (``NVCacheFS`` on every FS engine), the checkpoint manager and the
+engine registry CLI."""
 import os
 import subprocess
 import sys
@@ -181,3 +183,93 @@ def test_port_imports_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED: []" in proc.stdout
+
+
+_LOADED = """
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "repro" or m.startswith("repro."))
+print("LOADED:", bad, file=sys.stderr)
+sys.exit(1 if bad else 0)
+"""
+
+_FS_SCRIPT = textwrap.dedent("""
+    import sys
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import ENGINES, PAGE_SIZE, EngineSpec, NVCacheFS
+
+    # an NVCacheFS round trip, through a crash, on every FS engine
+    for name in ENGINES:
+        fs = NVCacheFS(EngineSpec(engine=name, nvmm_bytes=1 << 20,
+                                  dram_cache_bytes=1 << 18))
+        fd = fs.open("/f")
+        fs.pwrite(fd, b"\\xAA" * PAGE_SIZE, 0)
+        fs.pwrite(fd, b"tiny", PAGE_SIZE + 3)
+        fs.fsync(fd)
+        fs.crash()
+        fs.recover()
+        fd = fs.open("/f")
+        assert fs.pread(fd, PAGE_SIZE, 0) == b"\\xAA" * PAGE_SIZE
+        assert fs.pread(fd, 4, PAGE_SIZE + 3) == b"tiny"
+        assert fs.stats()["sim_time_s"] > 0
+
+    # a CheckpointManager save and restore on each design
+    g = torch.Generator().manual_seed(0)
+    tree = {"w": torch.randn(64, 33, generator=g).to(torch.bfloat16),
+            "b": {"n": torch.arange(7, dtype=torch.int32)}}
+    for design in ("paged", "log", "nvhybrid"):
+        mgr = CheckpointManager(design, nvmm_bytes=1 << 20)
+        mgr.save(1, tree)
+        mgr.crash()
+        step, out = mgr.restore({"w": torch.zeros(64, 33,
+                                                  dtype=torch.bfloat16),
+                                 "b": {"n": torch.zeros(7,
+                                                        dtype=torch.int32)}})
+        assert step == 1 and torch.equal(out["w"], tree["w"])
+        assert torch.equal(out["b"]["n"], tree["b"]["n"])
+""") + _LOADED
+
+_CLI_SCRIPT = textwrap.dedent("""
+    import runpy
+    import sys
+    sys.argv = ["repro_torch.core.engines", "--list"]
+    try:
+        runpy.run_module("repro_torch.core.engines", run_name="__main__",
+                         alter_sys=True)
+    except SystemExit as e:
+        assert not e.code, e.code
+""") + _LOADED
+
+
+def test_fs_tier_and_checkpoints_load_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _FS_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED: []" in proc.stderr
+
+
+def test_engines_cli_loads_no_jax_and_lists_as_the_reference():
+    """``python -m repro_torch.core.engines --list`` loads neither JAX nor
+    ``repro``, and prints the reference's listing line for line (the FS
+    engines, the KV engines, the family matrix), but for the package
+    name."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", _CLI_SCRIPT], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED: []" in proc.stderr
+    listed = {}
+    for pkg in ("repro_torch", "repro"):
+        run = subprocess.run([sys.executable, "-m", f"{pkg}.core.engines",
+                              "--list"], env=env, capture_output=True,
+                             text=True, timeout=120)
+        assert run.returncode == 0, run.stderr
+        listed[pkg] = run.stdout.replace(pkg + ".", "<pkg>.").splitlines()
+    assert proc.stdout.splitlines() == listed["repro_torch"]
+    assert listed["repro_torch"] == listed["repro"]
+    names = [line.split()[0] for line in listed["repro_torch"][:8]]
+    assert names == ["nvpages", "nvlog", "psync", "psync_fsync", "nvhybrid",
+                     "paged", "log", "kvhybrid"]
+    assert "support matrix" in listed["repro_torch"][9]
