@@ -205,6 +205,34 @@ each raises on failure, and any failure ends the run with a traceback:
                 the same 8 greedy tokens for the serve phase's first two
                 requests as the saved model; save and restore wall and
                 simulated seconds, GB/s, the FS stats and peak RSS.
+32. train     — full-width InternLM2-1.8B (24 layers, bf16 weights, fp32
+                AdamW masters, per-layer remat, random weights and
+                synthetic data from --seed) through the training CLI,
+                ``repro_torch.launch.train.main``: 8 steps of 4 x 2048
+                tokens, #9 forward under its autograd Function in every
+                layer and again in its remat recompute (the launch counts
+                set to 0 just before, read just after: 24 x 2 x 8); every
+                step's loss finite, step 0's loss within 1e-2 of the same
+                weights' loss with the plain attention in the kernel's
+                place; step ms (the first apart), tokens/s, peak memory,
+                and the optimizer's and the plain attention backward's
+                share of a step (each timed alone on the card).
+33. parity-train — fp32: InternLM2-1.8B's widths cut to 4 layers and
+                DeepSeek-V2 without experts (MLA, #9 at (192, 128)) cut to
+                2 layers, one 1024-token sequence each: the kernel path's
+                loss within 1e-5 relative and each gradient leaf's max
+                |diff| within 1e-3 of its max |g| of the plain path's
+                (``flash_attention_ref`` differentiated by autograd), the
+                worst leaf printed.
+34. train-crash — ``examples/train_lm_torch.py`` on the card in its own
+                process (the reference example's internlm2-100m, fp32,
+                batch 16 x 256 tokens: no kernel), deterministic
+                algorithms on: 30 steps (the example's 200 cut to fit the
+                time limit), NVLog saves at 10 and 20, a crash at 25, the
+                restore checked bit for bit against the step-20 state,
+                steps 21-25 replayed with the first run's losses bit for
+                bit, then on to 30; save and restore wall and simulated
+                seconds and the process's peak RSS.
 
 Each serving path is driven with the launch counts set to 0 just before
 it and read just after; a row's ``serving_launches`` is the sum of its
@@ -298,6 +326,19 @@ FLASH_CHECKS = [(2, 128, 128, 8, 2, 64, True), (1, 100, 260, 4, 4, 32, True),
 # K and V of one token in one InternLM2-1.8B layer, the bf16 page count
 # of a 1 GiB pool, one drain batch
 LOG_GEOM = dict(P=682, T=16, C=2048, N=256)
+# phase 32: the training CLI's run, and #9 at its shape (one layer of the
+# 4 x 2048-token batch)
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 2048
+TRAIN_FLASH = dict(B=TRAIN_BATCH, Sq=TRAIN_SEQ, Skv=TRAIN_SEQ, H=16, K=8,
+                   D=128, DV=128, causal=True)
+# phase 33: (arch, layers, sequence) of the fp32 training parity runs
+PARITY_TRAIN = (("internlm2-1.8b", 4, 1024),
+                ("deepseek-v2-236b-noexperts", 2, 1024))
+# phase 34: the example's steps (200 by default) and crash; it saves every
+# 10 steps, so the restore goes back to step 20
+CRASH_STEPS, CRASH_AT = 30, 25
+CRASH_ARGS: list = []               # more example flags (none on the card)
 LONG_PROMPTS = (4096, 3072, 2048, 1100)
 # GPU clock cycles the card sleeps before a timing loop (~25 ms at 1.98
 # GHz): longer than the host takes to enqueue the loop
@@ -1016,6 +1057,9 @@ def phase_kernels(torch, dev, seed):
         "flash_attention": [
             (f"{d} S={FLASH_GEOM['Sq']} causal", lambda d=d: flash_case(
                 torch, dev, d, seed)) for d in (bf16, f32)] + [
+            (f"{d} B={TRAIN_FLASH['B']} S={TRAIN_FLASH['Sq']} causal train",
+             lambda d=d: flash_case(torch, dev, d, seed, geom=TRAIN_FLASH))
+            for d in (bf16, f32)] + [
             (f"{d} S={S} causal zamba2-1.2b H={H} K={Kh} D={D}",
              lambda d=d, g=dict(B=1, Sq=S, Skv=S, H=H, K=Kh, D=D, DV=D,
                                 causal=True): flash_case(
@@ -2809,6 +2853,222 @@ def ckpt(torch, dev, seed, design, model):
     return collections.Counter(counts) + collections.Counter(more)
 
 
+# ------------------------------------------------------------ phases 32-34
+def plain_attention(fn):
+    """``fn()`` with the flash kernel's plain version as the attention past
+    ``chunk_size`` (``attention.long_attention``), differentiated by
+    autograd; no kernel launches."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models import attention
+    real = attention.long_attention
+    attention.long_attention = flash_attention_ref
+    try:
+        return fn()
+    finally:
+        attention.long_attention = real
+
+
+def card_ms(torch, fn, iters=3):
+    """Mean CUDA-event ms of ``fn`` over ``iters`` calls after one warm
+    call (host-paced)."""
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def train(torch, dev, seed):
+    """Phase 32: the training CLI on full-width InternLM2-1.8B, bf16 with
+    fp32 masters and remat; returns every entry's launches of the run."""
+    import math
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_ref_backward)
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import LM, jax_leaf_ndims
+    from repro_torch.training import adamw_update
+    cfg = get_config(TRAIN_ARCH)
+    argv = ["--device", str(dev), "--arch", TRAIN_ARCH, "--dtype",
+            "bfloat16", "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS), "--seed", str(seed)]
+    log(f"[train] python -m repro_torch.launch.train {' '.join(argv)}")
+    report = {}
+    ops.reset_launch_counts()
+    train_cli.main(argv, report=report)
+    torch.cuda.synchronize()
+    counts = launch_counts(ops)
+    want = cfg.num_layers * 2 * TRAIN_STEPS
+    if counts["flash_attention"] != want or any(
+            v for k, v in counts.items() if k != "flash_attention"):
+        raise AssertionError(f"train: launches {counts}, want "
+                             f"{want} flash_attention (layers x forward and "
+                             f"remat recompute x steps)")
+    losses = report["losses"]
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"train: losses {losses}")
+    steps = report["step_s"]
+    step_ms = 1e3 * sum(steps[1:]) / len(steps[1:])
+    tok_s = report["tokens_per_step"] / (step_ms / 1e3)
+    peak = report["peak_bytes"]
+    log(f"[train] {cfg.name}: {cfg.param_count()} params (unpadded "
+        f"vocab), losses {losses}; step 0 {steps[0] * 1e3:.1f} ms, then "
+        f"{step_ms:.1f} ms a step = {tok_s:.1f} tokens/s; peak "
+        f"{peak / 2**30:.2f} GiB; {counts['flash_attention']} "
+        f"flash_attention launches")
+    # the optimizer and the plain attention backward, each alone on the
+    # card, against a step
+    model, state = report["model"], report["state"]
+    params = dict(model.named_parameters())
+    decay = {n: d >= 2 for n, d in jax_leaf_ndims(model).items()}
+    g = torch.Generator(dev).manual_seed(seed)
+    grads = {n: (1e-3 * torch.randn(p.shape, generator=g, device=dev)).to(
+        p.dtype) for n, p in params.items()}
+    opt_ms = card_ms(torch, lambda: adamw_update(
+        report["opt_cfg"], grads, state.opt_state, params, decay))
+    del grads, model, state, params, report
+    free(torch)
+    B, S, H, Kh, D = (TRAIN_FLASH[k] for k in "B Sq H K D".split())
+    q, k, v = (torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+               for s in ((B, S, H, D), (B, S, Kh, D), (B, S, Kh, D)))
+    dout = torch.randn((B, S, H, D), generator=g, device=dev).to(q.dtype)
+    bwd_ms = card_ms(torch, lambda: flash_attention_ref_backward(
+        q, k, v, dout, causal=True, scale=D ** -0.5))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+    fn_ms = card_ms(torch, lambda: FlashAttentionFn.apply(
+        qg, kg, vg, True, D ** -0.5).backward(dout))
+    ops.reset_launch_counts()
+    del q, k, v, dout, qg, kg, vg
+    free(torch)
+    log(f"[train] alone on the card: AdamW update {opt_ms:.1f} ms "
+        f"({opt_ms / step_ms:.1%} of a step); plain attention backward "
+        f"{bwd_ms:.2f} ms a layer x {cfg.num_layers} = "
+        f"{bwd_ms * cfg.num_layers:.1f} ms "
+        f"({bwd_ms * cfg.num_layers / step_ms:.1%} of a step); the "
+        f"Function's forward + backward {fn_ms:.2f} ms a layer")
+    # step 0's loss again, the same weights, the plain attention
+    model = LM(cfg, dtype=torch.bfloat16, device=dev).init(
+        torch.Generator(dev).manual_seed(seed))
+    batch = SyntheticLMDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH,
+                               seed=seed).batch(0)
+    with torch.no_grad():
+        plain = float(plain_attention(lambda: model.loss_fn(batch)[0]))
+    del model
+    free(torch)
+    rel = abs(losses[0] - plain) / abs(plain)
+    if not rel <= 1e-2:
+        raise AssertionError(f"train: step 0 loss {losses[0]} on the kernel "
+                             f"path, {plain} on the plain path")
+    log(f"[train] step 0 loss {losses[0]!r} (kernel) vs {plain!r} (plain "
+        f"attention): rel {rel:.3e} (tolerance 1e-2, bf16)")
+    return counts, {"step_ms": step_ms, "first_step_ms": steps[0] * 1e3,
+                    "tokens_per_s": tok_s, "peak_gib": peak / 2**30,
+                    "optimizer_ms": opt_ms, "attn_backward_ms": bwd_ms,
+                    "function_fwd_bwd_ms": fn_ms}
+
+
+def loss_and_grads(model, batch):
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss_fn(batch)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    for p in model.parameters():
+        p.grad = None
+    return loss.detach().item(), grads
+
+
+def parity_train(torch, dev, seed):
+    """Phase 33: fp32 loss and gradients through #9 against the plain
+    attention differentiated by autograd, same weights and batch; returns
+    every entry's launches of the kernel-path runs."""
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import LM
+    total = collections.Counter()
+    for arch, layers, S in PARITY_TRAIN:
+        cfg = cut(get_config(arch), layers)
+        what = f"parity-train {cfg.name} L={layers} S={S}"
+        model = LM(cfg, device=dev).init(
+            torch.Generator(dev).manual_seed(seed))
+        model.requires_grad_(True)
+        batch = SyntheticLMDataset(cfg.vocab_size, S, 1,
+                                   seed=seed).batch(0)
+        ops.reset_launch_counts()
+        loss, grads = loss_and_grads(model, batch)
+        torch.cuda.synchronize()
+        counts = launch_counts(ops)
+        if counts["flash_attention"] != 2 * layers or any(
+                v for k, v in counts.items() if k != "flash_attention"):
+            raise AssertionError(f"{what}: launches {counts}")
+        total.update(counts)
+        ref_loss, ref = plain_attention(lambda: loss_and_grads(model, batch))
+        rel = abs(loss - ref_loss) / abs(ref_loss)
+        worst, worst_leaf = 0.0, None
+        for n, gk in grads.items():
+            r = float((gk - ref[n]).abs().max()) / max(
+                float(ref[n].abs().max()), 1e-30)
+            if r > worst:
+                worst, worst_leaf = r, n
+        log(f"[{what}] loss {loss!r} (kernel) vs {ref_loss!r} (plain): rel "
+            f"{rel:.3e} (tolerance 1e-5); worst gradient leaf {worst_leaf}: "
+            f"max |diff| = {worst:.3e} x its max |g| (tolerance 1e-3); "
+            f"{counts['flash_attention']} flash_attention launches")
+        if not (rel <= 1e-5 and worst <= 1e-3):
+            raise AssertionError(f"{what}: loss rel {rel}, worst leaf "
+                                 f"{worst_leaf} {worst}")
+        del model, grads, ref
+        free(torch)
+    return total
+
+
+def train_crash(torch, dev, seed):
+    """Phase 34: the training example in its own process on the card (its
+    deterministic algorithms need ``CUBLAS_WORKSPACE_CONFIG`` before the
+    process's first cuBLAS call), its crash and resume checked by its
+    ``--verify``; returns its result."""
+    import os
+    argv = [sys.executable, str(ROOT / "examples" / "train_lm_torch.py"),
+            "--device", str(dev), "--steps", str(CRASH_STEPS), "--crash-at",
+            str(CRASH_AT), "--deterministic", "--verify", *CRASH_ARGS]
+    log(f"[train-crash] {' '.join(argv[1:])} (the example's 200 steps cut "
+        f"to {CRASH_STEPS} to fit the time limit)")
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                          timeout=420, cwd=str(ROOT))
+    for line in proc.stdout.splitlines()[:-1]:
+        log(f"[train-crash] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"train-crash: exit {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])["resume"]
+    rs = res["restore"]
+    replayed = res["replayed_steps"]
+    back = CRASH_AT // 10 * 10
+    if rs["step"] != back or not rs["bit_equal"] or not res[
+            "replay_bit_equal"] or replayed != list(range(back + 1,
+                                                          CRASH_AT + 1)):
+        raise AssertionError(f"train-crash: {res}")
+    saves = ", ".join(f"step {s['step']} {s['wall_s']:.3f} s wall "
+                      f"({s['sim_s']!r} s simulated)" for s in res["saves"])
+    log(f"[train-crash] saves: {saves}; restore to step {rs['step']}: "
+        f"{rs['wall_s']:.3f} s wall ({rs['sim_s']!r} s simulated), all "
+        f"{rs['leaves']} leaves bit-equal to the step-{rs['step']} state; "
+        f"steps {replayed[0]}-{replayed[-1]} replayed with the first run's "
+        f"losses bit for bit ({[res['losses'][str(s)] for s in replayed]}); "
+        f"peak RSS {res['peak_rss_gib']:.2f} GiB; {res['wall_s']:.1f} s "
+        f"training wall")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3023,6 +3283,18 @@ def main(argv=None) -> int:
         stamp(f"ckpt-{design}")
     del model
     free(torch)
+
+    # training: the CLI at full width (#9 forward under its autograd
+    # Function), fp32 parity of loss and gradients, the example's crash
+    counts, rows["flash_attention"]["train"] = train(torch, dev, args.seed)
+    rows["flash_attention"]["train_launches"] = counts["flash_attention"]
+    stamp("train")
+    counts = parity_train(torch, dev, args.seed)
+    rows["flash_attention"]["parity_train_launches"] = counts[
+        "flash_attention"]
+    stamp("parity-train")
+    train_crash(torch, dev, args.seed)
+    stamp("train-crash")
 
     for name, row in rows.items():
         row["serving_launches"] = served[name]

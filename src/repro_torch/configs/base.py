@@ -7,8 +7,9 @@ mixture of experts (``MoEConfig``) — a Mamba-2 state-space stack
 (``SSMConfig``) and the Zamba2 hybrid of it with shared attention blocks
 (``HybridConfig``), an encoder-decoder's encoder depth and a stub
 modality frontend (``FrontendConfig``: precomputed audio frames or image
-patches), the padded-vocab rule, and ``reduced()`` for the smoke-sized
-sibling.
+patches), the padded-vocab rule, the training schedule hint
+(``lr_schedule``) and ``param_count()``, which the training CLI reads, and
+``reduced()`` for the smoke-sized sibling.
 """
 from __future__ import annotations
 
@@ -102,6 +103,8 @@ class ModelConfig:
     hybrid: Optional[HybridConfig] = None
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     num_encoder_layers: int = 0    # encoder-decoder: the encoder's depth
+    # training schedule hint (minicpm WSD), read by launch/train.py
+    lr_schedule: str = "cosine"    # "cosine" | "wsd"
     has_kv_cache: bool = True      # False for pure SSM
     # embedding tables are allocated padded to this multiple; the padded
     # logit columns are masked
@@ -123,6 +126,12 @@ class ModelConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+    def param_count(self) -> int:
+        """Analytic parameter count (unpadded vocab), as the reference
+        counts it."""
+        from repro_torch.roofline.params import count_params
+        return count_params(self)
 
     def reduced(self, **overrides) -> "ModelConfig":
         """A smoke-test-sized sibling of this config (same family/topology)."""

@@ -1,7 +1,6 @@
 """MiniCPM-2B [arXiv:2404.06395; hf:openbmb/MiniCPM-2B-sft-bf16].
 
-Llama-like dense decoder (trained with the WSD schedule, which the port does
-not carry: it has no training yet).
+Llama-like dense decoder trained with the WSD (warmup-stable-decay) schedule.
 36 query heads = 36 KV heads (MHA), head_dim 64. MiniCPM uses mup-style
 depth/width scaling: residual branches scaled by 1.4/sqrt(num_layers),
 embeddings scaled by 12, logits divided by (d_model/256); embeddings tied.
@@ -25,5 +24,6 @@ CONFIG = ModelConfig(
     residual_scale=1.4 / (40 ** 0.5),     # depth_scale per MiniCPM §4
     embedding_scale=12.0,
     logit_scale=256.0 / 2304.0,           # 1/(d_model/dim_model_base)
+    lr_schedule="wsd",                     # the paper's headline schedule
     subquadratic=False,
 )

@@ -4,6 +4,14 @@ A CUDA tensor runs the hand-written Hopper kernel ``csrc/flash_attention.cu``
 (or the call raises); a CPU tensor runs the plain PyTorch version of
 :mod:`~repro_torch.kernels.flash_attention.ref`. There is no fallback from
 one to the other. ``flash_attention.launches`` counts kernel launches.
+
+:class:`FlashAttentionFn` puts the entry under autograd for the training
+path: its forward is :func:`flash_attention` (the kernel on the card: no
+``grad_fn`` comes out of a ctypes launch on its own), its backward the
+plain version's gradient (``ref.flash_attention_ref_backward``, plain
+PyTorch: the JAX package has no backward kernel either). The forward
+never falls back to the plain version when the kernel cannot build or
+launch.
 """
 from __future__ import annotations
 
@@ -13,7 +21,8 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import c_entry, check_launch, require_cuda
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_ref, flash_attention_ref_backward)
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -71,6 +80,29 @@ def flash_attention(q, k, v, *, causal: bool = True,
     check_launch(rc, "flash_attention")
     flash_attention.launches += 1
     return out
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: ``FlashAttentionFn.apply(q, k,
+    v, causal, scale)``. The forward launches the kernel (counted in
+    ``flash_attention.launches``) on a CUDA tensor, runs the plain version
+    on a CPU one; the backward recomputes the plain version's gradient
+    from the saved q, k and v. Under activation checkpointing the forward
+    runs again in the recompute, and launches again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale):
+        out = flash_attention(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_ref_backward(
+            q, k, v, dout.contiguous(), causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None
 
 
 ENTRIES = (flash_attention,)

@@ -6,7 +6,8 @@ The counterparts of the JAX package's ``models/attention.py`` for these
 families. Prefill attention up to ``chunk_size`` tokens
 (``full_attention``) is plain torch, as it is XLA code there; a longer
 prefill runs the hand-written flash-attention kernel
-(:mod:`~repro_torch.kernels.flash_attention`), which computes the function
+(:mod:`~repro_torch.kernels.flash_attention`; under autograd through its
+``FlashAttentionFn``, :func:`long_attention`), which computes the function
 of the JAX package's ``chunked_attention``/``chunked_attention_tri`` at
 positions ``arange(S)``: causal or not (an encoder, cross-attention), and
 for MLA at its qk width (192) beside its v width (128). The paged steps
@@ -32,7 +33,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention)
 from repro_torch.kernels.paged_attention.ops import (
     mla_paged_attention, mla_paged_attention_ragged, paged_attention,
     paged_attention_q8, paged_attention_ragged, paged_attention_ragged_q8)
@@ -72,6 +74,18 @@ def _project_qkv(p, cfg, x, positions):
     return q.reshape(B, S, K, H // K, D), k, v
 
 
+def long_attention(q, k, v, *, causal, scale):
+    """The attention of a sequence past ``chunk_size``: ``flash_attention``
+    (the kernel on the card). With grad on and an input that requires it
+    (the training path), through :class:`FlashAttentionFn`, whose output
+    has a ``grad_fn`` on the card too; otherwise the entry itself, so
+    serving and prefill launch exactly as without training."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, scale)
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
 def _check_rising(positions, what, chunk_size):
     """The flash kernel's causal mask is the token order: a causal prefill
     past ``chunk_size`` takes only positions that rise along S, as
@@ -100,8 +114,8 @@ def attn_train(p, cfg, x, positions, *, causal=True, chunk_size=512):
     else:
         if causal:
             _check_rising(positions, "attn_train", chunk_size)
-        out = flash_attention(q.flatten(2, 3), k, v, causal=causal,
-                              scale=scale)
+        out = long_attention(q.flatten(2, 3), k, v, causal=causal,
+                             scale=scale)
     out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
     return out @ p.wo, (k, v)
 
@@ -123,8 +137,8 @@ def attn_cross(p, cfg, x, enc_k, enc_v, *, chunk_size=512):
         out = full_attention(q, enc_k, enc_v, scale=scale, q_positions=pos,
                              kv_positions=pos.new_zeros(T), causal=False)
     else:
-        out = flash_attention(q.flatten(2, 3), enc_k, enc_v, causal=False,
-                              scale=scale)
+        out = long_attention(q.flatten(2, 3), enc_k, enc_v, causal=False,
+                             scale=scale)
     return out.reshape(B, S, H * D) @ p.wo
 
 
@@ -406,7 +420,7 @@ def mla_train(p, cfg, x, positions, *, chunk_size=512):
                              causal=True)
     else:
         _check_rising(positions, "mla_train", chunk_size)
-        out = flash_attention(q, k, v, causal=True, scale=_mla_scale(cfg))
+        out = long_attention(q, k, v, causal=True, scale=_mla_scale(cfg))
     out = out.reshape(B, S, H * m.v_head_dim)
     return out @ p.wo, (c_kv, k_rope)
 

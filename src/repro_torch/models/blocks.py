@@ -148,22 +148,44 @@ class DecoderBlock(nn.Module):
                 truncated_normal_(t, 1.0, generator)
 
 
-def _ffn(p, cfg, h):
+def _ffn_aux(p, cfg, h):
+    """The block's FFN half: ``(h, aux)``, ``aux`` the MoE load-balancing
+    loss (fp32 scalar), None for a dense FFN."""
     x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
     if p.ffn_kind == "moe":
-        f, _ = apply_moe(p, cfg, x)
+        f, aux = apply_moe(p, cfg, x)
     else:
-        f = apply_ffn(p, x, cfg.ffn_activation)
-    return h + cfg.residual_scale * f
+        f, aux = apply_ffn(p, x, cfg.ffn_activation), None
+    return h + cfg.residual_scale * f, aux
+
+
+def _ffn(p, cfg, h):
+    return _ffn_aux(p, cfg, h)[0]
+
+
+def _attn_half(p, cfg, h, positions, chunk_size):
+    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    train = attn_mod.mla_train if cfg.mla is not None else attn_mod.attn_train
+    a, kv = train(p, cfg, x, positions, chunk_size=chunk_size)
+    return h + cfg.residual_scale * a, kv
 
 
 def apply_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
     """Full-sequence block (prefill). Returns ``(h, cache pair)``:
     ``(k, v)`` for GQA, ``(c_kv, k_rope)`` for MLA."""
-    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
-    train = attn_mod.mla_train if cfg.mla is not None else attn_mod.attn_train
-    a, kv = train(p, cfg, x, positions, chunk_size=chunk_size)
-    return _ffn(p, cfg, h + cfg.residual_scale * a), kv
+    h, kv = _attn_half(p, cfg, h, positions, chunk_size)
+    return _ffn(p, cfg, h), kv
+
+
+def train_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
+    """Full-sequence block on the loss path: ``(h, aux)``, the MoE
+    load-balancing loss in place of the cache pair (0 for a dense FFN),
+    as the JAX block returns it beside ``h``."""
+    h, _ = _attn_half(p, cfg, h, positions, chunk_size)
+    h, aux = _ffn_aux(p, cfg, h)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
 
 
 def decode_decoder_block(p, cfg, h, cache, positions):

@@ -81,7 +81,11 @@ def apply_ffn(p, x, activation):
 
 
 def embed(table, tokens, scale=1.0):
-    out = table[tokens]
+    """Rows of ``table`` for ``tokens``: the gather ``table[tokens]``,
+    through ``F.embedding``, whose backward on the card sums a row's
+    gradients in fp32 (a bf16 table's too), where the accumulating
+    ``index_put_`` of ``table[tokens]`` adds in the table's dtype."""
+    out = F.embedding(tokens, table)
     if scale != 1.0:
         out = out * torch.tensor(scale, dtype=out.dtype)
     return out
@@ -100,3 +104,17 @@ def lm_logits(table, h, logit_scale=1.0, soft_cap=0.0,
         pad_mask = torch.arange(table.shape[0], device=h.device) < vocab_size
         logits = torch.where(pad_mask, logits, -1e30)
     return logits
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """logits fp32 (..., V); labels int (...). Returns the mean NLL
+    (logsumexp minus the gold logit) over ``mask`` (all positions when
+    None). A column masked to -1e30 by :func:`lm_logits` has softmax
+    weight exactly 0, so it takes exactly 0 gradient."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)

@@ -22,6 +22,10 @@ package's ``dense_blocks`` and ``moe_blocks`` scans); layer ``i`` of the
 stack is layer ``i`` of every cache plane.
 
 * ``init(generator)`` — random weights with the reference's distributions;
+* ``loss_fn(batch) -> (loss, metrics)`` — the training loss of every
+  family under autograd (``remat``: each layer recomputed in the backward,
+  as the reference's default policy; the parameters are frozen until
+  :func:`repro_torch.training.init_train_state` turns their grad on);
 * ``prefill(tokens, max_len, frontend_embeds=None) -> (logits, cache)``
   — dense padded cache (the SSM family: its final states; the hybrid: its
   segment, shared-KV and tail caches; the VLM and the encoder-decoder
@@ -50,18 +54,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.engines.desc import descriptor_for
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import quantize_kv
-from repro_torch.models.layers import (embed, lm_logits, rmsnorm,
-                                       truncated_normal_)
+from repro_torch.models.layers import (cross_entropy_loss, embed,
+                                       lm_logits, rmsnorm, truncated_normal_)
 
 
 class LM(nn.Module):
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
-                 chunk_size: int = 512, kv_cache_dtype: str = "native"):
+                 chunk_size: int = 512, kv_cache_dtype: str = "native",
+                 remat: bool = True):
         super().__init__()
         if cfg.family not in ("attn_dense", "moe", "ssm", "hybrid", "vlm",
                               "encdec"):
@@ -77,6 +83,9 @@ class LM(nn.Module):
         self.device = resolve_device(device)
         self.dtype = dtype
         self.chunk_size = chunk_size
+        # the loss path recomputes each layer (hybrid: each segment) in the
+        # backward, as the reference's "nothing" remat policy does
+        self.remat = remat
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = B.frozen_param((V, d), dtype, self.device)
         self.head = (None if cfg.tie_embeddings
@@ -177,9 +186,18 @@ class LM(nn.Module):
         positions = torch.arange(T, device=self.device).expand(Bz, T)
         h = src.to(self.dtype)
         for blk in self.enc_blocks:
-            h = B.apply_encoder_block(blk, self.cfg, h, positions,
-                                      chunk_size=self.chunk_size)
+            h = self._call(lambda x, blk=blk: B.apply_encoder_block(
+                blk, self.cfg, x, positions, chunk_size=self.chunk_size), h)
         return rmsnorm(self.enc_ln, h, self.cfg.norm_eps)
+
+    def _call(self, fn, *args):
+        """``fn(*args)``: one layer (or hybrid segment) of a stack. On the
+        loss path with ``remat`` it runs under activation checkpointing, so
+        only its inputs are kept and the backward recomputes it."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return fn(*args)
 
     def _logits(self, h):
         cfg = self.cfg
@@ -199,6 +217,86 @@ class LM(nn.Module):
 
     def supports_ragged_step(self) -> bool:
         return self.cache_descriptor() is not None
+
+    # ---------------------------------------------------------------- train
+    def loss_fn(self, batch):
+        """The training loss of ``batch``, a dict of arrays: ``tokens`` and
+        ``labels`` (B, S), optional ``loss_mask`` (B, S) and, for the VLM and
+        the encoder-decoder, ``frontend_embeds`` (image patches before the
+        text; audio frames for the encoder). Returns ``(loss, {"loss",
+        "aux_loss"})``: the mean next-token NLL over the mask (the VLM's on
+        its text positions only), plus ``router_aux_weight · aux`` for a MoE
+        config, ``aux`` the load-balancing losses summed over its layers.
+        The reference's ``LM.loss_fn``, run under autograd: the parameters
+        must require grad (``training.init_train_state`` turns that on)."""
+        cfg, dev, cs = self.cfg, self.device, self.chunk_size
+        tokens = torch.as_tensor(batch["tokens"], device=dev)
+        labels = torch.as_tensor(batch["labels"], device=dev)
+        Bz, S = tokens.shape
+        h = self._embed_tokens(tokens)
+        positions = torch.arange(S, device=dev).expand(Bz, S)
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        fam = cfg.family
+        if fam in ("attn_dense", "moe", "vlm"):
+            n_img = 0
+            if fam == "vlm":
+                img = self._project_frontend(torch.as_tensor(
+                    batch["frontend_embeds"], device=dev))
+                n_img = img.shape[1]
+                h = torch.cat([img, h], 1)
+                positions = torch.arange(n_img + S, device=dev).expand(
+                    Bz, n_img + S)
+            for blk in self.blocks:
+                h, a = self._call(lambda x, blk=blk: B.train_decoder_block(
+                    blk, cfg, x, positions, chunk_size=cs), h)
+                aux = aux + a
+            h = h[:, n_img:]
+        elif fam == "ssm":
+            for blk in self.blocks:
+                h = self._call(lambda x, blk=blk: B.apply_ssm_block(
+                    blk, cfg, x)[0], h)
+        elif fam == "hybrid":
+            h = self._hybrid_loss_stack(h, positions)
+        else:                                               # encdec
+            enc_out = self._run_encoder(torch.as_tensor(
+                batch["frontend_embeds"], device=dev))
+
+            def dec_body(x, enc, blk):
+                ek, ev = B.cross_kv(blk, cfg, enc)
+                return B.apply_encdec_decoder_block(
+                    blk, cfg, x, positions, ek, ev, chunk_size=cs)[0]
+            for blk in self.blocks:
+                h = self._call(lambda x, e, blk=blk: dec_body(x, e, blk), h,
+                               enc_out)
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = torch.as_tensor(mask, device=dev)
+        loss = cross_entropy_loss(self._logits(h), labels, mask)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.router_aux_weight * aux
+        return loss, {"loss": loss, "aux_loss": aux}
+
+    def _hybrid_loss_stack(self, h, positions):
+        """Zamba2 on the loss path: each segment (its Mamba-2 layers, then
+        its shared block with its LoRA) one checkpointed call, as the
+        reference remats its segment scan body; then the tail layers."""
+        cfg = self.cfg
+
+        def seg_body(x, blocks, shared, lora):
+            for blk in blocks:
+                x = B.apply_ssm_block(blk, cfg, x)[0]
+            return B.apply_shared_block(shared, lora, cfg, x, positions,
+                                        chunk_size=self.chunk_size)[0]
+        layers = iter(self.blocks)
+        for seg in range(self.n_seg):
+            blocks = [next(layers) for _ in range(self.seg_len)]
+            shared = self.shared_blocks[seg % cfg.hybrid.num_shared_blocks]
+            h = self._call(lambda x, b=blocks, s=shared, lo=self.loras[seg]:
+                           seg_body(x, b, s, lo), h)
+        for blk in layers:
+            h = self._call(lambda x, blk=blk: B.apply_ssm_block(
+                blk, cfg, x)[0], h)
+        return h
 
     # -------------------------------------------------------------- prefill
     @staticmethod
@@ -500,18 +598,66 @@ class LM(nn.Module):
         return self._logits(h), new_cache
 
 
+def _jax_layers(cfg) -> list:
+    """Every stacked layer of the JAX package's ``LM.init`` pytree, in the
+    port's module order: ``(port prefix, JAX stack, index, kind)``. The
+    stack is the pytree key whose leaves carry the layer axis (for the
+    hybrid's ``mamba_seg`` two: ``index`` is then ``(segment, layer)``);
+    ``kind`` is a block's ``ffn_kind`` (``"dense"``, ``"moe"``,
+    ``"encdec"``), ``"ssm"`` or ``"lora"``."""
+    fam = cfg.family
+    if fam == "encdec":
+        return ([(f"enc_blocks.{j}", "enc_blocks", j, "dense")
+                 for j in range(cfg.num_encoder_layers)]
+                + [(f"blocks.{j}", "dec_blocks", j, "encdec")
+                   for j in range(cfg.num_layers)])
+    if fam == "ssm":
+        return [(f"blocks.{i}", "blocks", i, "ssm")
+                for i in range(cfg.num_layers)]
+    if fam == "hybrid":
+        hy = cfg.hybrid
+        n_seg = cfg.num_layers // hy.shared_block_period
+        layers = [("mamba_seg", (s, i)) for s in range(n_seg)
+                  for i in range(hy.shared_block_period)]
+        layers += [("mamba_tail", i)
+                   for i in range(cfg.num_layers - len(layers))]
+        return ([(f"blocks.{j}", stack, index, "ssm")
+                 for j, (stack, index) in enumerate(layers)]
+                + [(f"shared_blocks.{j}", "shared_blocks", j, "dense")
+                   for j in range(hy.num_shared_blocks)]
+                + [(f"loras.{s}", "loras", s, "lora") for s in range(n_seg)])
+    if fam == "moe":
+        n_dense = cfg.moe.first_k_dense
+        layers = [("dense_blocks", i, "dense") for i in range(n_dense)]
+        layers += [("moe_blocks", i, "moe")
+                   for i in range(cfg.num_layers - n_dense)]
+    else:
+        layers = [("blocks", i, "dense") for i in range(cfg.num_layers)]
+    return [(f"blocks.{j}", stack, i, kind)
+            for j, (stack, i, kind) in enumerate(layers)]
+
+
+def _jax_layer_arrays(np_params: dict, cfg, stack, index, kind) -> dict:
+    if kind == "ssm":
+        return B.ssm_block_arrays(np_params[stack], index)
+    if kind == "lora":
+        return {n: np_params[stack][n][index] for n in ("a", "b")}
+    return B.jax_block_arrays(np_params[stack], index, cfg, kind)
+
+
 def params_from_jax(np_params: dict, cfg) -> dict:
     """A state dict for :class:`LM` from the JAX package's ``LM.init``
-    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``). The
-    stacked ``params["blocks"]`` (leading L axis) — for a MoE config
+    pytree as numpy arrays (``jax.tree.map(np.asarray, params)``; a
+    gradient pytree of the same structure maps alike). The stacked
+    ``params["blocks"]`` (leading L axis) — for a MoE config
     ``params["dense_blocks"]`` then ``params["moe_blocks"]``; for the
     hybrid ``params["mamba_seg"]`` (leading ``(n_seg, seg_len)``) then
     ``params["mamba_tail"]``, with ``shared_blocks`` and ``loras``; for the
     encoder-decoder ``params["enc_blocks"]`` and ``params["dec_blocks"]``
     (the port's ``blocks``) with ``enc_ln`` — split into the
-    ``ModuleList``s; matrices keep the ``(d_in, d_out)`` layout (the
-    experts their stacked ``(E, d_in, d_out)``), as do the VLM's
-    ``projector`` matrices. A tied config has no ``head``."""
+    ``ModuleList``s (:func:`_jax_layers`); matrices keep the ``(d_in,
+    d_out)`` layout (the experts their stacked ``(E, d_in, d_out)``), as do
+    the VLM's ``projector`` matrices. A tied config has no ``head``."""
     sd = {"embed": np_params["embed"]["table"],
           "final_ln": np_params["final_ln"]["scale"]}
     if not cfg.tie_embeddings:
@@ -520,45 +666,23 @@ def params_from_jax(np_params: dict, cfg) -> dict:
         sd[f"projector.{i}"] = w
     if cfg.family == "encdec":
         sd["enc_ln"] = np_params["enc_ln"]["scale"]
-        for stack, n, kind, prefix in (
-                ("enc_blocks", cfg.num_encoder_layers, "dense", "enc_blocks"),
-                ("dec_blocks", cfg.num_layers, "encdec", "blocks")):
-            for j in range(n):
-                for name, arr in B.jax_block_arrays(np_params[stack], j, cfg,
-                                                    kind).items():
-                    sd[f"{prefix}.{j}.{name}"] = arr
-    if cfg.family in ("ssm", "hybrid"):
-        if cfg.family == "ssm":
-            layers = [("blocks", i) for i in range(cfg.num_layers)]
-        else:
-            hy = cfg.hybrid
-            n_seg = cfg.num_layers // hy.shared_block_period
-            layers = [("mamba_seg", (s, i)) for s in range(n_seg)
-                      for i in range(hy.shared_block_period)]
-            layers += [("mamba_tail", i)
-                       for i in range(cfg.num_layers - len(layers))]
-            for j in range(hy.num_shared_blocks):
-                for name, arr in B.jax_block_arrays(
-                        np_params["shared_blocks"], j, cfg, "dense").items():
-                    sd[f"shared_blocks.{j}.{name}"] = arr
-            for s in range(n_seg):
-                for name in ("a", "b"):
-                    sd[f"loras.{s}.{name}"] = np_params["loras"][name][s]
-        for j, (stack, index) in enumerate(layers):
-            for name, arr in B.ssm_block_arrays(np_params[stack],
-                                                index).items():
-                sd[f"blocks.{j}.{name}"] = arr
-    elif cfg.family != "encdec":
-        if cfg.family == "moe":
-            n_dense = cfg.moe.first_k_dense
-            layers = [("dense_blocks", i, "dense") for i in range(n_dense)]
-            layers += [("moe_blocks", i, "moe")
-                       for i in range(cfg.num_layers - n_dense)]
-        else:
-            layers = [("blocks", i, "dense") for i in range(cfg.num_layers)]
-        for j, (stack, i, kind) in enumerate(layers):
-            for name, arr in B.jax_block_arrays(np_params[stack], i, cfg,
-                                                kind).items():
-                sd[f"blocks.{j}.{name}"] = arr
+    for prefix, stack, index, kind in _jax_layers(cfg):
+        for name, arr in _jax_layer_arrays(np_params, cfg, stack, index,
+                                           kind).items():
+            sd[f"{prefix}.{name}"] = arr
     return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in sd.items()}
+
+
+def jax_leaf_ndims(model: LM) -> dict:
+    """Parameter name → the rank of the JAX leaf it comes from: its own
+    rank plus the layer axes its JAX stack carries (:func:`_jax_layers`:
+    one, two for the hybrid's ``mamba_seg``); a top-level leaf
+    (``embed``, ``final_ln``, a projector matrix) has no such axis. The
+    reference's AdamW decays a leaf of rank 2 or more, so this decides
+    which of the port's per-layer tensors decay: every block's norm scales
+    do, the top-level ``final_ln`` and ``enc_ln`` do not."""
+    axes = {prefix: len(index) if isinstance(index, tuple) else 1
+            for prefix, _, index, _ in _jax_layers(model.cfg)}
+    return {name: p.ndim + axes.get(".".join(name.split(".")[:2]), 0)
+            for name, p in model.named_parameters()}

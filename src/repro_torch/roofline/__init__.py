@@ -1,1 +1,2 @@
-"""Storage-tier constants of the simulated clock."""
+"""Storage-tier constants of the simulated clock (``hw``) and the analytic
+parameter counts (``params``)."""

@@ -101,3 +101,87 @@ def test_kernel_rows_cover_every_pallas_call_once():
     rows = [replaces for replaces, _ in chip_smoke.KERNELS.values()]
     assert len(rows) == len(set(rows)) == len(sites) == 10
     assert set(rows) == sites
+
+
+def test_script_runs_the_training_phases_last():
+    """``main`` runs train, parity-train and train-crash, in that order,
+    after the checkpoint phases; train drives the CLI at InternLM2-1.8B's
+    full width on 4 x 2048 tokens (past ``chunk_size``, so #9 runs) for 8
+    steps."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    at = [src.index(s) for s in ('stamp(f"ckpt-{design}")', "train(torch",
+                                 "parity_train(torch", "train_crash(torch",
+                                 'stamp("train-crash")')]
+    assert at == sorted(at)
+    assert (chip_smoke.TRAIN_ARCH, chip_smoke.TRAIN_STEPS,
+            chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_SEQ) == (
+        "internlm2-1.8b", 8, 4, 2048)
+    assert chip_smoke.TRAIN_SEQ > 512
+    assert [a for a, _, _ in chip_smoke.PARITY_TRAIN] == [
+        "internlm2-1.8b", "deepseek-v2-236b-noexperts"]
+    assert (chip_smoke.CRASH_STEPS, chip_smoke.CRASH_AT) == (30, 25)
+
+
+def test_training_phases_rehearse_on_the_cpu(monkeypatch, capsys):
+    """Phases 32-33 at smoke size on the CPU, the flash entry's plain
+    version counted as its launches: train launches it layers x (forward
+    + remat recompute) x steps times and nothing else, its step-0 loss is
+    the plain attention's; parity-train launches it twice a layer and
+    holds the loss and every gradient leaf."""
+    import repro_torch.kernels as ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import attention
+
+    def counted(q, k, v, *, causal=True, scale=None, **_):
+        counted.launches += 1
+        return flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    counted.__name__, counted.launches = "flash_attention", 0
+    monkeypatch.setattr(flash_ops, "flash_attention", counted)
+    monkeypatch.setattr(attention, "flash_attention", counted)
+    monkeypatch.setattr(ops, "ENTRIES", tuple(
+        counted if e.__name__ == "flash_attention" else e
+        for e in ops.ENTRIES))
+    monkeypatch.setattr(flash_ops, "reset_launch_counts",
+                        lambda: setattr(counted, "launches", 0))
+
+    class Event:
+        def __init__(self, **_):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    main = train_cli.main
+
+    def cpu_main(argv, report):
+        out = main(argv, report=report)
+        report["peak_bytes"] = 0            # no device memory on the CPU
+        return out
+    monkeypatch.setattr(train_cli, "main", cpu_main)
+    monkeypatch.setattr(chip_smoke, "TRAIN_ARCH", "internlm2-1.8b-smoke")
+    monkeypatch.setattr(chip_smoke, "TRAIN_STEPS", 3)
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
+    monkeypatch.setattr(chip_smoke, "TRAIN_SEQ", 520)
+    monkeypatch.setattr(chip_smoke, "TRAIN_FLASH", dict(
+        B=2, Sq=520, Skv=520, H=4, K=4, D=32, DV=32, causal=True))
+    monkeypatch.setattr(chip_smoke, "PARITY_TRAIN", (
+        ("internlm2-1.8b-smoke", 2, 520),
+        ("deepseek-v2-236b-noexperts-smoke", 2, 520)))
+    cpu = torch.device("cpu")
+    counts, report = chip_smoke.train(torch, cpu, 0)
+    assert counts["flash_attention"] == 2 * 2 * 3
+    assert sum(counts.values()) == counts["flash_attention"]
+    assert report["tokens_per_s"] > 0
+    counts = chip_smoke.parity_train(torch, cpu, 0)
+    assert counts["flash_attention"] == 2 * 2 + 2 * 2
+    out = capsys.readouterr().out
+    assert "rel 0.000e+00 (tolerance 1e-2, bf16)" in out
+    assert out.count("worst gradient leaf") == 2

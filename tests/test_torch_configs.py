@@ -2,9 +2,10 @@
 against the JAX package's.
 
 * each registered config is the JAX package's field for field (the port
-  carries the fields it reads, all but the training schedule hint;
+  carries every field since training brought back the schedule hint;
   ``deepseek-v2-236b-noexperts`` is JAX's DeepSeek-V2 without its
-  experts), and so is its ``-smoke`` sibling;
+  experts), and so is its ``-smoke`` sibling, with the same
+  ``param_count()``;
 * ``LM.prefill``, ``decode_step``, ``decode_step_paged``,
   ``step_paged_ragged`` and ``step_ragged`` on ``deepseek-v2-236b-smoke``
   and ``arctic-480b-smoke`` (MoE), ``gemma-7b-smoke`` (GeGLU, tied
@@ -52,11 +53,12 @@ def test_config_is_jax_config(name):
             assert dataclasses.asdict(mine) == dataclasses.asdict(ref), f.name
         else:
             assert mine == ref, f.name
-    # what the port leaves out is what no ported module reads (the
-    # training schedule hint)
+    # the port leaves out no field: the training schedule hint came back
+    # with its reader, launch/train.py
     left = {f.name for f in dataclasses.fields(jcfg)} - {
         f.name for f in dataclasses.fields(cfg)}
-    assert left == {"lr_schedule"}
+    assert left == set()
+    assert cfg.param_count() == jcfg.param_count()
 
 
 # ---------------------------------------------------------------- model steps

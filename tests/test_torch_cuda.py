@@ -1211,3 +1211,116 @@ def test_checkpoint_restores_card_weights_onto_the_card(cuda_device,
     _, cpu = mgr.restore({k: v.cpu() for k, v in out.items()})
     assert all(v.device.type == "cpu" and torch.equal(v, out[k].cpu())
                for k, v in cpu.items())
+
+
+# ------------------------------------------------ training: the Function
+# (B, Sq, Skv, H, K, D, DV, causal): the dense pair at GQA group 2 and
+# MLA's pair, each causal and not (an encoder's, a cross-attention's)
+FUNCTION_CASES = [(2, 600, 600, 8, 4, 128, 128, True),
+                  (1, 300, 700, 4, 2, 128, 128, False),
+                  (1, 520, 520, 8, 8, 192, 128, True),
+                  (2, 257, 257, 4, 4, 192, 128, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FUNCTION_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_function_gradients_on_card_are_the_plain_paths(cuda_device, case,
+                                                         dtype):
+    """``FlashAttentionFn`` on the card: the forward is the kernel (one
+    launch, within the kernel's tolerance of the plain version) and the
+    output has the Function as its ``grad_fn``; its q/k/v gradients are
+    plain autograd through ``flash_attention_ref`` on the same inputs,
+    within the same tolerance (the gradients' formulas are the plain
+    version's; only the forward's output values differ)."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    B, Sq, Skv, H, K, D, DV, causal = case
+    g = torch.Generator(cuda_device).manual_seed(sum(case[:7]))
+    q, k, v = (torch.randn(s, generator=g, device=cuda_device).to(dtype)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, DV)))
+    dout = torch.randn((B, Sq, H, DV), generator=g,
+                       device=cuda_device).to(dtype)
+    got = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kernels.reset_launch_counts()
+    out = FlashAttentionFn.apply(*got, causal, D ** -0.5)
+    assert kernels.flash_attention.launches == 1
+    assert type(out.grad_fn).__name__ == "FlashAttentionFnBackward"
+    out.backward(dout)
+    assert kernels.flash_attention.launches == 1
+    want = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention_ref(*want, causal=causal, scale=D ** -0.5)
+    ref.backward(dout)
+    atol, rtol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol,
+                               rtol=rtol)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.grad.float(), b.grad.float(),
+                                   atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_training_counts_forward_and_remat_launches(cuda_device):
+    """A loss past ``chunk_size`` launches #9 once a layer, and once more a
+    layer in the remat recompute; remat off, once a layer. Both give the
+    same loss and gradients."""
+    cfg = get_config("internlm2-1.8b-smoke")
+    model = LM(cfg, device=cuda_device, chunk_size=16).init(
+        torch.Generator(cuda_device).manual_seed(0))
+    model.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (2, 41)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    runs = {}
+    for remat in (True, False):
+        model.remat = remat
+        for p in model.parameters():
+            p.grad = None
+        kernels.reset_launch_counts()
+        loss, _ = model.loss_fn(batch)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[remat] = (kernels.flash_attention.launches, loss.item(),
+                       {n: p.grad.clone() for n, p in
+                        model.named_parameters()})
+    assert runs[True][0] == 2 * cfg.num_layers
+    assert runs[False][0] == cfg.num_layers
+    assert runs[True][1] == runs[False][1]
+    for n, gr in runs[True][2].items():
+        torch.testing.assert_close(gr, runs[False][2][n], atol=1e-6,
+                                   rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_serving_a_trainable_model_launches_as_before(cuda_device):
+    """Parameters that require grad (a model being trained) change nothing
+    in serving: its steps run under ``no_grad``, so long prompts prefill
+    through the bare entry (no Function, no ``grad_fn``) with the launch
+    counts of a frozen model, and the same tokens."""
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    cfg = get_config("internlm2-1.8b-smoke")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n, dtype=np.int32)
+               for n in (20, 12, 6)]
+
+    def run(trainable):
+        model = LM(cfg, device=cuda_device, chunk_size=8).init(
+            torch.Generator(cuda_device).manual_seed(0))
+        model.requires_grad_(trainable)
+        reqs = [Request(rid=i, prompt=p, max_new=6)
+                for i, p in enumerate(prompts)]
+        kernels.reset_launch_counts()
+        ServingEngine(model, ServeConfig(max_len=32, page_tokens=8),
+                      device=cuda_device).generate(reqs)
+        counts = {e.__name__: e.launches for e in kernels.ENTRIES}
+        return [r.generated for r in reqs], counts
+
+    applied = []
+    real = FlashAttentionFn.apply
+    FlashAttentionFn.apply = lambda *a: applied.append(a) or real(*a)
+    try:
+        frozen, trained = run(False), run(True)
+    finally:
+        FlashAttentionFn.apply = real
+    assert not applied
+    assert trained == frozen
+    assert frozen[1]["flash_attention"] == 2 * cfg.num_layers

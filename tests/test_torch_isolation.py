@@ -8,8 +8,10 @@ dense mirror through the ``log`` and ``kvhybrid`` engines and host-mode
 ``paged`` — the encoder-decoder and VLM configs at model level (prefill
 with frontend embeddings, decode steps), and every public kernel entry
 load neither JAX nor any module of the JAX package; nor do the file-system
-tier (``NVCacheFS`` on every FS engine), the checkpoint manager and the
-engine registry CLI."""
+tier (``NVCacheFS`` on every FS engine), the checkpoint manager, the
+engine registry CLI, the training CLI (``python -m
+repro_torch.launch.train``) and ``examples/train_lm_torch.py``. Without
+``--device cpu`` the training CLI and the example raise here (no GPU)."""
 import os
 import subprocess
 import sys
@@ -273,3 +275,55 @@ def test_engines_cli_loads_no_jax_and_lists_as_the_reference():
     assert names == ["nvpages", "nvlog", "psync", "psync_fsync", "nvhybrid",
                      "paged", "log", "kvhybrid"]
     assert "support matrix" in listed["repro_torch"][9]
+
+
+_TRAIN_SCRIPT = textwrap.dedent("""
+    import runpy
+    import sys
+    sys.argv = ["repro_torch.launch.train", "--device", "cpu", "--arch",
+                "internlm2-1.8b-smoke", "--steps", "3", "--seq", "64",
+                "--ckpt-every", "2"]
+    runpy.run_module("repro_torch.launch.train", run_name="__main__",
+                     alter_sys=True)
+""") + _LOADED
+
+_EXAMPLE_SCRIPT = textwrap.dedent("""
+    import runpy
+    import sys
+    sys.argv = ["train_lm_torch.py", "--device", "cpu", "--steps", "2",
+                "--layers", "1", "--batch", "2", "--seq", "16"]
+    try:
+        runpy.run_path(sys.argv_path, run_name="__main__")
+    except SystemExit as e:
+        assert not e.code, e.code
+""").replace("sys.argv_path", repr(str(SRC.parent / "examples" /
+                                        "train_lm_torch.py"))) + _LOADED
+
+
+def test_training_cli_and_example_load_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for script, expect in ((_TRAIN_SCRIPT, "ckpt[log] step 2"),
+                           (_EXAMPLE_SCRIPT, "tok/s on CPU")):
+        proc = subprocess.run([sys.executable, "-c", script], env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert "LOADED: []" in proc.stderr
+        assert expect in proc.stdout, proc.stdout
+
+
+def test_training_cli_and_example_default_to_the_gpu():
+    """Without ``--device cpu`` both ask for the card, and raise when torch
+    sees none (here)."""
+    import torch
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip("a GPU is present: the runs would go ahead")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for argv in (["-m", "repro_torch.launch.train", "--steps", "1"],
+                 [str(SRC.parent / "examples" / "train_lm_torch.py"),
+                  "--steps", "1", "--layers", "1"]):
+        proc = subprocess.run([sys.executable, *argv], env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert "device='cuda' requested but torch sees no GPU" in \
+            proc.stderr, proc.stderr
