@@ -53,7 +53,8 @@ each raises on failure, and any failure ends the run with a traceback:
                 log patch: P=682, T=16, C=2048 (K and V of one token in
                 one InternLM2-1.8B layer), N=256 records with colliding
                 targets, skipped records and out-of-range indices, bit for
-                bit the plain version. Each entry that no serving path
+                bit the plain version, with the copy route it took (vector
+                or scalar). Each entry that no serving path
                 calls (the multi-layer entries and log patch, as in the
                 JAX package) is then called once more through
                 ``repro_torch.kernels`` with the launch counts set to 0
@@ -255,9 +256,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and flop/s for
 # each operand type — bf16 on the tensor cores (exact products, fp32
-# accumulation), fp32 outside them
+# accumulation), fp32 outside them, and fp32 on the tensor cores as
+# 3xTF32: three TF32 products (495 TFLOP/s) a fp32 product
 HBM_BYTES_PER_S = 3.35e12
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
+FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 # kernel vs its plain version on the same inputs (tests/test_kernels.py)
 TOL = {"float32": (1e-4, 4e-5), "bfloat16": (1e-1, 4e-2)}
 # bf16 kernel output vs the plain fp32 version on the same values: the
@@ -345,13 +347,15 @@ LONG_PROMPTS = (4096, 3072, 2048, 1100)
 SLEEP_CYCLES = 50_000_000
 # mangled names of the kernels the main paths run (bf16 or int8 pages, D
 # 128 or MLA's 512, 16-token pages; flash at (128, 128), Seamless's (64,
-# 64) and MLA's (192, 128), bf16, and fp32 at (192, 128)), whose registers
-# phase 1 logs
+# 64) and MLA's (192, 128), bf16), and of every instantiation of the fp32
+# flash kernel (3xTF32) and of log patch (each dtype pair, both routes),
+# whose registers phase 1 logs
 MAIN_PATH_KERNELS = (
     r"paged_attention_part_kernelI13__nv_bfloat16(S1_|a)Li128ELi16EE"
     r"|paged_attention_combine_kernelI13__nv_bfloat16Li128EE"
     r"|flash_attention_mma_kernelILi(128ELi128|192ELi128|64ELi64)EE"
-    r"|flash_attention_kernelILi192ELi128EE"
+    r"|flash_attention_tf32x3_kernelILi\d+ELi\d+EE"
+    r"|log_patch_kernelI\w+?Lb[01]EE"
     r"|mla_paged_attention_part_kernelI13__nv_bfloat16Li512EE"
     r"|mla_paged_attention_combine_kernelILi512EE")
 
@@ -861,31 +865,57 @@ def flash_case(torch, dev, dtype, seed, geom=FLASH_GEOM):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     c.library = lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True, scale=scale)
-    c.out_dtype, c.rate_dtype = dtype, str(dtype).split(".")[-1]
+    # fp32 runs on the tensor cores as 3xTF32: its bound takes three TF32
+    # products a flop; the bound at the CUDA cores' fp32 rate is kept
+    # beside it for reading the rows across PRs
+    c.out_dtype = dtype
+    c.rate_dtype = "bfloat16" if dtype == torch.bfloat16 else "tf32x3"
     pairs = (sum(min(Skv, max(0, i + Skv - Sq + 1)) for i in range(Sq))
              if causal else Sq * Skv)
     c.work = ((q.numel() + k.numel() + v.numel() + B * Sq * H * DV)
               * q.element_size(), 2 * (D + DV) * H * B * pairs)
+    if dtype == torch.float32:
+        nbytes, flops = c.work
+        c.extra = {"bound_ms_fp32_rate": 1e3 * max(
+            nbytes / HBM_BYTES_PER_S, flops / FLOPS_PER_S["float32"])}
     c.iters = (5, 2, 10)
     return c
 
 
-def log_patch_case(torch, dev, dtype, seed):
-    """One drain batch of N records onto a P-page pool: records 128..191
-    rewrite the targets of records 0..63 (the later must win), about one
-    in ten is not valid, and one page and one slot index are out of range
-    (clamped)."""
-    import repro_torch.kernels as K
-    from repro_torch.kernels.log_patch.ref import log_patch_ref
-    P, T, C, N = (LOG_GEOM[k] for k in "P T C N".split())
-    g = torch.Generator(dev).manual_seed(seed)
-    pool = torch.randn((P, T, C), generator=g, device=dev).to(dtype)
-    pays = torch.randn((N, C), generator=g, device=dev).to(dtype)
+def log_records(torch, g, dev, P, T, N):
+    """Page and slot indices and int32 valid flags of N log records drawn
+    from ``g``: records 128..191 rewrite the targets of records 0..63 (the
+    later must win), about one in ten is not valid, and one page and one
+    slot index are out of range (clamped)."""
     pg = torch.randint(0, P, (N,), generator=g, device=dev, dtype=torch.int32)
     sl = torch.randint(0, T, (N,), generator=g, device=dev, dtype=torch.int32)
     pg[128:192], sl[128:192] = pg[:64].clone(), sl[:64].clone()
     pg[5], sl[9] = P + 7, -3
     valid = (torch.rand((N,), generator=g, device=dev) < 0.9).to(torch.int32)
+    return pg, sl, valid
+
+
+def log_patch_bytes(pool, pays, n_win, N):
+    """The least bytes a patch moves: every page row written once and read
+    once, from the pool or, for the ``n_win`` rows that a record wins, from
+    its payload; and the page, slot and valid int32 of the N records."""
+    C = pool.shape[-1]
+    return (2 * pool.numel() * pool.element_size()
+            + n_win * C * (pays.element_size() - pool.element_size())
+            + 3 * N * 4)
+
+
+def log_patch_case(torch, dev, dtype, seed):
+    """One drain batch of N records (``log_records``) onto a P-page
+    pool."""
+    import repro_torch.kernels as K
+    from repro_torch.kernels.log_patch.ops import route
+    from repro_torch.kernels.log_patch.ref import log_patch_ref
+    P, T, C, N = (LOG_GEOM[k] for k in "P T C N".split())
+    g = torch.Generator(dev).manual_seed(seed)
+    pool = torch.randn((P, T, C), generator=g, device=dev).to(dtype)
+    pays = torch.randn((N, C), generator=g, device=dev).to(dtype)
+    pg, sl, valid = log_records(torch, g, dev, P, T, N)
     c = Case()
     c.exact, c.entry = True, K.log_patch
     c.kern, c.plain = K.log_patch, log_patch_ref
@@ -906,19 +936,23 @@ def log_patch_case(torch, dev, dtype, seed):
         if not torch.equal(c.library(), out):
             raise AssertionError("log_patch: index_put over the winning "
                                  "records differs")
-        wit = K.log_patch(torch.zeros((2, 4, 3), device=dev),
-                          torch.arange(1.0, 4.0, device=dev)[:, None].repeat(
-                              1, 3),
+        wit_pool = torch.zeros((2, 4, 3), device=dev)
+        wit_pays = torch.arange(1.0, 4.0, device=dev)[:, None].repeat(1, 3)
+        wit = K.log_patch(wit_pool, wit_pays,
                           torch.tensor([5, -1, 0], device=dev),
                           torch.tensor([1, 9, 0], device=dev))
+        c.extra["witness_copy_route"] = route(wit_pool, wit_pays, wit)
         if not (wit[1, 1, 0] == 1 and wit[0, 3, 0] == 2 and wit[0, 0, 0] == 3
                 and int((wit != 0).sum()) == 9):
             raise AssertionError("log_patch: out-of-range records not "
                                  "clamped as the Pallas kernel clamps")
     c.pins = pins
     c.out_dtype, c.rate_dtype = dtype, str(dtype).split(".")[-1]
-    c.work = (2 * pool.numel() * pool.element_size()
-              + pays.numel() * pays.element_size() + 3 * N * 4, 0)
+    c.work = (log_patch_bytes(pool, pays, len(win), N), 0)
+    # the kernel's copy route at these tensors (vector: 16-byte loads and
+    # stores), and the (2, 4, 3) fp32 witness's in pins (scalar); not
+    # "route", the row's key for cuda or triton
+    c.extra = {"copy_route": route(pool, pays, torch.empty_like(pool))}
     return c
 
 

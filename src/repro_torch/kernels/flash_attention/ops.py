@@ -67,7 +67,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if (D, DV) not in HEAD_DIMS:
         raise ValueError(f"the kernel is built for (qk, v) head widths in "
                          f"{HEAD_DIMS}; got ({D}, {DV})")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the kernel stages q, k and v with 16-byte cp.async: a contiguous
+    # view at an unaligned offset is copied (rows are D or DV elements,
+    # multiples of 32, so an aligned base aligns every row)
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q.contiguous(), k.contiguous(),
+                         v.contiguous()))
     out = q.new_empty((B, Sq, H, DV))
     if scale is None:
         scale = 1.0 / (D ** 0.5)

@@ -46,8 +46,11 @@ def log_patch(pool, payloads, page_idx, slot_idx, valid=None):
     pool, payloads = pool.contiguous(), payloads.contiguous()
     page, slot = (t.to(dev, torch.int32).contiguous()
                   for t in (page_idx, slot_idx))
-    flags = None if valid is None else (valid.to(dev) != 0).to(
-        torch.int32).contiguous()
+    # the kernel tests valid != 0: an int32 flag tensor on the card goes
+    # through as it is, any other is converted (one launch more)
+    flags = None if valid is None else (
+        valid if valid.dtype == torch.int32 and valid.device == dev
+        else (valid.to(dev) != 0).to(torch.int32)).contiguous()
     out = torch.empty_like(pool)
     fn = c_entry(SOURCE, "log_patch_launch",
                  [_C] * 6 + [_I] * 6 + [_C])
@@ -59,6 +62,16 @@ def log_patch(pool, payloads, page_idx, slot_idx, valid=None):
     check_launch(rc, "log_patch")
     log_patch.launches += 1
     return out
+
+
+def route(pool, payloads, out) -> str:
+    """The route the kernel takes for these tensors: ``"vector"`` (16-byte
+    loads and stores: a pool row a multiple of 16 bytes, all three
+    pointers 16-byte aligned) or ``"scalar"``."""
+    fn = c_entry(SOURCE, "log_patch_route", [_C] * 3 + [_I] * 2)
+    return "vector" if fn(pool.data_ptr(), payloads.data_ptr(),
+                          out.data_ptr(), pool.shape[-1],
+                          _DTYPE_CODE[pool.dtype]) else "scalar"
 
 
 ENTRIES = (log_patch,)

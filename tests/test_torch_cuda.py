@@ -677,6 +677,79 @@ def test_split_kv_scratch_passes_change_no_bit(cuda_device, family, dtype,
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
+# ------------------------------------------------ log patch: edges
+def _log_patch_inputs(case, dev):
+    """(args, route the kernel must take) of a #10 edge case, made with
+    numpy from a seed: pool (P, T, C), payloads (N, C), page and slot
+    indices, valid flags (int32 on the card)."""
+    rng = np.random.default_rng(24)
+    P, T, C, N = case["shape"]
+    pool_dt, pay_dt = case.get("dtypes", (torch.bfloat16, torch.bfloat16))
+    pool = torch.from_numpy(rng.standard_normal((P, T, C)).astype(
+        np.float32)).to(dev, pool_dt)
+    if case.get("offset"):          # a pool view one element into its buffer
+        flat = torch.from_numpy(rng.standard_normal(P * T * C + 1).astype(
+            np.float32)).to(dev, pool_dt)
+        pool = flat[1:].view(P, T, C)
+    pays = torch.from_numpy(rng.standard_normal((N, C)).astype(
+        np.float32)).to(dev, pay_dt)
+    pg = rng.integers(0, case.get("pages", P), N).astype(np.int32)
+    sl = rng.integers(0, case.get("slots", T), N).astype(np.int32)
+    valid = (rng.random(N) < case.get("p_valid", 0.8)).astype(np.int32)
+    if case.get("one_target"):      # every record on (page 1, slot T - 1)
+        pg[:], sl[:] = min(1, P - 1), T - 1
+        valid[-3:] = [1, 0, 0]      # ... the last valid one is N - 3
+    return ((pool, pays, torch.from_numpy(pg).to(dev),
+             torch.from_numpy(sl).to(dev), torch.from_numpy(valid).to(dev)),
+            case.get("route", "vector"))
+
+
+LOG_PATCH_EDGES = {
+    "N=0": dict(shape=(4, 16, 64, 0)),
+    "one_target": dict(shape=(3, 16, 64, 40), one_target=True),
+    "all_invalid": dict(shape=(4, 16, 64, 30), p_valid=0.0),
+    "T=1": dict(shape=(9, 1, 256, 20)),
+    "T=64": dict(shape=(3, 64, 128, 100)),
+    "row_not_16B": dict(shape=(4, 8, 12, 20), route="scalar"),
+    "row_not_16B_fp32": dict(shape=(4, 8, 3, 20), route="scalar",
+                             dtypes=(torch.float32, torch.float32)),
+    "unaligned_view": dict(shape=(4, 8, 64, 20), offset=True,
+                           route="scalar"),
+    "fp32_into_bf16": dict(shape=(5, 16, 128, 60),
+                           dtypes=(torch.bfloat16, torch.float32)),
+    "bf16_into_fp32": dict(shape=(5, 16, 128, 60),
+                           dtypes=(torch.float32, torch.bfloat16)),
+    "N=4096_collisions": dict(shape=(8, 16, 256, 4096), pages=3, slots=4),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(LOG_PATCH_EDGES))
+def test_log_patch_kernel_edges(cuda_device, name):
+    """#10's winner table and both routes at their edges: N = 0, every
+    record on one target (the last valid one wins), all records invalid,
+    T = 1 and 64, rows that are not a multiple of 16 bytes and a pool view
+    at an unaligned offset (scalar route), fp32 payloads into a bf16 pool
+    and back, N = 4096 on 12 targets. Bit for bit the plain version, with
+    and without the valid flags, in one launch each."""
+    from repro_torch.kernels.log_patch.ops import route
+    args, want_route = _log_patch_inputs(LOG_PATCH_EDGES[name], cuda_device)
+    before = kernels.log_patch.launches
+    out = kernels.log_patch(*args)
+    torch.cuda.synchronize()
+    assert kernels.log_patch.launches == before + 1
+    assert route(args[0], args[1], out) == want_route
+    assert out.dtype == args[0].dtype and out.shape == args[0].shape
+    want = log_patch_ref(*args)
+    assert torch.equal(_bits(out), _bits(want))
+    if name == "one_target":
+        assert torch.equal(out[1, -1], args[1][-3].to(out.dtype))
+    if name in ("N=0", "all_invalid"):
+        assert torch.equal(_bits(out), _bits(args[0]))
+    assert torch.equal(_bits(kernels.log_patch(*args[:4])),
+                       _bits(log_patch_ref(*args[:4])))
+
+
 # ------------------------------------------------ flash attention, bf16
 # (B, Sq, Skv, H, K, D, causal): Sq * G not a multiple of the 64-row query
 # tile, every head dim, GQA 1 and 8, non-causal, Sq > Skv dead rows
@@ -719,6 +792,66 @@ def test_flash_bf16_tensor_core_kernel(cuda_device, case):
     part = kernels.flash_attention(q[:, -tail:].contiguous(), k, v,
                                    causal=causal)
     assert torch.equal(_bits(part), _bits(out[:, -tail:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_BF16_CASES)
+def test_flash_fp32_tensor_core_kernel(cuda_device, case):
+    """The fp32 kernel (3xTF32 on the tensor cores) at the bf16 kernel's
+    cases: within the fp32 tolerance of its plain version; rows that see no
+    key are exactly 0; the last queries' rows are bit for bit the same when
+    fewer queries tile the call differently; views at an offset that is
+    not 16-byte aligned give the same bits."""
+    B, Sq, Skv, H, K, D, causal = case
+    rng = np.random.default_rng(8)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, D)))
+    out = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    atol, rtol = _TOL[torch.float32]
+    torch.testing.assert_close(
+        out, flash_attention_ref(q, k, v, causal=causal), atol=atol,
+        rtol=rtol)
+    if causal and Sq > Skv:
+        assert torch.all(out[:, :Sq - Skv] == 0)
+    tail = Sq - 29
+    part = kernels.flash_attention(q[:, -tail:].contiguous(), k, v,
+                                   causal=causal)
+    assert torch.equal(_bits(part), _bits(out[:, -tail:]))
+    # contiguous views one float past an aligned base (the kernel stages
+    # with 16-byte copies): the same bits as the aligned tensors
+    views = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, device=cuda_device)
+        buf[1:].copy_(t.flatten())
+        views.append(buf[1:].view(t.shape))
+    assert all(t.data_ptr() % 16 for t in views)
+    odd = kernels.flash_attention(*views, causal=causal)
+    assert torch.equal(_bits(odd), _bits(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D,DV", [(32, 32), (64, 64), (128, 128), (256, 256),
+                                  (192, 128)])
+def test_flash_fp32_kernel_at_every_width_pair(cuda_device, D, DV, causal):
+    """Each (qk, v) width pair the fp32 kernel is built for (its key tile
+    and shared memory differ by pair), GQA 4, Sq * G not a multiple of the
+    64-row tile and Skv not one of the key tile: within the fp32 tolerance
+    of the plain version."""
+    B, Sq, Skv, H, K = 2, 75, 141, 8, 2
+    rng = np.random.default_rng(D + DV + causal)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda_device)
+               for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, DV)))
+    out = kernels.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.shape == (B, Sq, H, DV)
+    atol, rtol = _TOL[torch.float32]
+    torch.testing.assert_close(
+        out, flash_attention_ref(q, k, v, causal=causal), atol=atol,
+        rtol=rtol)
 
 
 # ------------------------- flash attention at (qk, v) width pairs, non-causal

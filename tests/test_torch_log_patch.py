@@ -82,3 +82,62 @@ def test_out_of_range_records_follow_the_pallas_kernel():
     np.testing.assert_array_equal(got, pallas)
     assert got[1, 1, 0] == 1 and got[0, 3, 0] == 2 and got[0, 0, 0] == 3
     assert oracle[1, 1, 0] == 0 and oracle[0, 3, 0] == 0
+
+
+# (P, T, C, N, what): the card kernel's edges that the Pallas kernel takes
+_EDGES = [(3, 16, 64, 40, "one_target"), (4, 16, 64, 30, "all_invalid"),
+          (9, 1, 256, 20, "T=1")]
+
+
+@pytest.mark.parametrize("dtype", list(_DTYPES))
+@pytest.mark.parametrize("P,T,C,N,what", _EDGES)
+def test_log_patch_edges_match_jax_kernel(P, T, C, N, what, dtype):
+    """Every record on one target (the last valid one wins), every record
+    invalid (the pool comes back unchanged), and one-slot pages: the port
+    against the Pallas kernel in interpret mode, bit for bit."""
+    jd, td = _DTYPES[dtype]
+    rng = np.random.default_rng(24)
+    pool = rng.standard_normal((P, T, C)).astype(np.float32)
+    pays = rng.standard_normal((N, C)).astype(np.float32)
+    pg = rng.integers(0, P, N).astype(np.int32)
+    sl = rng.integers(0, T, N).astype(np.int32)
+    valid = (rng.random(N) < 0.8).astype(np.int32)
+    if what == "one_target":
+        pg[:], sl[:] = 1, T - 1
+        valid[-3:] = [1, 0, 0]
+    elif what == "all_invalid":
+        valid[:] = 0
+    want = jax_log_patch(jnp.asarray(pool, jd), jnp.asarray(pays, jd),
+                         jnp.asarray(pg), jnp.asarray(sl),
+                         jnp.asarray(valid), force_pallas=True)
+    got = log_patch(torch.from_numpy(pool).to(td),
+                    torch.from_numpy(pays).to(td), torch.from_numpy(pg),
+                    torch.from_numpy(sl), torch.from_numpy(valid))
+    np.testing.assert_array_equal(got.float().numpy(), _np(want))
+    if what == "one_target":
+        np.testing.assert_array_equal(got[1, T - 1].float().numpy(),
+                                      _np(jnp.asarray(pays[N - 3], jd)))
+    elif what == "all_invalid":
+        np.testing.assert_array_equal(got.float().numpy(),
+                                      _np(jnp.asarray(pool, jd)))
+
+
+@pytest.mark.parametrize("valid", [None, "flags"])
+def test_log_patch_of_no_records_matches_jax(valid):
+    """N = 0. Neither JAX path takes it (the Pallas kernel's record block
+    cannot be empty, and the jnp oracle's scan indexes an empty axis while
+    it traces), so the port's empty batch is held to the JAX kernel's batch
+    of one invalid record, the same drain with nothing to apply: the pool
+    comes back unchanged."""
+    rng = np.random.default_rng(5)
+    pool = rng.standard_normal((4, 16, 64)).astype(np.float32)
+    idx = np.zeros((0,), np.int32)
+    flags = None if valid is None else np.zeros((0,), np.int32)
+    want = jax_log_patch(jnp.asarray(pool), jnp.ones((1, 64)),
+                         jnp.zeros(1, jnp.int32), jnp.zeros(1, jnp.int32),
+                         jnp.zeros(1, jnp.int32), force_pallas=True)
+    got = log_patch(torch.from_numpy(pool), torch.zeros((0, 64)),
+                    torch.from_numpy(idx), torch.from_numpy(idx),
+                    None if flags is None else torch.from_numpy(flags))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got.numpy(), pool)
