@@ -235,6 +235,41 @@ each raises on failure, and any failure ends the run with a traceback:
                 bit, then on to 30; save and restore wall and simulated
                 seconds and the process's peak RSS.
 
+35. dryrun    — the port's dry run (``repro_torch.launch.dryrun.run_cell``)
+                on fake CUDA tensors at full width over a fake 256-rank
+                world, the (16, 16) pod mesh: InternLM2-1.8B x train_4k
+                (at 2 layers), prefill_32k and decode_32k; DeepSeek-V2 x
+                train_4k at 2 layers (expert parallelism and MLA); Mamba-2
+                1.3B and Zamba2-1.2B x decode_32k; and InternLM2-1.8B x
+                train_4k at 2 layers on the 512-rank (2, 16, 16) multipod
+                mesh. The train cells run at the roofline's sample depth
+                (at the whole depth they took two thirds of the phase).
+                Each cell's per-rank live GB, fits-HBM,
+                collectives and wire bytes, flops and seconds; the H100
+                record's 80 GB beside the card's ``total_memory``.
+36. dryrun-card — a real one-card mesh (``nccl``, world 1, mesh (1, 1)):
+                InternLM2-1.8B at full width cut to 2 layers, bf16, its
+                weights DTensors placed by the sharding rules; one
+                train_4k step at global batch 4 and one prefill_32k at
+                batch 1 (#9 through its custom op on DTensors), each
+                against the same weights as plain tensors (loss, last
+                logits: bit for bit, or within fp32 tolerance, and which);
+                the dry run's predicted per-rank live bytes and flops of
+                the same cut cells at (1, 1) beside
+                ``torch.cuda.max_memory_allocated`` (their ratio must lie
+                in ``CARD_PEAK_BAND``) and the plain run's
+                ``FlopCounterMode`` count.
+37. ep-card   — one DeepSeek-V2 MoE layer at full width (160 routed
+                experts, 2 shared, d 5120, hidden 1536, bf16) on the (1, 1)
+                mesh: ``_moe_ep`` at 8192 tokens and
+                ``_moe_ep_tokengather`` at 64, each through ``apply_moe``
+                on DTensors against the single-device ``apply_moe`` on
+                plain tensors (outputs and aux), with each path's ms.
+38. examples  — ``examples/serve_kv_offload_torch.py`` on the card in its
+                own process; its asserts (pooled == sequential for every
+                registered KV engine, the int8/SSM family sweep, crash and
+                recover) are the gate.
+
 Each serving path is driven with the launch counts set to 0 just before
 it and read just after; a row's ``serving_launches`` is the sum of its
 entry's counts over those runs (0 for an entry only its public-entry run
@@ -245,6 +280,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import re
@@ -254,12 +290,18 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and flop/s for
-# each operand type — bf16 on the tensor cores (exact products, fp32
-# accumulation), fp32 outside them, and fp32 on the tensor cores as
-# 3xTF32: three TF32 products (495 TFLOP/s) a fp32 product
-HBM_BYTES_PER_S = 3.35e12
-FLOPS_PER_S = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
+if (ROOT / "src" / "repro_torch").is_dir():   # else main() refuses to run
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.roofline.hw import H100
+    # H100 SXM peaks (``repro_torch.roofline.hw.H100``, NVIDIA's data
+    # sheet, dense): HBM3 bytes/s, and flop/s for each operand type — bf16
+    # on the tensor cores (exact products, fp32 accumulation), fp32
+    # outside them, and fp32 on the tensor cores as 3xTF32: three TF32
+    # products a fp32 product
+    HBM_BYTES_PER_S = H100.hbm_bandwidth
+    FLOPS_PER_S = {"bfloat16": H100.peak_flops_bf16,
+                   "float32": H100.peak_flops_fp32,
+                   "tf32x3": H100.peak_flops_tf32 / 3}
 # kernel vs its plain version on the same inputs (tests/test_kernels.py)
 TOL = {"float32": (1e-4, 4e-5), "bfloat16": (1e-1, 4e-2)}
 # bf16 kernel output vs the plain fp32 version on the same values: the
@@ -342,6 +384,32 @@ PARITY_TRAIN = (("internlm2-1.8b", 4, 1024),
 CRASH_STEPS, CRASH_AT = 30, 25
 CRASH_ARGS: list = []               # more example flags (none on the card)
 LONG_PROMPTS = (4096, 3072, 2048, 1100)
+# phase 35: the dry run's cells at full width on the fake 256-rank pod
+# mesh (and one on the 512-rank multipod mesh): (arch, shape, multi_pod,
+# layers — None: all; the train cells at the roofline sample depth, for
+# the script's time)
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False, 2),
+                ("internlm2-1.8b", "prefill_32k", False, None),
+                ("internlm2-1.8b", "decode_32k", False, None),
+                ("deepseek-v2-236b", "train_4k", False, 2),
+                ("mamba2-1.3b", "decode_32k", False, None),
+                ("zamba2-1.2b", "decode_32k", False, None),
+                ("internlm2-1.8b", "train_4k", True, 2))
+# phase 36: the real one-card mesh's model (depth cut) and batches (cut:
+# train_4k's 256 sequences to 4, prefill_32k's 32 to 1)
+CARD_ARCH, CARD_LAYERS = "internlm2-1.8b", 2
+CARD_BATCH = {"train_4k": 4, "prefill_32k": 1}
+# the band that max_memory_allocated / the dry run's predicted live bytes
+# must fall in: the allocator adds cuBLAS's workspace and its rounding on
+# top of what the dry run counts (measured 1.001 train, 1.020 prefill on
+# NVIDIA H100 80GB HBM3, 700.00 W; scripts/dryrun_memory_trace.py holds
+# the two op by op)
+CARD_PEAK_BAND = (0.95, 1.10)
+# phase 37: one DeepSeek-V2 MoE layer; (EP path, tokens, capacity factor:
+# no-drop = the expert count, or the published 1.25 where no-drop's
+# dispatch buffer, experts x tokens·k x d, would not fit)
+EP_ARCH = "deepseek-v2-236b"
+EP_CASES = (("_moe_ep", 8192, 1.25), ("_moe_ep_tokengather", 64, None))
 # GPU clock cycles the card sleeps before a timing loop (~25 ms at 1.98
 # GHz): longer than the host takes to enqueue the loop
 SLEEP_CYCLES = 50_000_000
@@ -842,6 +910,7 @@ def flash_case(torch, dev, dtype, seed, geom=FLASH_GEOM):
     The work counts the (query, key) pairs a row sees: all Skv keys
     non-causal, the keys at or before its position causal."""
     import repro_torch.kernels as K
+    from repro_torch.kernels.flash_attention.ops import flash_flops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     B, Sq, Skv, H, Kh, D, DV, causal = (
         geom[k] for k in "B Sq Skv H K D DV causal".split())
@@ -870,10 +939,9 @@ def flash_case(torch, dev, dtype, seed, geom=FLASH_GEOM):
     # beside it for reading the rows across PRs
     c.out_dtype = dtype
     c.rate_dtype = "bfloat16" if dtype == torch.bfloat16 else "tf32x3"
-    pairs = (sum(min(Skv, max(0, i + Skv - Sq + 1)) for i in range(Sq))
-             if causal else Sq * Skv)
     c.work = ((q.numel() + k.numel() + v.numel() + B * Sq * H * DV)
-              * q.element_size(), 2 * (D + DV) * H * B * pairs)
+              * q.element_size(), flash_flops(q.shape, k.shape, v.shape,
+                                              causal))
     if dtype == torch.float32:
         nbytes, flops = c.work
         c.extra = {"bound_ms_fp32_rate": 1e3 * max(
@@ -3103,6 +3171,297 @@ def train_crash(torch, dev, seed):
     return res
 
 
+# ------------------------------------------------------------ phases 35-38
+def dryrun_phase(torch, dev):
+    """Phase 35: the dry run's cells on fake CUDA tensors over fake
+    256/512-rank worlds; returns the artifacts."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    total = torch.cuda.get_device_properties(0).total_memory
+    if not 0.9 * H100.hbm_bytes <= total <= 1.1 * H100.hbm_bytes:
+        raise AssertionError(f"dryrun: the H100 record's {H100.hbm_bytes} "
+                             f"HBM bytes against the card's {total}")
+    log(f"[dryrun] H100 record: {H100.hbm_bytes / 1e9:.1f} GB HBM, the "
+        f"card's total_memory {total / 1e9:.2f} GB")
+    out_dir = ROOT / "build" / "dryrun"
+    arts = []
+    for arch, shape, multi, layers in DRYRUN_CELLS:
+        t0 = time.time()
+        r = dryrun.run_cell(arch, shape, multi, out_dir,
+                            layers_override=layers, device=dev.type)
+        secs = time.time() - t0
+        c = r["collectives"]
+        if not (r["per_device_live_bytes"] > r["memory"]["argument_bytes"]
+                > 0 and r["cost"]["flops"] > 0 and c["num_ops"] > 0):
+            raise AssertionError(f"dryrun {arch} {shape}: {r}")
+        if get_config(arch).moe is not None \
+                and not c.get("all-gather", {}).get("count"):
+            raise AssertionError(f"dryrun {arch}: no expert all-gather")
+        kinds = ", ".join(f"{k} {v['count']} ({v['wire_bytes'] / 1e9:.3f} GB)"
+                          for k, v in c.items() if isinstance(v, dict))
+        log(f"[dryrun] {arch} x {shape} x {r['mesh']} "
+            f"({r['devices']} ranks{f', {layers} layers' if layers else ''}"
+            f", mb {r.get('microbatches', 1)}): live "
+            f"{r['per_device_live_bytes'] / 1e9:.2f} GB (arguments "
+            f"{r['memory']['argument_bytes'] / 1e9:.3f} GB) fits_hbm "
+            f"{r['fits_hbm']}; {c['num_ops']} collectives, "
+            f"{c['total_wire_bytes'] / 1e9:.3f} GB wire: {kinds}; flops "
+            f"{r['cost']['flops']:.4e}, bytes accessed "
+            f"{r['cost']['bytes accessed']:.4e}; {secs:.1f} s")
+        arts.append(r)
+    dist.destroy_process_group()
+    return arts
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def card_world(torch, dev):
+    """``nccl`` world of one rank on ``dev`` and its (1, 1) mesh."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    return make_test_mesh((1, 1), device_type="cuda")
+
+
+def same_or_close(torch, what, got, want):
+    """'bit for bit' when ``got`` equals ``want`` exactly, else raises
+    unless they agree within the fp32 tolerance, and says so."""
+    got, want = got.float(), want.float()
+    if torch.equal(got, want):
+        return "bit for bit"
+    atol, rtol = TOL["float32"]
+    torch.testing.assert_close(got, want, atol=atol, rtol=rtol, msg=what)
+    return (f"within fp32 tolerance (max abs diff "
+            f"{float((got - want).abs().max()):.3e})")
+
+
+def dryrun_card(torch, dev, seed):
+    """Phase 36: the (1, 1) mesh's real train step and prefill on DTensor
+    weights against plain tensors, and the dry run's predictions of the
+    same cut cells; returns #9's launches of the DTensor runs."""
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils.flop_counter import FlopCounterMode
+
+    import repro_torch.kernels as ops
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.distributed.sharding import batch_specs, param_specs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import (abstract_state, install_params,
+                                          state_specs, with_shardings)
+    from repro_torch.models import LM
+    from repro_torch.training import AdamWConfig, make_train_step
+    cfg = cut(get_config(CARD_ARCH), CARD_LAYERS)
+    pred = {shape: dryrun.run_cell(
+        CARD_ARCH, shape, False, ROOT / "build" / "dryrun",
+        layers_override=CARD_LAYERS, device=dev.type, batch_override=b,
+        mesh_shape=((1, 1), ("data", "model")))
+        for shape, b in CARD_BATCH.items()}
+    dist.destroy_process_group()
+    mesh = card_world(torch, dev)
+    launches = 0
+    try:
+        def model_of(remat):
+            return LM(cfg, dtype=torch.bfloat16, device=dev,
+                      remat=remat).init(torch.Generator(dev).manual_seed(seed))
+
+        def as_dtensors(model, train):
+            if train:
+                state = abstract_state(model)
+                state = with_shardings(state, state_specs(state, model, mesh),
+                                       mesh)
+                state["params"] = install_params(model, state.params, True)
+                return state
+            params = with_shardings(dict(model.named_parameters()),
+                                    param_specs(model, mesh), mesh)
+            return install_params(model, params, False)
+
+        B = CARD_BATCH["train_4k"]
+        data = SyntheticLMDataset(cfg.vocab_size, 4096, B,
+                                  seed=seed).batch(0)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in data.items()}
+        results = {}
+        for shape in CARD_BATCH:
+            for kind in ("dtensor", "plain"):
+                model = model_of(shape == "train_4k")
+                if shape == "train_4k":
+                    if kind == "dtensor":
+                        state = as_dtensors(model, True)
+                        inp = with_shardings(batch, batch_specs(batch, mesh),
+                                             mesh)
+                    else:
+                        model.requires_grad_(True)
+                        state = abstract_state(model)
+                        inp = batch
+                    step = make_train_step(model, AdamWConfig())
+                    run = lambda: step(state, inp)[1]["loss"]
+                else:
+                    toks = torch.randint(
+                        0, cfg.vocab_size, (CARD_BATCH[shape], 32768),
+                        generator=torch.Generator(dev).manual_seed(seed),
+                        device=dev, dtype=torch.int32)
+                    if kind == "dtensor":
+                        as_dtensors(model, False)
+                        toks = with_shardings(toks, batch_specs(
+                            {"t": toks}, mesh)["t"], mesh)
+                    run = lambda: model.prefill(toks, 32768)[0]
+                free(torch)
+                torch.cuda.reset_peak_memory_stats()
+                ops.reset_launch_counts()
+                # FlopCounterMode counts a DTensor run at global shapes and
+                # again at local ones: the plain run's count is the one read
+                fc = FlopCounterMode(display=False)
+                with implicit_replication(), (
+                        fc if kind == "plain" else contextlib.nullcontext()):
+                    out = run()
+                torch.cuda.synchronize()
+                counts = launch_counts(ops)
+                if counts["flash_attention"] != CARD_LAYERS * (
+                        2 if shape == "train_4k" else 1) or any(
+                        v for k, v in counts.items()
+                        if k != "flash_attention"):
+                    raise AssertionError(f"dryrun-card {shape} {kind}: "
+                                         f"launches {counts}")
+                if kind == "dtensor":
+                    launches += counts["flash_attention"]
+                    out = out.full_tensor()
+                results[shape, kind] = (out.detach(), fc.get_total_flops(),
+                                        torch.cuda.max_memory_allocated())
+                # the train step's closure holds its model: dropped with it,
+                # or the plain train model stays live through prefill
+                del model, run, out
+                step = state = inp = None
+                free(torch)
+            (got, _, peak), (want, flops, _) = (results[shape, "dtensor"],
+                                                 results[shape, "plain"])
+            how = same_or_close(torch, f"dryrun-card {shape}", got, want)
+            p = pred[shape]
+            ratio = peak / p["per_device_live_bytes"]
+            what = "loss" if shape == "train_4k" else "last logits"
+            log(f"[dryrun-card] {cfg.name} {CARD_LAYERS} layers bf16, "
+                f"{shape} at batch {CARD_BATCH[shape]} on the (1, 1) mesh: "
+                f"{what} on DTensor weights {how} to the plain tensors' "
+                f"({float(want.flatten()[0])!r}); peak "
+                f"{peak / 2**30:.3f} GiB (max_memory_allocated) against the "
+                f"dry run's {p['per_device_live_bytes'] / 2**30:.3f} GiB "
+                f"predicted ({ratio:.3f}x, band {CARD_PEAK_BAND}; arguments "
+                f"{p['memory']['argument_bytes'] / 2**30:.3f} GiB); flops "
+                f"{flops:.4e} (FlopCounterMode, plain run) against "
+                f"{p['cost']['flops']:.4e} predicted; "
+                f"{CARD_LAYERS * (2 if shape == 'train_4k' else 1)} "
+                f"flash_attention launches")
+            lo, hi = CARD_PEAK_BAND
+            if not lo <= ratio <= hi:
+                raise AssertionError(
+                    f"dryrun-card {shape}: measured peak / predicted live "
+                    f"{ratio:.3f} outside {CARD_PEAK_BAND}")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def ep_card(torch, dev, seed):
+    """Phase 37: one DeepSeek-V2 MoE layer on the (1, 1) mesh, each EP
+    path through ``apply_moe`` on DTensors against the single-device
+    ``apply_moe`` on plain tensors."""
+    import torch.distributed as dist
+    from types import SimpleNamespace
+
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import P, distribute
+    from repro_torch.models import blocks as B
+    from repro_torch.models.moe import apply_moe
+    mesh = card_world(torch, dev)
+    try:
+        base = get_config(EP_ARCH)
+        blk = B.DecoderBlock(base, torch.bfloat16, dev, "moe")
+        blk.init_weights(torch.Generator(dev).manual_seed(seed))
+        m = base.moe
+        specs = {"router": P(None, None),
+                 "experts.w_gate": P("model", None, "data"),
+                 "experts.w_up": P("model", None, "data"),
+                 "experts.w_down": P("model", "data", None),
+                 "shared.w_gate": P(None, "model"),
+                 "shared.w_up": P(None, "model"),
+                 "shared.w_down": P("model", None)}
+        d = distribute({n: blk.get_parameter(n).detach() for n in specs},
+                       specs, mesh)
+        dt = SimpleNamespace(
+            router=d["router"], ffn_kind="moe",
+            experts=SimpleNamespace(**{n: d["experts." + n] for n in
+                                       ("w_gate", "w_up", "w_down")}),
+            shared=SimpleNamespace(**{n: d["shared." + n] for n in
+                                      ("w_gate", "w_up", "w_down")}))
+        for path, tokens, cf in EP_CASES:
+            cfg = dataclasses.replace(base, moe=dataclasses.replace(
+                m, capacity_factor=cf or float(m.num_experts)))
+            shape = (1, tokens) if tokens > 4096 else (tokens, 1)
+            x = torch.randn(shape + (base.d_model,), device=dev,
+                            generator=torch.Generator(dev).manual_seed(seed)
+                            ).to(torch.bfloat16)
+            xd = distribute({"x": x}, {"x": P("data", None, None)},
+                            mesh)["x"]
+
+            def ep():
+                with implicit_replication():
+                    return apply_moe(dt, cfg, xd, ("data",))
+
+            def plain():
+                return apply_moe(blk, cfg, x)
+            with torch.no_grad():
+                (y, aux), (y0, aux0) = ep(), plain()
+                how = same_or_close(torch, path, y.full_tensor(), y0)
+                how_aux = same_or_close(torch, path + " aux",
+                                        aux.full_tensor(), aux0)
+                ep_ms, plain_ms = (card_ms(torch, f) for f in (ep, plain))
+            log(f"[ep-card] {path}: {tokens} tokens, capacity factor "
+                f"{cfg.moe.capacity_factor} "
+                f"({'no-drop' if cf is None else 'published'}), "
+                f"{m.num_experts} experts x (d {base.d_model}, hidden "
+                f"{m.d_expert}), {m.num_shared_experts} shared, bf16: "
+                f"output {how}, aux {how_aux} to the single-device "
+                f"apply_moe; {ep_ms:.3f} ms through the EP path on the "
+                f"(1, 1) mesh, {plain_ms:.3f} ms single-device "
+                f"(host-paced CUDA events)")
+            del x, xd, y, y0
+            free(torch)
+        del blk, d, dt
+        free(torch)
+    finally:
+        dist.destroy_process_group()
+
+
+def examples_phase(torch, dev):
+    """Phase 38: the serving example's twin on the card in its own
+    process; its asserts are the gate."""
+    import os
+    argv = [sys.executable, str(ROOT / "examples" /
+                                "serve_kv_offload_torch.py")]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.time()
+    proc = subprocess.run(argv, capture_output=True, text=True, env=env,
+                          timeout=300, cwd=str(ROOT))
+    for line in proc.stdout.splitlines():
+        log(f"[examples] {line}")
+    if proc.returncode != 0:
+        raise AssertionError(f"examples: exit {proc.returncode}\n"
+                             f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    log(f"[examples] examples/serve_kv_offload_torch.py passed its asserts "
+        f"on the card in {time.time() - t0:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=0)
@@ -3115,7 +3474,6 @@ def main(argv=None) -> int:
         print("chip_smoke: run from a checkout of the repo (src/repro_torch "
               "is missing)", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels as ops
     from repro_torch.configs import get_config
     dev = torch.device("cuda", 0)
@@ -3329,6 +3687,18 @@ def main(argv=None) -> int:
     stamp("parity-train")
     train_crash(torch, dev, args.seed)
     stamp("train-crash")
+
+    # distribution: the dry run on fake 256/512-rank worlds, then real
+    # DTensors on a one-card mesh (#9 through its custom op, the EP paths)
+    dryrun_phase(torch, dev)
+    stamp("dryrun")
+    rows["flash_attention"]["dryrun_card_launches"] = dryrun_card(
+        torch, dev, args.seed)
+    stamp("dryrun-card")
+    ep_card(torch, dev, args.seed)
+    stamp("ep-card")
+    examples_phase(torch, dev)
+    stamp("examples")
 
     for name, row in rows.items():
         row["serving_launches"] = served[name]

@@ -8,8 +8,11 @@ mixture of experts (``MoEConfig``) — a Mamba-2 state-space stack
 (``HybridConfig``), an encoder-decoder's encoder depth and a stub
 modality frontend (``FrontendConfig``: precomputed audio frames or image
 patches), the padded-vocab rule, the training schedule hint
-(``lr_schedule``) and ``param_count()``, which the training CLI reads, and
-``reduced()`` for the smoke-sized sibling.
+(``lr_schedule``), ``param_count()`` and ``active_param_count()`` (the
+training CLI's banner and the roofline), ``reduced()`` for the
+smoke-sized sibling, and the dry run's input shapes (``InputShape``: the
+four cells ``TRAIN_4K`` … ``LONG_500K``, ``applicable_shapes`` and
+``skipped_shapes``).
 """
 from __future__ import annotations
 
@@ -133,6 +136,12 @@ class ModelConfig:
         from repro_torch.roofline.params import count_params
         return count_params(self)
 
+    def active_param_count(self) -> int:
+        """Parameters one token runs through (the top-k routed experts of
+        a MoE config, not all of them), as the reference counts them."""
+        from repro_torch.roofline.params import count_active_params
+        return count_active_params(self)
+
     def reduced(self, **overrides) -> "ModelConfig":
         """A smoke-test-sized sibling of this config (same family/topology)."""
         small = dict(
@@ -172,3 +181,48 @@ class ModelConfig:
                 self.frontend, num_tokens=16, d_frontend=64)
         small.update(overrides)
         return dataclasses.replace(self, name=self.name + "-smoke", **small)
+
+
+# ---------------------------------------------------------------------------
+# The dry run's input shapes (the reference's pool)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+TRAIN_4K = InputShape("train_4k", "train", 4_096, 256)
+PREFILL_32K = InputShape("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = InputShape("decode_32k", "decode", 32_768, 128)
+LONG_500K = InputShape("long_500k", "decode", 524_288, 1)
+
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[InputShape]:
+    """The shape cells that are live for this arch: train, prefill and
+    decode for every arch (all have a decoder), the 512k-token decode
+    only for a sub-quadratic backbone."""
+    shapes = [TRAIN_4K, PREFILL_32K, DECODE_32K]
+    if cfg.subquadratic:
+        shapes.append(LONG_500K)
+    return shapes
+
+
+def skipped_shapes(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """(shape, reason) pairs of the cells :func:`applicable_shapes` leaves
+    out."""
+    out = []
+    if not cfg.subquadratic:
+        out.append(("long_500k",
+                    "pure full-attention arch: 512k-token decode reserved for "
+                    "sub-quadratic backbones per shape-pool rule"))
+    return out

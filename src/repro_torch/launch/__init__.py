@@ -1,1 +1,2 @@
-"""Command-line entry points of the port."""
+"""Command-line entry points of the port (``serve``, ``train``, ``dryrun``)
+and the dry run's meshes and input specs (``mesh``, ``specs``)."""

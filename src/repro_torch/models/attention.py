@@ -26,13 +26,23 @@ Where the JAX scatter drops out-of-range writes (padding slots aimed at
 page ``P`` or cache slot ``T``, ``mode="drop"``), torch would raise — so
 padding slots are masked out before the scatter and touch nothing, and
 block-table lookups are clamped where JAX clamps.
+
+On DTensors (the dry run, a mesh of real ranks) the same functions run
+under ``implicit_replication``; one step differs from GSPMD: a projection
+whose columns the ``model`` axis shards into pieces that split a KV head
+group (InternLM2-1.8B's 8 KV heads on a 16-way axis) is all-gathered over
+that axis before the head reshape (:func:`_whole_head_groups`), which
+DTensor cannot unflatten unevenly; the attention then runs replicated on
+that axis (ROADMAP §3).
 """
 from __future__ import annotations
 
 import math
+from functools import partial
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.kernels.paged_attention.ops import (
@@ -63,12 +73,29 @@ def full_attention(q, k, v, *, scale, q_positions, kv_positions, causal,
     return out.to(q.dtype)
 
 
+def _whole_head_groups(t, groups: int):
+    """``t`` (..., groups · w), a projection about to be split into
+    ``groups`` head groups: a DTensor whose last dim the mesh shards into
+    a count of pieces that does not divide ``groups`` comes back with
+    those mesh dims replicated (an all-gather); anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    last = Shard(t.ndim - 1)
+    n = math.prod(t.device_mesh.size(i)
+                  for i, pl in enumerate(t.placements) if pl == last)
+    if groups % n == 0:
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if pl == last else pl
+                                          for pl in t.placements])
+
+
 def _project_qkv(p, cfg, x, positions):
     B, S, _ = x.shape
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(B, S, H, D)
-    k = (x @ p.wk).reshape(B, S, K, D)
-    v = (x @ p.wv).reshape(B, S, K, D)
+    q = _whole_head_groups(x @ p.wq, K).reshape(B, S, H, D)
+    k = _whole_head_groups(x @ p.wk, K).reshape(B, S, K, D)
+    v = _whole_head_groups(x @ p.wv, K).reshape(B, S, K, D)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q.reshape(B, S, K, H // K, D), k, v
@@ -89,7 +116,11 @@ def long_attention(q, k, v, *, causal, scale):
 def _check_rising(positions, what, chunk_size):
     """The flash kernel's causal mask is the token order: a causal prefill
     past ``chunk_size`` takes only positions that rise along S, as
-    ``arange(S)`` and any offset of it do."""
+    ``arange(S)`` and any offset of it do. A fake tensor (the dry run)
+    has no values to check."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(positions):
+        return
     if not bool((positions.diff(dim=-1) > 0).all()):
         raise ValueError(
             f"{what} past chunk_size={chunk_size} takes positions that rise "
@@ -129,7 +160,7 @@ def attn_cross(p, cfg, x, enc_k, enc_v, *, chunk_size=512):
     decoder block does."""
     B, S, _ = x.shape
     K, H, D = cfg.num_kv_heads, cfg.num_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(B, S, K, H // K, D)
+    q = _whole_head_groups(x @ p.wq, K).reshape(B, S, K, H // K, D)
     scale = 1.0 / math.sqrt(D)
     T = enc_k.shape[1]
     if max(S, T) <= chunk_size:
@@ -142,6 +173,102 @@ def attn_cross(p, cfg, x, enc_k, enc_v, *, chunk_size=512):
     return out.reshape(B, S, H * D) @ p.wo
 
 
+def _lse_merge(s, pv, group):
+    """Softmax attention over a slice of the keys, merged across the ranks
+    holding the other slices (flash-decoding): ``s`` (..., T_slice) fp32
+    masked scores; ``pv(e)`` the product of weights ``e`` with this
+    slice's values. Returns ``(o, l)``: the sums of ``exp(s - max) · v``
+    and of ``exp(s - max)`` over all slices; the attention is ``o / l``."""
+    import torch.distributed._functional_collectives as funcol
+    m = s.amax(dim=-1, keepdim=True)
+    if group is not None:
+        m = funcol.all_reduce(m, "max", group)
+    e = torch.exp(s - m)
+    l, o = e.sum(dim=-1, keepdim=True), pv(e)
+    if group is not None:
+        l = funcol.all_reduce(l, "sum", group)
+        o = funcol.all_reduce(o, "sum", group)
+    return o, l
+
+
+def _sharded_decode(body, queries, caches, positions):
+    """``body(pos, first, group, *queries, *caches)`` on each rank's shard
+    of DTensor decode caches whose sequence dim the mesh slices
+    (the reference's decode layout): queries and positions batch-sharded
+    as the caches, ``first`` the rank's first cache position, ``group``
+    the slices' group for the merge. Returns the body's output, placed as
+    the queries."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import dim_shards
+    mesh, place = caches[0].device_mesh, tuple(caches[0].placements)
+    rows, index, group = dim_shards(caches[0], 1)
+
+    def run(pos, *tensors):
+        return body(pos, index * caches[0].to_local().shape[1], group,
+                    *tensors)
+    return local_map(run, out_placements=list(rows),
+                     in_placements=(rows,) * (1 + len(queries))
+                     + (place,) * len(caches), device_mesh=mesh,
+                     redistribute_inputs=True)(positions, *queries, *caches)
+
+
+def _write_rows(caches, values, positions):
+    """Write ``values[j][b]`` into dense cache ``caches[j]`` (B, T, ...) at
+    ``positions[b]``, IN PLACE. A DTensor cache whose sequence dim is
+    sharded (the reference's decode cache layout) is written on each rank
+    into its own shard: a row lands where its position falls in the
+    rank's slice of T, and nowhere else."""
+    if not is_dtensor(caches[0]):
+        b_idx = torch.arange(positions.shape[0], device=positions.device)
+        for cache, val in zip(caches, values):
+            cache[b_idx, positions] = val.to(cache.dtype)
+        return
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import dim_shards
+    mesh, place = caches[0].device_mesh, tuple(caches[0].placements)
+    rows, index, _ = dim_shards(caches[0], 1)
+
+    def write(pos, *tensors):
+        n = len(tensors) // 2
+        local, vals = tensors[:n], tensors[n:]
+        T = local[0].shape[1]
+        at = pos.long() - index * T
+        ok = (at >= 0) & (at < T)
+        at = at.clamp(0, T - 1)
+        b_idx = torch.arange(pos.shape[0], device=pos.device)
+        for cache, val in zip(local, vals):
+            # a row outside this slice writes back what its slot holds
+            keep = ok.view((-1,) + (1,) * (val.ndim - 1))
+            cache[b_idx, at] = torch.where(keep, val.to(cache.dtype),
+                                           cache[b_idx, at])
+    local_map(write, out_placements=None,
+              in_placements=(rows,) + (place,) * len(caches)
+              + (rows,) * len(values), device_mesh=mesh,
+              redistribute_inputs=True)(positions, *caches, *values)
+
+
+def _dense_decode_body(scale, pos, first, group, q, k, v):
+    """:func:`attn_decode`'s attention on one rank's slice of the cache
+    (:func:`_sharded_decode`)."""
+    s = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float()) * scale
+    kv_pos = torch.arange(k.shape[1], device=k.device) + first
+    valid = kv_pos[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, None, :], s, NEG_INF)
+    o, l = _lse_merge(s, lambda e: torch.einsum("bkgst,btkd->bskgd", e,
+                                                v.float()), group)
+    return (o / l.permute(0, 3, 1, 2, 4)).to(q.dtype)
+
+
+def _q8_decode_body(scale, pos, first, group, q, ck, cv, ck_s, cv_s):
+    """:func:`attn_decode_q8`'s attention on one rank's slice of the int8
+    cache, dequantized to q's dtype as the plain path reads it."""
+    return _dense_decode_body(scale, pos, first, group, q,
+                              dequantize_kv(ck, ck_s, q.dtype),
+                              dequantize_kv(cv, cv_s, q.dtype))
+
+
 def attn_decode(p, cfg, x, cache_k, cache_v, positions):
     """Single-step decode over a dense cache. cache_k/v: (B, T, K, D),
     written IN PLACE at ``positions`` (B,), which is also the query
@@ -152,9 +279,11 @@ def attn_decode(p, cfg, x, cache_k, cache_v, positions):
     H, D = cfg.num_heads, cfg.head_dim
     pos2 = positions[:, None]
     q, k, v = _project_qkv(p, cfg, x, pos2)
-    b_idx = torch.arange(B, device=x.device)
-    cache_k[b_idx, positions] = k[:, 0].to(cache_k.dtype)
-    cache_v[b_idx, positions] = v[:, 0].to(cache_v.dtype)
+    _write_rows((cache_k, cache_v), (k[:, 0], v[:, 0]), positions)
+    if is_dtensor(cache_k):
+        out = _sharded_decode(partial(_dense_decode_body, 1.0 / math.sqrt(D)),
+                              (q,), (cache_k, cache_v), positions)
+        return out.reshape(B, 1, H * D) @ p.wo, cache_k, cache_v
     T = cache_k.shape[1]
     kv_pos = torch.arange(T, device=x.device)
     valid = kv_pos[None, :] <= positions[:, None]
@@ -283,11 +412,13 @@ def attn_decode_q8(p, cfg, x, ck, cv, ck_s, cv_s, positions):
     H, D = cfg.num_heads, cfg.head_dim
     pos2, _ = _decode_positions(x, positions)
     q, k, v = _project_qkv(p, cfg, x, pos2)
-    b_idx = torch.arange(B, device=x.device)
     kq, ks = quantize_kv(k[:, 0])
     vq, vs = quantize_kv(v[:, 0])
-    ck[b_idx, positions], ck_s[b_idx, positions] = kq, ks
-    cv[b_idx, positions], cv_s[b_idx, positions] = vq, vs
+    _write_rows((ck, ck_s, cv, cv_s), (kq, ks, vq, vs), positions)
+    if is_dtensor(ck):
+        out = _sharded_decode(partial(_q8_decode_body, 1.0 / math.sqrt(D)),
+                              (q,), (ck, cv, ck_s, cv_s), positions)
+        return (out.reshape(B, 1, H * D) @ p.wo, ck, cv, ck_s, cv_s)
     kf = dequantize_kv(ck, ck_s, x.dtype)
     vf = dequantize_kv(cv, cv_s, x.dtype)
     kv_pos = torch.arange(kf.shape[1], device=x.device)
@@ -425,19 +556,33 @@ def mla_train(p, cfg, x, positions, *, chunk_size=512):
     return out @ p.wo, (c_kv, k_rope)
 
 
+def _mla_decode_body(scale, pos, first, group, q_c, q_rope, c, kr):
+    """:func:`mla_decode`'s attention on one rank's slice of the latent
+    cache (:func:`_sharded_decode`)."""
+    s = (torch.einsum("bshc,btc->bhst", q_c, c.float())
+         + torch.einsum("bshr,btr->bhst", q_rope.float(), kr.float())) * scale
+    kv_pos = torch.arange(c.shape[1], device=c.device) + first
+    valid = kv_pos[None, :] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    o, l = _lse_merge(s, lambda e: torch.einsum("bhst,btc->bshc", e,
+                                                c.float()), group)
+    return o / l.permute(0, 2, 1, 3)
+
+
 def mla_decode(p, cfg, x, cache_c, cache_kr, positions):
     """Weight-absorbed MLA decode over the dense latent cache (the
     sequential reference's): cache_c (B, T, dc), cache_kr (B, T, dr),
     written IN PLACE at ``positions``. Returns ``(out, cache_c,
     cache_kr)``."""
-    B = x.shape[0]
     pos2, _ = _decode_positions(x, positions)
     q_nope, q_rope = _mla_queries(p, cfg, x, pos2)
     c_new, kr_new = _mla_latent(p, cfg, x, pos2)
-    b_idx = torch.arange(B, device=x.device)
-    cache_c[b_idx, positions] = c_new[:, 0].to(cache_c.dtype)
-    cache_kr[b_idx, positions] = kr_new[:, 0].to(cache_kr.dtype)
+    _write_rows((cache_c, cache_kr), (c_new[:, 0], kr_new[:, 0]), positions)
     q_c = _absorb(p, q_nope)
+    if is_dtensor(cache_c):
+        o_c = _sharded_decode(partial(_mla_decode_body, _mla_scale(cfg)),
+                              (q_c, q_rope), (cache_c, cache_kr), positions)
+        return _mla_out(p, cfg, o_c, x.dtype), cache_c, cache_kr
     s = (torch.einsum("bshc,btc->bhst", q_c, cache_c.float())
          + torch.einsum("bshr,btr->bhst", q_rope.float(), cache_kr.float()))
     m = cfg.mla

@@ -153,7 +153,7 @@ def _ffn_aux(p, cfg, h):
     loss (fp32 scalar), None for a dense FFN."""
     x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
     if p.ffn_kind == "moe":
-        f, aux = apply_moe(p, cfg, x)
+        f, aux = apply_moe(p, cfg, x, getattr(p, "ep_axes", ()))
     else:
         f, aux = apply_ffn(p, x, cfg.ffn_activation), None
     return h + cfg.residual_scale * f, aux
@@ -264,8 +264,9 @@ def cross_kv(p, cfg, enc_out):
     (B, T, d), computed once a prompt."""
     B, T, _ = enc_out.shape
     K, D = cfg.num_kv_heads, cfg.head_dim
-    return ((enc_out @ p.cross_attn.wk).reshape(B, T, K, D),
-            (enc_out @ p.cross_attn.wv).reshape(B, T, K, D))
+    heads = attn_mod._whole_head_groups
+    return (heads(enc_out @ p.cross_attn.wk, K).reshape(B, T, K, D),
+            heads(enc_out @ p.cross_attn.wv, K).reshape(B, T, K, D))
 
 
 def apply_encdec_decoder_block(p, cfg, h, positions, enc_k, enc_v, *,

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
+
 
 def truncated_normal_(t: torch.Tensor, scale: float, generator,
                       fan_in: int | None = None) -> None:
@@ -84,8 +86,13 @@ def embed(table, tokens, scale=1.0):
     """Rows of ``table`` for ``tokens``: the gather ``table[tokens]``,
     through ``F.embedding``, whose backward on the card sums a row's
     gradients in fp32 (a bf16 table's too), where the accumulating
-    ``index_put_`` of ``table[tokens]`` adds in the table's dtype."""
-    out = F.embedding(tokens, table)
+    ``index_put_`` of ``table[tokens]`` adds in the table's dtype. A DTensor
+    table (its vocab sliced over a mesh) takes
+    :func:`_vocab_parallel_embed`."""
+    if is_dtensor(table):
+        out = _vocab_parallel_embed(table, tokens)
+    else:
+        out = F.embedding(tokens, table)
     if scale != 1.0:
         out = out * torch.tensor(scale, dtype=out.dtype)
     return out
@@ -110,11 +117,73 @@ def cross_entropy_loss(logits, labels, mask=None):
     """logits fp32 (..., V); labels int (...). Returns the mean NLL
     (logsumexp minus the gold logit) over ``mask`` (all positions when
     None). A column masked to -1e30 by :func:`lm_logits` has softmax
-    weight exactly 0, so it takes exactly 0 gradient."""
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    nll = logz - gold
+    weight exactly 0, so it takes exactly 0 gradient. DTensor logits whose
+    vocab the mesh shards take :func:`_vocab_parallel_nll`."""
+    if is_dtensor(logits):
+        nll = _vocab_parallel_nll(logits, labels)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+        nll = logz - gold
     if mask is None:
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def _vocab_parallel_nll(logits, labels):
+    """The NLL of DTensor ``logits`` (..., V) at ``labels`` on each rank's
+    slice of the vocab: the max, the sum of exponentials and the gold
+    logit (0 where the label lies in another slice) each reduced over the
+    mesh dims that slice V — no rank gathers the logits."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import dim_shards
+    rows, index, group = dim_shards(logits, -1)
+
+    def nll(lg, lb):
+        n = lg.shape[-1]
+        m = lg.amax(dim=-1, keepdim=True).detach()
+        if group is not None:
+            m = funcol.all_reduce(m, "max", group)
+        se = torch.exp(lg - m).sum(dim=-1)
+        at = lb.long() - index * n
+        ok = (at >= 0) & (at < n)
+        gold = torch.gather(lg, -1, at.clamp(0, n - 1)[..., None])[..., 0]
+        gold = torch.where(ok, gold, 0.0)
+        if group is not None:
+            se = funcol.all_reduce(se, "sum", group)
+            gold = funcol.all_reduce(gold, "sum", group)
+        return m[..., 0] + torch.log(se) - gold
+    return local_map(nll, out_placements=list(rows),
+                     in_placements=(tuple(logits.placements), rows),
+                     device_mesh=logits.device_mesh,
+                     redistribute_inputs=True)(logits, labels)
+
+
+def _vocab_parallel_embed(table, tokens):
+    """Rows of DTensor ``table`` (V, d) for DTensor ``tokens`` on each
+    rank's slice of the vocab: a row from another slice is 0 here, and one
+    sum over the mesh dims that slice V completes every row. The output
+    is placed as ``tokens``."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.distributed.sharding import dim_shards
+    _, index, group = dim_shards(table, 0)
+
+    def look(tbl, tok):
+        n = tbl.shape[0]
+        at = tok - index * n
+        ok = (at >= 0) & (at < n)
+        out = torch.where(ok[..., None], F.embedding(at.clamp(0, n - 1), tbl),
+                          0.0)
+        if group is not None:
+            out = funcol.all_reduce(out, "sum", group)
+        return out
+    place = tuple(tokens.placements)
+    return local_map(look, out_placements=list(place),
+                     in_placements=(tuple(table.placements), place),
+                     device_mesh=table.device_mesh,
+                     redistribute_inputs=True)(table, tokens)

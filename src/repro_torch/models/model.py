@@ -67,7 +67,7 @@ from repro_torch.models.layers import (cross_entropy_loss, embed,
 class LM(nn.Module):
     def __init__(self, cfg, *, dtype=torch.float32, device="cuda",
                  chunk_size: int = 512, kv_cache_dtype: str = "native",
-                 remat: bool = True):
+                 remat: bool = True, ep_axes=()):
         super().__init__()
         if cfg.family not in ("attn_dense", "moe", "ssm", "hybrid", "vlm",
                               "encdec"):
@@ -86,6 +86,11 @@ class LM(nn.Module):
         # the loss path recomputes each layer (hybrid: each segment) in the
         # backward, as the reference's "nothing" remat policy does
         self.remat = remat
+        # the mesh axes a MoE block's expert parallelism gathers over (the
+        # data axes; the reference's ``build_model(ep_axes=...)``): with
+        # DTensor weights on a mesh with a ``model`` axis the MoE blocks
+        # take the EP paths
+        self.ep_axes = tuple(ep_axes)
         V, d = cfg.padded_vocab, cfg.d_model
         self.embed = B.frozen_param((V, d), dtype, self.device)
         self.head = (None if cfg.tie_embeddings
@@ -114,6 +119,8 @@ class LM(nn.Module):
                 B.DecoderBlock(cfg, dtype, self.device,
                                "dense" if i < n_dense else "moe")
                 for i in range(cfg.num_layers))
+            for blk in self.blocks:
+                blk.ep_axes = self.ep_axes
         if cfg.family == "hybrid":
             hy = cfg.hybrid
             self.n_seg = cfg.num_layers // hy.shared_block_period
@@ -302,10 +309,14 @@ class LM(nn.Module):
     @staticmethod
     def _pad_stack(parts, S, T):
         """Stack per-layer ``(B, S, *shape)`` arrays into one ``(n, B, T,
-        *shape)`` array, zero past ``S``."""
-        x = parts[0].new_zeros((len(parts), parts[0].shape[0], T)
-                               + parts[0].shape[2:])
-        x[:, :, :S] = torch.stack(parts)
+        *shape)`` array, zero past ``S``: a concatenation, so a DTensor
+        keeps its placements (its ``new_zeros`` would be whole on every
+        rank)."""
+        x = torch.stack(parts)
+        if T > S:
+            pad = torch.zeros_like(x[:, :, :1]).expand(
+                x.shape[:2] + (T - S,) + x.shape[3:])
+            x = torch.cat([x, pad], dim=2)
         return x
 
     @torch.no_grad()

@@ -1,4 +1,11 @@
-"""Storage-tier model of the simulated clock.
+"""The card the roofline scores against (``Chip``, ``H100``), and the
+storage-tier model of the simulated clock.
+
+``H100`` is NVIDIA's H100 SXM5 data sheet (dense rates, no sparsity, at
+the full 700 W power limit; NVLink 4 from the Hopper architecture white
+paper): the roofline's compute, memory and collective terms and
+``chip_smoke.py``'s bounds read it. A card set below 700 W runs slower
+under load than these peaks.
 
 The paper's tier model (host-side cache benchmarks) — calibrated from
 Izraelevitz et al. [arXiv:1903.05714] Optane DCPMM measurements and vendor
@@ -7,6 +14,25 @@ specs for the paper's Supermicro testbed (Xeon Gold 6326, Optane v200,
 simulated time only; they describe no GPU.
 """
 from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class Chip:
+    name: str
+    peak_flops_bf16: float     # FLOP/s, tensor cores, fp32 accumulation
+    peak_flops_tf32: float     # FLOP/s, tensor cores
+    peak_flops_fp32: float     # FLOP/s, CUDA cores
+    hbm_bandwidth: float       # B/s
+    hbm_bytes: int             # device memory
+    nvlink_bandwidth: float    # B/s to the host's other cards, each way
+    sms: int                   # streaming multiprocessors
+    smem_per_sm: int           # bytes of shared memory (with L1) an SM
+
+
+H100 = Chip(name="nvidia-h100-sxm5", peak_flops_bf16=989e12,
+            peak_flops_tf32=495e12, peak_flops_fp32=67e12,
+            hbm_bandwidth=3.35e12, hbm_bytes=80 * 10**9,
+            nvlink_bandwidth=450e9, sms=132, smem_per_sm=228 * 1024)
 
 
 @dataclass(frozen=True)

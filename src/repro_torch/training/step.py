@@ -86,7 +86,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                 loss.detach(), {k: v.detach() for k, v in metrics.items()})
 
     def accumulate(batch):
-        acc = {n: torch.zeros(p.shape, dtype=accum_dtype, device=p.device)
+        # placed as the parameter (a DTensor's shards, on a mesh)
+        acc = {n: torch.zeros_like(p, dtype=accum_dtype)
                for n, p in model.named_parameters()}
         losses, metricses = [], []
         for i in range(microbatches):

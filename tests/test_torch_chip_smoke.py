@@ -185,3 +185,44 @@ def test_training_phases_rehearse_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "rel 0.000e+00 (tolerance 1e-2, bf16)" in out
     assert out.count("worst gradient leaf") == 2
+
+
+def test_script_runs_the_distribution_phases_last():
+    """``main`` runs dryrun, dryrun-card, ep-card and examples after
+    train-crash, in that order: the dry run's cells at full width on the
+    fake pod (and one multipod) mesh, the (1, 1) mesh's InternLM2-1.8B cut
+    to 2 layers at batches 4 and 1, and the two EP paths at token counts
+    on either side of ``apply_moe``'s 4096-token switch."""
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    at = [src.index(s) for s in (
+        'stamp("train-crash")', "dryrun_phase(torch", 'stamp("dryrun")',
+        "dryrun_card(", 'stamp("dryrun-card")', "ep_card(torch",
+        'stamp("ep-card")', "examples_phase(torch", 'stamp("examples")',
+        "print(smi_line())")]
+    assert at == sorted(at)
+    assert chip_smoke.DRYRUN_CELLS == (
+        ("internlm2-1.8b", "train_4k", False, 2),
+        ("internlm2-1.8b", "prefill_32k", False, None),
+        ("internlm2-1.8b", "decode_32k", False, None),
+        ("deepseek-v2-236b", "train_4k", False, 2),
+        ("mamba2-1.3b", "decode_32k", False, None),
+        ("zamba2-1.2b", "decode_32k", False, None),
+        ("internlm2-1.8b", "train_4k", True, 2))
+    assert (chip_smoke.CARD_ARCH, chip_smoke.CARD_LAYERS,
+            chip_smoke.CARD_BATCH) == ("internlm2-1.8b", 2,
+                                       {"train_4k": 4, "prefill_32k": 1})
+    lo, hi = chip_smoke.CARD_PEAK_BAND
+    assert lo <= 1.0 <= hi and "CARD_PEAK_BAND" in inspect.getsource(
+        chip_smoke.dryrun_card)
+    (ep, n_ep, _), (tg, n_tg, cf_tg) = chip_smoke.EP_CASES
+    assert (ep, tg, cf_tg) == ("_moe_ep", "_moe_ep_tokengather", None)
+    assert n_ep > 4096 >= n_tg
+    assert chip_smoke.EP_ARCH == "deepseek-v2-236b"
+
+
+def test_card_peaks_come_from_the_h100_record():
+    from repro_torch.roofline.hw import H100
+    assert chip_smoke.HBM_BYTES_PER_S == H100.hbm_bandwidth == 3.35e12
+    assert chip_smoke.FLOPS_PER_S == {"bfloat16": 989e12, "float32": 67e12,
+                                      "tf32x3": 495e12 / 3}

@@ -268,3 +268,87 @@ def test_3xtf32_o_accumulated_in_the_mma_drifts_toward_zero():
     assert drift[1024, True] > 2 * drift[256, True] > 0
     assert drift[1024, True] > 4 * drift[1024, False]
     assert drift[1024, False] < 1.5 * drift[256, False]
+
+
+# ------------------------------------------------------- #9 as a custom op
+# (B, Sq, Skv, H, K, D, DV, causal): equal and MLA-like width pairs,
+# causal Sq == Skv, Sq < Skv and Sq > Skv, and non-causal
+OP_CASES = [(2, 32, 32, 4, 2, 32, 32, True), (1, 20, 52, 4, 4, 16, 16, True),
+            (1, 48, 16, 2, 1, 32, 32, True), (2, 24, 40, 6, 2, 48, 32, False),
+            (1, 1, 64, 4, 4, 64, 64, False)]
+
+
+def _op_inputs(B, Sq, Skv, H, K, D, DV, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(s, generator=g).to(dtype)
+            for s in ((B, Sq, H, D), (B, Skv, K, D), (B, Skv, K, DV))]
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_entry_is_the_custom_op_and_its_cpu_path_the_parents(case, dtype):
+    """The entry calls ``torch.ops.repro_torch.flash_attention``, whose CPU
+    path gives the plain version's bits (what the entry returned before
+    the op), counts no launch, and whose fake implementation gives the
+    output's shape and dtype without data."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    B, Sq, Skv, H, K, D, DV, causal = case
+    q, k, v = _op_inputs(B, Sq, Skv, H, K, D, DV, dtype)
+    before = flash_attention.launches
+    for scale in (None, 0.3):
+        got = flash_attention(q, k, v, causal=causal, scale=scale)
+        want = flash_attention_ref(q, k, v, causal=causal, scale=scale)
+        assert torch.equal(got, want)
+        op = torch.ops.repro_torch.flash_attention(
+            q, k, v, causal, scale if scale else D ** -0.5)
+        assert torch.equal(op, want)
+    assert flash_attention.launches == before
+    with FakeTensorMode() as fm:
+        fq, fk, fv = (fm.from_tensor(t) for t in (q, k, v))
+        out = flash_attention(fq, fk, fv, causal=causal)
+    assert out.shape == (B, Sq, H, DV) and out.dtype == dtype
+
+
+@pytest.mark.parametrize("case", OP_CASES)
+def test_flop_formula_counts_the_pairs_a_row_sees(case):
+    """``FlopCounterMode`` counts the op at 2 (D + DV) a (query, key) pair
+    and query head, over the pairs the call computes — counted here by
+    hand, query by query (a causal query at ``i + Skv - Sq`` sees the
+    keys at or before it)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    B, Sq, Skv, H, K, D, DV, causal = case
+    q, k, v = _op_inputs(B, Sq, Skv, H, K, D, DV, torch.float32)
+    with FlopCounterMode(display=False) as fc:
+        flash_attention(q, k, v, causal=causal)
+    pairs = 0
+    for i in range(Sq):
+        pairs += (sum(1 for j in range(Skv) if j <= i + Skv - Sq)
+                  if causal else Skv)
+    assert fc.get_total_flops() == 2 * (D + DV) * H * B * pairs
+
+
+@pytest.mark.parametrize("kv_heads,heads_sharded", [(4, True), (1, False)])
+def test_sharding_rule_keeps_batch_and_heads_where_they_divide(
+        kv_heads, heads_sharded):
+    """On a fake 2 × 2 world the op's DTensor rule keeps batch on ``data``
+    and, where every mesh dim divides the KV heads, heads on ``model``;
+    sequence and head width are never sharded."""
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_test_mesh, start_fake_world
+    start_fake_world(4)
+    try:
+        mesh = make_test_mesh((2, 2), device_type="cpu")
+        place = [Shard(0), Shard(2) if heads_sharded else Replicate()]
+        with FakeTensorMode():
+            q, k, v = (DTensor.from_local(
+                torch.empty(2, 16, h // (2 if heads_sharded else 1), 32),
+                mesh, place, run_check=False) for h in (4, kv_heads,
+                                                         kv_heads))
+            out = flash_attention(q, k, v, causal=True)
+        assert out.shape == (4, 16, 4, 32)
+        assert tuple(out.placements) == tuple(place)
+    finally:
+        dist.destroy_process_group()

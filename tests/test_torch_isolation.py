@@ -10,8 +10,11 @@ with frontend embeddings, decode steps), and every public kernel entry
 load neither JAX nor any module of the JAX package; nor do the file-system
 tier (``NVCacheFS`` on every FS engine), the checkpoint manager, the
 engine registry CLI, the training CLI (``python -m
-repro_torch.launch.train``) and ``examples/train_lm_torch.py``. Without
-``--device cpu`` the training CLI and the example raise here (no GPU)."""
+repro_torch.launch.train``) and ``examples/train_lm_torch.py``, the dry
+run (``python -m repro_torch.launch.dryrun``: the sharding rules, the
+meshes, the specs, the roofline) and the examples' twins
+(``examples/*_torch.py``). Without ``--device cpu`` the training CLI, its
+example, the dry-run CLI and the serving twin raise here (no GPU)."""
 import os
 import subprocess
 import sys
@@ -322,6 +325,62 @@ def test_training_cli_and_example_default_to_the_gpu():
     for argv in (["-m", "repro_torch.launch.train", "--steps", "1"],
                  [str(SRC.parent / "examples" / "train_lm_torch.py"),
                   "--steps", "1", "--layers", "1"]):
+        proc = subprocess.run([sys.executable, *argv], env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert "device='cuda' requested but torch sees no GPU" in \
+            proc.stderr, proc.stderr
+
+
+_DRYRUN_SCRIPT = textwrap.dedent("""
+    import os
+    import runpy
+    import sys
+    import tempfile
+    os.environ["REPRO_TEST_MESH"] = "2x2"
+    import repro_torch.roofline.analysis
+    sys.argv = ["repro_torch.launch.dryrun", "--device", "cpu", "--arch",
+                "deepseek-v2-236b-smoke", "--shape", "train_4k", "--out",
+                tempfile.mkdtemp()]
+    runpy.run_module("repro_torch.launch.dryrun", run_name="__main__",
+                     alter_sys=True)
+""") + _LOADED
+
+_TWINS_SCRIPT = textwrap.dedent("""
+    import runpy
+    import sys
+    for name, argv in (("quickstart_torch.py", []),
+                       ("crash_recovery_demo_torch.py", []),
+                       ("serve_kv_offload_torch.py", ["--device", "cpu"])):
+        sys.argv = [name, *argv]
+        runpy.run_path(sys.examples_dir + "/" + name, run_name="__main__")
+""").replace("sys.examples_dir", repr(str(SRC.parent / "examples"))) + \
+    _LOADED
+
+
+def test_dryrun_and_example_twins_load_no_jax_and_no_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    for script, expect in ((_DRYRUN_SCRIPT, "[ok] deepseek-v2-236b-smoke"),
+                           (_TWINS_SCRIPT, "all 3 registered KV designs")):
+        proc = subprocess.run([sys.executable, "-c", script], env=env,
+                              capture_output=True, text=True, timeout=300)
+        assert proc.returncode == 0, proc.stdout + proc.stderr
+        assert "LOADED: []" in proc.stderr
+        assert expect in proc.stdout, proc.stdout
+
+
+def test_dryrun_cli_and_serving_twin_default_to_the_gpu():
+    """Without ``--device cpu`` the dry-run CLI and the serving twin ask
+    for the card, and raise when torch sees none (here)."""
+    import torch
+    if torch.cuda.is_available():
+        import pytest
+        pytest.skip("a GPU is present: the runs would go ahead")
+    env = dict(os.environ, PYTHONPATH=str(SRC), REPRO_TEST_MESH="2x2")
+    for argv in (["-m", "repro_torch.launch.dryrun", "--arch",
+                  "internlm2-1.8b-smoke", "--shape", "decode_32k"],
+                 [str(SRC.parent / "examples" /
+                      "serve_kv_offload_torch.py")]):
         proc = subprocess.run([sys.executable, *argv], env=env,
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
