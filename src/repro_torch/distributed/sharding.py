@@ -37,7 +37,10 @@ the mesh passed explicitly (a DTensor carries its own); ``shard_map`` →
 """
 from __future__ import annotations
 
+import collections
 import math
+
+import torch
 
 MODEL_AXIS = "model"
 
@@ -278,6 +281,203 @@ def batch_specs(batch_shape: dict, mesh, microbatched: bool = False,
     return {k: fn(v) for k, v in batch_shape.items()}
 
 
+def settle_residual(t, like):
+    """``t`` in the residual stream's layout, on a mesh: dim 0, the batch,
+    sharded on the mesh dims where ``like`` (the stream, or the batch's
+    tokens) shards its dim 0 — the batch's axes, ``model`` too where an
+    SSM or hybrid cell folds it into the batch —, every other mesh dim
+    replicated; and under autograd its gradient put in the same layout.
+
+    On a branch's output (``wo``, ``w_down``, ``out_proj``, a shared
+    expert, the encoder's cross-attention), the ``Partial`` a row-parallel
+    product leaves on ``model`` is reduced there (an all-reduce; a
+    reduce-scatter onto the batch where the batch is sharded on
+    ``model``), where the reference's GSPMD and Megatron reduce. On a
+    branch's normed input, the forward has nothing to move and the
+    ``Partial`` gradient the column-parallel products give back is
+    all-reduced before the norm's backward. Neither is left to DTensor's
+    propagation, whose choice differs between torch versions (ROADMAP
+    §3). A plain tensor comes back as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    batch = Shard(0)
+    like = like.placements if is_dtensor(like) else ()
+    target = tuple(batch if i < len(like) and like[i] == batch
+                   else Replicate() for i in range(t.device_mesh.ndim))
+    if torch.is_grad_enabled() and t.requires_grad:
+        return _Settle.apply(t, target)
+    return _placed(t, target)
+
+
+def folded_weight(w, h):
+    """A ``model``-sharded weight ``w`` as a product with the hidden state
+    ``h`` takes it: gathered on each mesh dim that shards both ``w`` and
+    ``h``'s batch (an SSM or hybrid train cell folds ``model`` into the
+    batch), so each rank multiplies its own rows by the whole weight, as
+    the reference's GSPMD gathers the LM head's table and Zamba2's shared
+    block there; as it is anywhere else. Under autograd its gradient is
+    reduce-scattered back onto ``w``'s shard on those mesh dims and kept
+    ``Partial`` over the batch on the others: the tied embedding's
+    gradient and each shared-block call site's meet it in that layout and
+    add without a collective, and the train step sums the total once."""
+    if not (is_dtensor(w) and is_dtensor(h)):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    dims = tuple(i for i, (pl, hp) in enumerate(zip(w.placements,
+                                                     h.placements))
+                 if isinstance(pl, Shard) and hp == Shard(0))
+    if not dims:
+        return w
+    target = tuple(Replicate() if i in dims else pl
+                   for i, pl in enumerate(w.placements))
+    if torch.is_grad_enabled() and w.requires_grad:
+        return _Gather.apply(w, target, dims)
+    return _placed(w, target)
+
+
+def hold_layout(t):
+    """``t`` as it is, and under autograd its gradient put in ``t``'s
+    layout on a mesh: where DTensor would hand back a gradient sharded in
+    a way a following view cannot take (heads that a ``model`` axis
+    does not divide, split in the backward of their flattening). A plain
+    tensor comes back as it is."""
+    if is_dtensor(t) and torch.is_grad_enabled() and t.requires_grad:
+        return _Settle.apply(t, tuple(t.placements))
+    return t
+
+
+def replicated(t):
+    """DTensor ``t`` whole on every rank (:func:`placed_as`: a ``Partial``
+    sum over every mesh dim is one all-reduce); anything else as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+    return placed_as(t, (Replicate(),) * t.device_mesh.ndim)
+
+
+def placed_as(t, like):
+    """DTensor ``t`` in the placements of ``like`` (a DTensor, or the
+    placements themselves), anything else as it is.
+    Where the change spans several mesh dims — ``Partial`` summed to
+    ``Replicate`` or onto one tensor dim's shard (a gradient onto its
+    ZeRO-1 shard), one tensor dim's shard gathered (a parameter from its
+    ZeRO-1 master) — each kind is one collective over its mesh dims
+    flattened (the data axes, with ``model``), as the reference's GSPMD
+    issues one over its replica group (its multipod train step sums each
+    gradient and gathers each parameter over ``pod`` × ``data``, 32
+    ranks, in one collective), where DTensor plans one a mesh dim, in an
+    order that differs from one torch release to the next. Any other
+    change is DTensor's redistribute."""
+    if not is_dtensor(t) or not (is_dtensor(like)
+                                 or isinstance(like, tuple)):
+        return t
+    dst = tuple(like.placements) if is_dtensor(like) else like
+    out = _flat_step(t, dst)
+    return _placed(t, dst) if out is None else out
+
+
+def _flat_step(t, dst):
+    """:func:`placed_as`'s collectives, in a fixed order — the sums onto
+    a shard, then the sums to ``Replicate``, then the gathers, each one
+    collective over its mesh dims flattened — or None where the change
+    is within one mesh dim (DTensor's one collective) or is not of these
+    kinds."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh, src = t.device_mesh, tuple(t.placements)
+    # the sums onto a shard first: a sum to Replicate then adds shards
+    steps = {"scatter": [], "reduce": [], "gather": []}
+    for i, (a, b) in enumerate(zip(src, dst)):
+        summed = a.is_partial() and a.reduce_op == "sum"
+        if a == b or (a == Replicate() and isinstance(b, Shard)):
+            continue             # a replicated dim cut moves nothing
+        if summed and b == Replicate():
+            steps["reduce"].append(i)
+        elif summed and isinstance(b, Shard):
+            steps["scatter"].append(i)
+        elif isinstance(a, Shard) and b == Replicate():
+            steps["gather"].append(i)
+        else:
+            return None
+    if sum(map(len, steps.values())) < 2:
+        return None
+    flat = (data_axes(mesh), data_axes(mesh) + (MODEL_AXIS,))
+    cuts = {"scatter": {dst[i] for i in steps["scatter"]},
+            "gather": {src[i] for i in steps["gather"]}}
+    for kind, dims in steps.items():
+        names = tuple(mesh.mesh_dim_names[i] for i in dims)
+        if len(names) > 1 and names not in flat:
+            return None
+        if kind != "reduce" and dims and (len(cuts[kind]) != 1 or any(
+                cut in (src[i], dst[i]) for cut in cuts[kind]
+                for i in range(len(src)) if i not in dims)):
+            return None          # nested with another mesh dim's shard
+    local = t.to_local()
+    # torch 2.13's names of the single-tensor collectives; earlier
+    # releases', the same ones
+    rs = getattr(funcol, "reduce_scatter_single", None) \
+        or funcol.reduce_scatter_tensor
+    ag = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    for kind, dims in steps.items():
+        if not dims:
+            continue
+        group = axis_group(mesh, [mesh.mesh_dim_names[i] for i in dims])
+        if kind == "reduce":
+            local = funcol.all_reduce(local, "sum", group)
+        elif kind == "scatter":
+            k = dst[dims[0]].dim
+            if local.shape[k] % math.prod(mesh.size(i) for i in dims):
+                return None
+            local = rs(local, "sum", k, group)
+        else:
+            local = ag(local, src[dims[0]].dim, group)
+        local = _waited(local)
+    moved = {i for dims in steps.values() for i in dims}
+    mid = tuple(dst[i] if i in moved else pl for i, pl in enumerate(src))
+    return _placed(DTensor.from_local(local, mesh, mid, run_check=False,
+                                      shape=t.shape, stride=t.stride()),
+                   dst)
+
+
+def _placed(t, target):
+    if not is_dtensor(t) or tuple(t.placements) == target:
+        return t
+    return t.redistribute(t.device_mesh, target)
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`folded_weight` under autograd."""
+
+    @staticmethod
+    def forward(ctx, w, target, dims):
+        ctx.place, ctx.dims = tuple(w.placements), dims
+        return _placed(w, target)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back = tuple(pl if pl.is_partial() and i not in ctx.dims
+                     else ctx.place[i]
+                     for i, pl in enumerate(grad.placements))
+        return _placed(grad, back), None, None
+
+
+class _Settle(torch.autograd.Function):
+    """:func:`settle_residual` under autograd: the forward and the backward
+    each put their tensor in the stream's layout."""
+
+    @staticmethod
+    def forward(ctx, t, target):
+        ctx.target = target
+        out = _placed(t, target)
+        return t.view_as(t) if out is t else out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _placed(grad, ctx.target), None
+
+
 def cache_specs(cache_shape: dict, cfg, mesh) -> dict:
     """Decode-cache shardings (cache plane name → shape or tensor): batch
     over dp; KV sequence over ``model``; SSM state heads over
@@ -379,15 +579,92 @@ def all_gather(t, dim: int, group):
     return fn(t, dim, group)
 
 
+# ``local_map`` inputs that arrived Partial, by call site: the residual
+# stream is settled after every row-parallel product (settle_residual), so
+# in the model's runs this stays empty (the dry run records its total)
+partial_guard = collections.Counter()
+
+
+def local_placements(placements, where: str) -> tuple:
+    """``placements`` as a ``local_map`` input's: a ``Partial`` (which
+    ``local_map`` cannot redistribute to) becomes ``Replicate`` and is
+    counted in :data:`partial_guard` under ``where``."""
+    from torch.distributed.tensor import Replicate
+    out = tuple(Replicate() if pl.is_partial() else pl for pl in placements)
+    if out != tuple(placements):
+        partial_guard[where] += 1
+    return out
+
+
+def resolve_partial(t, dim: int, where: str):
+    """DTensor ``t`` with every ``Partial`` placement reduced before it
+    enters a ``local_map``: reduce-scattered onto tensor dim ``dim`` where
+    that dim divides evenly among the mesh dims then cutting it, else
+    all-reduced; counted in :data:`partial_guard` under ``where``. Anything
+    else comes back as it is."""
+    if not is_dtensor(t) or not any(pl.is_partial() for pl in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    mesh, cut = t.device_mesh, Shard(dim % t.ndim)
+    target = list(t.placements)
+    for i, pl in enumerate(target):
+        if pl.is_partial():
+            n = mesh.size(i) * math.prod(
+                mesh.size(j) for j, q in enumerate(target) if q == cut)
+            target[i] = cut if t.shape[cut.dim] % n == 0 else Replicate()
+    partial_guard[where] += 1
+    return t.redistribute(mesh, target)
+
+
+def all_reduce_sum(t, group, grad_group=None):
+    """The functional all-reduce (sum) of ``t`` over ``group``, inside a
+    ``local_map`` body, with a gradient of its own: every rank of
+    ``group`` holds the sum as one value, whose gradient each rank
+    already has whole, so the backward passes it through — or, where the
+    ranks of ``grad_group`` each keep another slice of the sum (a rank's
+    own tokens), all-reduces it over ``grad_group``. Torch 2.13 registers
+    for the functional all-reduce a backward that sums over ``group``
+    (``group``'s size times the gradient of a replicated sum); earlier
+    releases register none."""
+    return _AllReduce.apply(t, group, grad_group)
+
+
+def _waited(t):
+    """A functional collective's result, waited for."""
+    import torch.distributed._functional_collectives as funcol
+    return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+
+def _all_reduce(t, group):
+    import torch.distributed._functional_collectives as funcol
+    return _waited(funcol.all_reduce(t.contiguous(), "sum", group))
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, grad_group):
+        ctx.grad_group = grad_group
+        return _all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.grad_group is not None:
+            grad = _all_reduce(grad, ctx.grad_group)
+        return grad, None, None
+
+
 def dim_shards(t, dim: int):
     """How a DTensor ``t``'s dim ``dim`` is cut: ``(placements of a tensor
     beside it that lacks that dim — sharded as ``t`` elsewhere, replicated
-    on the mesh dims that cut ``dim`` —, this rank's index among the
-    pieces (major to minor), the group over those mesh dims or None)``."""
+    on the mesh dims that cut ``dim`` and on any where ``t`` is Partial
+    (:func:`local_placements`) —, this rank's index among the pieces
+    (major to minor), the group over those mesh dims or None)``."""
     from torch.distributed.tensor import Replicate, Shard
     mesh, place = t.device_mesh, tuple(t.placements)
     cut = Shard(dim % t.ndim)
-    other = tuple(Replicate() if pl == cut else pl for pl in place)
+    other = local_placements(
+        tuple(Replicate() if pl == cut else pl for pl in place),
+        "dim_shards")
     dims = [i for i, pl in enumerate(place) if pl == cut]
     index = 0
     for i in dims:

@@ -11,10 +11,12 @@ inside), so that what does not run a real tensor can still see it: its
 fake implementation gives the output's shape and dtype (the dry run on
 ``FakeTensorMode``), a flop formula is registered with
 ``torch.utils.flop_counter`` (:func:`flash_flops`: the (query, key) pairs
-a row sees, as ``chip_smoke.py`` counts #9's bound), and a DTensor
-sharding rule puts it on a mesh: batch (dim 0) sharded, or heads (dim 2)
-where every mesh dim divides the KV heads, or replicated; sequence and
-head width are never sharded.
+a row sees, as ``chip_smoke.py`` counts #9's bound). On DTensors the
+entry runs the op on each rank's shard (``local_map``): batch (dim 0)
+sharded where q's is, heads (dim 2) where q's are and the mesh dim
+divides the KV heads, else replicated; sequence and head width are never
+sharded. The placement is the port's, not left to DTensor's strategy
+choice, which differs between torch releases.
 
 :class:`FlashAttentionFn` puts the entry under autograd for the training
 path: its forward is :func:`flash_attention` (the kernel on the card: no
@@ -22,7 +24,7 @@ path: its forward is :func:`flash_attention` (the kernel on the card: no
 plain version's gradient (``ref.flash_attention_ref_backward``, plain
 PyTorch: the JAX package has no backward kernel either); on DTensors the
 backward runs that same function on each rank's shard
-(``local_map``), batch or heads sharded as the forward's rule allows. The
+(``local_map``), placed as the forward. The
 forward never falls back to the plain version when the kernel cannot
 build or launch.
 """
@@ -33,7 +35,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import is_dtensor, local_placements
 from repro_torch.kernels.build import c_entry, check_launch, require_cuda
 from repro_torch.kernels.flash_attention.ref import (
     flash_attention_ref, flash_attention_ref_backward)
@@ -64,8 +66,16 @@ def flash_attention(q, k, v, *, causal: bool = True,
                          f"{block_k}")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
-                                                 float(scale))
+    op = torch.ops.repro_torch.flash_attention
+    if is_dtensor(q):
+        from torch.distributed.tensor.experimental import local_map
+        place = _local_placements(q, k)
+        return local_map(lambda *qkv: op(*qkv, bool(causal), float(scale)),
+                         out_placements=list(place),
+                         in_placements=(place,) * 3,
+                         device_mesh=q.device_mesh,
+                         redistribute_inputs=True)(q, k, v)
+    return op(q, k, v, bool(causal), float(scale))
 
 
 @torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
@@ -151,26 +161,7 @@ def _register_formulas() -> None:
         return flash_flops(q_shape, k_shape, v_shape, causal)
 
 
-def _heads_divide(k_shape, mesh) -> bool:
-    return all(k_shape[2] % n == 0 for n in mesh.shape)
-
-
-def _register_sharding() -> None:
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import register_sharding
-
-    @register_sharding(torch.ops.repro_torch.flash_attention.default)
-    def _rule(q, k, v, causal, scale):
-        out = [([Replicate()], [Replicate()] * 3 + [None, None]),
-               ([Shard(0)], [Shard(0)] * 3 + [None, None])]
-        if _heads_divide(k.shape, k.mesh):
-            out.append(([Shard(2)], [Shard(2)] * 3 + [None, None]))
-        return out
-
-
 _register_formulas()
-if torch.distributed.is_available():
-    _register_sharding()
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -199,24 +190,28 @@ class FlashAttentionFn(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
+def _local_placements(q, k) -> tuple:
+    """Where each rank runs #9 on DTensor inputs: per mesh dim, batch
+    sharded where q's batch is, heads where q's heads are and the dim
+    divides the KV heads, else replicated; sequence and head width never
+    sharded."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    return tuple(
+        p if p == Shard(0) or (p == Shard(2)
+                               and k.shape[2] % mesh.size(i) == 0)
+        else Replicate()
+        for i, p in enumerate(local_placements(q.placements, "flash")))
+
+
 def _local_backward(q, k):
     """``flash_attention_ref_backward`` on each rank's shard of DTensor
-    inputs: per mesh dim, batch sharded where q's batch is, heads where
-    q's heads are and the dim divides the KV heads, else replicated (the
-    forward's rule); the gradients come back placed alike."""
+    inputs, placed as the forward (:func:`_local_placements`); the
+    gradients come back placed alike."""
     from functools import partial
 
-    from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
-    mesh = q.device_mesh
-    place = []
-    for i, p in enumerate(q.placements):
-        if p == Shard(0) or (p == Shard(2)
-                             and k.shape[2] % mesh.size(i) == 0):
-            place.append(p)
-        else:
-            place.append(Replicate())
-    place = tuple(place)
+    mesh, place = q.device_mesh, _local_placements(q, k)
 
     def run(q, k, v, dout, *, causal, scale):
         return local_map(partial(flash_attention_ref_backward,

@@ -19,7 +19,9 @@ The artifact keeps the reference's keys: ``memory.argument_bytes`` (the
 local bytes of the step's inputs), ``memory.temp_bytes`` (the most bytes
 the step's own allocations hold at once), ``per_device_live_bytes``
 (their sum), ``cost.flops`` and ``cost["bytes accessed"]`` per rank,
-``collectives`` and ``fits_hbm`` (against the H100's 80 GB).
+``collectives`` and ``fits_hbm`` (against the H100's 80 GB); and the
+port's ``partial_guard_fires`` (``local_map`` inputs that arrived
+``Partial``: 0 in every cell).
 
 ``fits_hbm`` is ``per_device_live_bytes <= 80e9`` and keeps no margin of
 its own. The live bytes are what the step's tensors hold, as the eager
@@ -45,6 +47,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -60,7 +63,7 @@ from repro_torch.configs import (ARCH_IDS, SHAPES_BY_NAME, applicable_shapes,
                                  get_config, skipped_shapes)
 from repro_torch.distributed.sharding import (batch_specs, cache_specs,
                                               data_axes, local_bytes,
-                                              param_specs)
+                                              param_specs, partial_guard)
 from repro_torch.launch.mesh import (make_test_mesh, prepare_groups,
                                      production_mesh_shape, start_fake_world)
 from repro_torch.launch.specs import (abstract_cache, abstract_params,
@@ -199,15 +202,46 @@ def _leaves(tree) -> list:
     return [tree] if isinstance(tree, torch.Tensor) else []
 
 
+@contextlib.contextmanager
+def card_alltoall():
+    """DTensor moves a shard from one tensor dim to another with the
+    all-to-all ``_dtensor::shard_dim_alltoall`` on a CUDA mesh, and with an
+    all-gather and a chunk on a CPU one (gloo has no all-to-all). The
+    fake world runs either; inside this context a CPU mesh takes the
+    card's op too, so a cell counts the same collectives on both
+    devices (DTensor's own function, ``placement_types.
+    shard_dim_alltoall``, is swapped for the context's span)."""
+    from torch.distributed.tensor import placement_types as pt
+
+    def alltoall(tensor, gather_dim, shard_dim, mesh, mesh_dim):
+        return torch.ops._dtensor.shard_dim_alltoall(
+            tensor, gather_dim, shard_dim,
+            mesh.get_group(mesh_dim).group_name)
+    real = pt.shard_dim_alltoall
+    pt.shard_dim_alltoall = alltoall
+    try:
+        yield
+    finally:
+        pt.shard_dim_alltoall = real
+
+
 def measure_cell(step, args, ops=None) -> dict:
     """Run ``step()`` once inside ``implicit_replication`` and a
-    ``CostMode``; returns the artifact's memory, cost and collectives
-    (and appends each collective to the list ``ops``, when given)."""
+    ``CostMode`` (on CPU tensors :func:`card_alltoall` too); returns the
+    artifact's memory, cost and collectives (and appends each collective
+    to the list ``ops``, when given), and ``partial_guard_fires``, the
+    ``local_map`` inputs that arrived ``Partial`` (:data:`~repro_torch.
+    distributed.sharding.partial_guard`; 0 where every row-parallel
+    product was settled)."""
     from torch.distributed.tensor.experimental import implicit_replication
     arg_leaves = _leaves(args)
     arg_bytes = sum(local_bytes(t) for t in arg_leaves)
     arg_ids = {id(t) for t in arg_leaves}
-    with implicit_replication(), CostMode() as cm:
+    partial_guard.clear()
+    on_cpu = any(t.device.type == "cpu" for t in arg_leaves)
+    with implicit_replication(), \
+            card_alltoall() if on_cpu else contextlib.nullcontext(), \
+            CostMode() as cm:
         out = step()
         out_leaves = _leaves(out)
         del out
@@ -223,7 +257,8 @@ def measure_cell(step, args, ops=None) -> dict:
             "fits_hbm": bool(live <= H100.hbm_bytes),
             "cost": {"flops": float(cm.flops),
                      "bytes accessed": float(cm.bytes_accessed)},
-            "collectives": cm.summary()}
+            "collectives": cm.summary(),
+            "partial_guard_fires": sum(partial_guard.values())}
 
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
@@ -279,6 +314,25 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, out_dir: Path,
     return result
 
 
+def sweep_cells(archs=ARCH_IDS, shape=None, meshes=(False, True)):
+    """``([(arch, shape, multi_pod)], [(arch, shape, reason)])``: the cells
+    the CLI steps, every cell of one mesh before the next (one fake world
+    a mesh size: torch 2.11 resolves the groups of a world started again
+    by the names of the destroyed one's), and the skipped ones (none
+    where ``shape`` is named)."""
+    run, skip = [], []
+    for mp in meshes:
+        for arch in archs:
+            cfg = get_config(arch)
+            shapes = ([SHAPES_BY_NAME[shape]] if shape
+                      else applicable_shapes(cfg))
+            run += [(arch, sh.name, mp) for sh in shapes]
+    if not shape:
+        skip = [(arch, name, why) for arch in archs
+                for name, why in skipped_shapes(get_config(arch))]
+    return run, skip
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="Step every (arch x shape x mesh) cell on fake tensors "
@@ -319,34 +373,33 @@ def main(argv=None):
     archs = ARCH_IDS if (args.all or not args.arch) else [args.arch]
     meshes = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
+    run, skip = sweep_cells(archs, args.shape, meshes)
     failures = 0
-    for arch in archs:
-        cfg = get_config(arch)
-        shapes = ([SHAPES_BY_NAME[args.shape]] if args.shape
-                  else applicable_shapes(cfg))
-        for sh in shapes:
-            for mp in meshes:
-                tag = f"{arch} × {sh.name} × {'multipod' if mp else 'pod'}"
-                try:
-                    r = run_cell(arch, sh.name, mp, out_dir,
-                                 layers_override=args.layers,
-                                 keep_hlo=args.keep_hlo,
-                                 mb_override=args.mb,
-                                 period_override=args.period,
-                                 kv_cache_dtype=args.kv_dtype,
-                                 chunk_size=args.chunk, device=device)
-                    print(f"[ok] {tag}: live="
-                          f"{r['per_device_live_bytes'] / 1e9:.2f}GB"
-                          f" fits={r['fits_hbm']}"
-                          f" colls={r['collectives'].get('num_ops', 0)}"
-                          f" run={r['run_s']}s", flush=True)
-                except Exception as e:  # noqa: BLE001 — one cell's failure
-                    failures += 1       # is reported; the sweep goes on
-                    print(f"[FAIL] {tag}: {type(e).__name__}: {e}",
-                          flush=True)
-                    traceback.print_exc()
-        for sh_name, reason in (skipped_shapes(cfg) if not args.shape else []):
-            print(f"[skip] {arch} × {sh_name}: {reason}", flush=True)
+    for arch, shape, mp in run:
+        tag = f"{arch} × {shape} × {'multipod' if mp else 'pod'}"
+        try:
+            r = run_cell(arch, shape, mp, out_dir,
+                         layers_override=args.layers,
+                         keep_hlo=args.keep_hlo, mb_override=args.mb,
+                         period_override=args.period,
+                         kv_cache_dtype=args.kv_dtype,
+                         chunk_size=args.chunk, device=device)
+        except Exception as e:  # noqa: BLE001 — one cell's failure
+            failures += 1       # is reported; the sweep goes on
+            print(f"[FAIL] {tag}: {type(e).__name__}: {e}", flush=True)
+            traceback.print_exc()
+            continue
+        # a Partial settled at a local_map input means a row-parallel
+        # output went unsettled: the cell steps, but it fails
+        fired = r["partial_guard_fires"]
+        failures += bool(fired)
+        print(f"[{'FAIL' if fired else 'ok'}] {tag}: live="
+              f"{r['per_device_live_bytes'] / 1e9:.2f}GB"
+              f" fits={r['fits_hbm']}"
+              f" colls={r['collectives'].get('num_ops', 0)}"
+              f" partial_guard={fired} run={r['run_s']}s", flush=True)
+    for arch, sh_name, reason in skip:
+        print(f"[skip] {arch} × {sh_name}: {reason}", flush=True)
     if failures:
         sys.exit(1)
 

@@ -42,7 +42,8 @@ from functools import partial
 
 import torch
 
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import (hold_layout, is_dtensor,
+                                              settle_residual)
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.kernels.paged_attention.ops import (
@@ -147,7 +148,7 @@ def attn_train(p, cfg, x, positions, *, causal=True, chunk_size=512):
             _check_rising(positions, "attn_train", chunk_size)
         out = long_attention(q.flatten(2, 3), k, v, causal=causal,
                              scale=scale)
-    out = out.reshape(B, S, cfg.num_heads * cfg.head_dim)
+    out = hold_layout(out.reshape(B, S, cfg.num_heads * cfg.head_dim))
     return out @ p.wo, (k, v)
 
 
@@ -170,7 +171,7 @@ def attn_cross(p, cfg, x, enc_k, enc_v, *, chunk_size=512):
     else:
         out = long_attention(q.flatten(2, 3), enc_k, enc_v, causal=False,
                              scale=scale)
-    return out.reshape(B, S, H * D) @ p.wo
+    return hold_layout(out.reshape(B, S, H * D)) @ p.wo
 
 
 def _lse_merge(s, pv, group):
@@ -200,8 +201,9 @@ def _sharded_decode(body, queries, caches, positions):
     the queries."""
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.distributed.sharding import dim_shards
-    mesh, place = caches[0].device_mesh, tuple(caches[0].placements)
+    from repro_torch.distributed.sharding import dim_shards, local_placements
+    mesh, place = caches[0].device_mesh, local_placements(
+        caches[0].placements, "sharded_decode")
     rows, index, group = dim_shards(caches[0], 1)
 
     def run(pos, *tensors):
@@ -226,8 +228,9 @@ def _write_rows(caches, values, positions):
         return
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.distributed.sharding import dim_shards
-    mesh, place = caches[0].device_mesh, tuple(caches[0].placements)
+    from repro_torch.distributed.sharding import dim_shards, local_placements
+    mesh, place = caches[0].device_mesh, local_placements(
+        caches[0].placements, "write_rows")
     rows, index, _ = dim_shards(caches[0], 1)
 
     def write(pos, *tensors):
@@ -493,7 +496,11 @@ def _mla_queries(p, cfg, x, positions):
     B, S, _ = x.shape
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     if m.q_lora_rank:
-        cq = rmsnorm(p.q_norm, x @ p.w_dq, cfg.norm_eps)
+        # on a mesh, the column-sharded latent is gathered whole before
+        # its norm and the head-sharded up-projection (left to DTensor,
+        # the up-projection came out Partial, and its backward sharded the
+        # sequence on ``model``)
+        cq = rmsnorm(p.q_norm, settle_residual(x @ p.w_dq, x), cfg.norm_eps)
         q = (cq @ p.w_uq).reshape(B, S, cfg.num_heads, qk_head)
     else:
         q = (x @ p.w_q).reshape(B, S, cfg.num_heads, qk_head)
@@ -552,7 +559,7 @@ def mla_train(p, cfg, x, positions, *, chunk_size=512):
     else:
         _check_rising(positions, "mla_train", chunk_size)
         out = long_attention(q, k, v, causal=True, scale=_mla_scale(cfg))
-    out = out.reshape(B, S, H * m.v_head_dim)
+    out = hold_layout(out.reshape(B, S, H * m.v_head_dim))
     return out @ p.wo, (c_kv, k_rope)
 
 

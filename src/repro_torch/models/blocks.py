@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import folded_weight, settle_residual
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (apply_ffn, ffn_matrices, rmsnorm,
@@ -148,15 +149,21 @@ class DecoderBlock(nn.Module):
                 truncated_normal_(t, 1.0, generator)
 
 
+def _branch_in(scale, cfg, h):
+    """A branch's input: ``h`` normed, its gradient settled on a mesh
+    (:func:`~repro_torch.distributed.sharding.settle_residual`)."""
+    return settle_residual(rmsnorm(scale, h, cfg.norm_eps), h)
+
+
 def _ffn_aux(p, cfg, h):
     """The block's FFN half: ``(h, aux)``, ``aux`` the MoE load-balancing
     loss (fp32 scalar), None for a dense FFN."""
-    x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
+    x = _branch_in(p.ln_ffn, cfg, h)
     if p.ffn_kind == "moe":
         f, aux = apply_moe(p, cfg, x, getattr(p, "ep_axes", ()))
     else:
         f, aux = apply_ffn(p, x, cfg.ffn_activation), None
-    return h + cfg.residual_scale * f, aux
+    return h + cfg.residual_scale * settle_residual(f, h), aux
 
 
 def _ffn(p, cfg, h):
@@ -164,10 +171,10 @@ def _ffn(p, cfg, h):
 
 
 def _attn_half(p, cfg, h, positions, chunk_size):
-    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    x = _branch_in(p.ln_attn, cfg, h)
     train = attn_mod.mla_train if cfg.mla is not None else attn_mod.attn_train
     a, kv = train(p, cfg, x, positions, chunk_size=chunk_size)
-    return h + cfg.residual_scale * a, kv
+    return h + cfg.residual_scale * settle_residual(a, h), kv
 
 
 def apply_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
@@ -192,7 +199,7 @@ def decode_decoder_block(p, cfg, h, cache, positions):
     """Single-token block over one layer's dense cache planes, written in
     place: ``(c, kr)`` MLA, ``(k, v, k_scale, v_scale)`` int8, ``(k, v)``
     dense."""
-    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    x = _branch_in(p.ln_attn, cfg, h)
     if cfg.mla is not None:
         step = attn_mod.mla_decode
     elif len(cache) == 4:
@@ -200,14 +207,15 @@ def decode_decoder_block(p, cfg, h, cache, positions):
     else:
         step = attn_mod.attn_decode
     a, *cache = step(p, cfg, x, *cache, positions)
-    return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(cache)
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
+            tuple(cache))
 
 
 def step_ragged_block(p, cfg, h, cache, ctx_lens, q_lens):
     """Ragged multi-token block over one layer's dense cache planes,
     written in place (the dense-mirror path's fused tick), dispatched as
     :func:`decode_decoder_block`."""
-    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    x = _branch_in(p.ln_attn, cfg, h)
     if cfg.mla is not None:
         step = attn_mod.mla_decode_ragged
     elif len(cache) == 4:
@@ -215,13 +223,14 @@ def step_ragged_block(p, cfg, h, cache, ctx_lens, q_lens):
     else:
         step = attn_mod.attn_decode_ragged
     a, *cache = step(p, cfg, x, *cache, ctx_lens, q_lens)
-    return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(cache)
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
+            tuple(cache))
 
 
 def decode_paged_block(p, cfg, h, planes, block_table, positions):
     """Single-token block over one layer's pool planes (descriptor
     order), dispatched as :func:`decode_decoder_block`."""
-    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    x = _branch_in(p.ln_attn, cfg, h)
     if cfg.mla is not None:
         step = attn_mod.mla_decode_paged
     elif len(planes) == 4:
@@ -229,14 +238,15 @@ def decode_paged_block(p, cfg, h, planes, block_table, positions):
     else:
         step = attn_mod.attn_decode_paged
     a, *planes = step(p, cfg, x, *planes, block_table, positions)
-    return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(planes)
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
+            tuple(planes))
 
 
 def step_paged_ragged_block(p, cfg, h, planes, block_table, ctx_lens,
                             q_lens):
     """Ragged multi-token block over one layer's pool planes (the fused
     mixed-batch tick), dispatched as :func:`decode_decoder_block`."""
-    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    x = _branch_in(p.ln_attn, cfg, h)
     if cfg.mla is not None:
         step = attn_mod.mla_step_paged_ragged
     elif len(planes) == 4:
@@ -244,19 +254,20 @@ def step_paged_ragged_block(p, cfg, h, planes, block_table, ctx_lens,
     else:
         step = attn_mod.attn_step_paged_ragged
     a, *planes = step(p, cfg, x, *planes, block_table, ctx_lens, q_lens)
-    return _ffn(p, cfg, h + cfg.residual_scale * a), tuple(planes)
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
+            tuple(planes))
 
 
 def apply_encoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
     """Bidirectional encoder block over a full sequence: non-causal
     self-attention (the flash kernel past ``chunk_size``), then the FFN;
     no ``residual_scale``, as in JAX."""
-    x = rmsnorm(p.ln_attn, h, cfg.norm_eps)
+    x = _branch_in(p.ln_attn, cfg, h)
     a, _ = attn_mod.attn_train(p, cfg, x, positions, causal=False,
                                chunk_size=chunk_size)
-    h = h + a
-    x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
-    return h + apply_ffn(p, x, cfg.ffn_activation)
+    h = h + settle_residual(a, h)
+    x = _branch_in(p.ln_ffn, cfg, h)
+    return h + settle_residual(apply_ffn(p, x, cfg.ffn_activation), h)
 
 
 def cross_kv(p, cfg, enc_out):
@@ -274,15 +285,15 @@ def apply_encdec_decoder_block(p, cfg, h, positions, enc_k, enc_v, *,
     """Full-sequence enc-dec decoder block: causal self-attention,
     cross-attention over ``enc_k``/``enc_v``, FFN. Returns ``(h, (k, v))``,
     the self-attention cache pair."""
-    x = rmsnorm(p.ln_self, h, cfg.norm_eps)
+    x = _branch_in(p.ln_self, cfg, h)
     a, kv = attn_mod.attn_train(p.self_attn, cfg, x, positions, causal=True,
                                 chunk_size=chunk_size)
-    h = h + a
-    x = rmsnorm(p.ln_cross, h, cfg.norm_eps)
-    h = h + attn_mod.attn_cross(p.cross_attn, cfg, x, enc_k, enc_v,
-                                chunk_size=chunk_size)
-    x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
-    return h + apply_ffn(p, x, cfg.ffn_activation), kv
+    h = h + settle_residual(a, h)
+    x = _branch_in(p.ln_cross, cfg, h)
+    h = h + settle_residual(attn_mod.attn_cross(
+        p.cross_attn, cfg, x, enc_k, enc_v, chunk_size=chunk_size), h)
+    x = _branch_in(p.ln_ffn, cfg, h)
+    return h + settle_residual(apply_ffn(p, x, cfg.ffn_activation), h), kv
 
 
 def decode_encdec_decoder_block(p, cfg, h, cache, positions):
@@ -290,13 +301,15 @@ def decode_encdec_decoder_block(p, cfg, h, cache, positions):
     self-attention cache written in place, cross-attention at the default
     ``chunk_size`` (as the JAX block calls it). Returns ``(h, (k, v))``."""
     ck, cv, ek, ev = cache
-    x = rmsnorm(p.ln_self, h, cfg.norm_eps)
+    x = _branch_in(p.ln_self, cfg, h)
     a, ck, cv = attn_mod.attn_decode(p.self_attn, cfg, x, ck, cv, positions)
-    h = h + a
-    x = rmsnorm(p.ln_cross, h, cfg.norm_eps)
-    h = h + attn_mod.attn_cross(p.cross_attn, cfg, x, ek, ev)
-    x = rmsnorm(p.ln_ffn, h, cfg.norm_eps)
-    return h + apply_ffn(p, x, cfg.ffn_activation), (ck, cv)
+    h = h + settle_residual(a, h)
+    x = _branch_in(p.ln_cross, cfg, h)
+    h = h + settle_residual(attn_mod.attn_cross(p.cross_attn, cfg, x, ek, ev),
+                            h)
+    x = _branch_in(p.ln_ffn, cfg, h)
+    return (h + settle_residual(apply_ffn(p, x, cfg.ffn_activation), h),
+            (ck, cv))
 
 
 def jax_block_arrays(np_blocks: dict, i: int, cfg, ffn_kind: str) -> dict:
@@ -336,18 +349,18 @@ class SSMBlock(nn.Module):
 
 def apply_ssm_block(p, cfg, h, initial_state=None):
     """Full-sequence block. Returns ``(h, (conv_state, ssm_state))``."""
-    x = rmsnorm(p.ln, h, cfg.norm_eps)
+    x = _branch_in(p.ln, cfg, h)
     y, state = ssm_mod.apply_ssm(p, cfg, x, initial_state)
-    return h + y, state
+    return h + settle_residual(y, h), state
 
 
 def decode_ssm_block(p, cfg, h, conv_state, ssm_state):
     """Single-token block. Returns ``(h, conv_state, ssm_state)``, the
     states new tensors."""
-    x = rmsnorm(p.ln, h, cfg.norm_eps)
+    x = _branch_in(p.ln, cfg, h)
     y, (conv_state, ssm_state) = ssm_mod.ssm_decode(p, cfg, x, conv_state,
                                                     ssm_state)
-    return h + y, conv_state, ssm_state
+    return h + settle_residual(y, h), conv_state, ssm_state
 
 
 def _keep_index(keep_from, n_keep: int, qmax: int, device):
@@ -441,32 +454,38 @@ class LoRA(nn.Module):
 
 class _LoraPatched:
     """A shared block's parameters with one call site's LoRA delta folded
-    into ``wq``/``wk``/``wv``; every other name reads the shared block."""
+    into ``wq``/``wk``/``wv``; every other name reads the shared block,
+    each weight as a product with the call site's hidden state ``h``
+    takes it (:func:`~repro_torch.distributed.sharding.folded_weight`:
+    gathered on ``model`` where a train cell folds the batch there)."""
 
-    def __init__(self, shared, wq, wk, wv):
-        self._shared = shared
+    def __init__(self, shared, h, wq, wk, wv):
+        self._shared, self._h = shared, h
         self.wq, self.wk, self.wv = wq, wk, wv
 
     def __getattr__(self, name):
-        return getattr(self._shared, name)
+        w = folded_weight(getattr(self._shared, name), self._h)
+        setattr(self, name, w)              # one gather a call site
+        return w
 
 
-def _lora_patched_attn(shared, lora, cfg):
+def _lora_patched_attn(shared, lora, cfg, h):
     H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     delta = lora.a @ lora.b                                # (d, qkv_out)
     dq, dk, dv = torch.split(delta, [H * D, K * D, K * D], dim=-1)
-    return _LoraPatched(shared, shared.wq + dq, shared.wk + dk,
-                        shared.wv + dv)
+    return _LoraPatched(shared, h, folded_weight(shared.wq, h) + dq,
+                        folded_weight(shared.wk, h) + dk,
+                        folded_weight(shared.wv, h) + dv)
 
 
 def apply_shared_block(shared, lora, cfg, h, positions, chunk_size=512):
     """Full-sequence shared block at one call site. Returns ``(h, (k, v))``."""
-    return apply_decoder_block(_lora_patched_attn(shared, lora, cfg), cfg, h,
-                               positions, chunk_size=chunk_size)
+    return apply_decoder_block(_lora_patched_attn(shared, lora, cfg, h), cfg,
+                               h, positions, chunk_size=chunk_size)
 
 
 def decode_shared_block(shared, lora, cfg, h, cache, positions):
     """Single-token shared block over the call site's ``(k, v)`` cache,
     written in place."""
-    return decode_decoder_block(_lora_patched_attn(shared, lora, cfg), cfg,
-                                h, cache, positions)
+    return decode_decoder_block(_lora_patched_attn(shared, lora, cfg, h),
+                                cfg, h, cache, positions)

@@ -135,11 +135,15 @@ def _vocab_parallel_nll(logits, labels):
     """The NLL of DTensor ``logits`` (..., V) at ``labels`` on each rank's
     slice of the vocab: the max, the sum of exponentials and the gold
     logit (0 where the label lies in another slice) each reduced over the
-    mesh dims that slice V — no rank gathers the logits."""
+    mesh dims that slice V — no rank gathers the logits. A ``Partial``
+    on the logits is reduce-scattered onto V first (all-reduced where V
+    does not divide)."""
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.distributed.sharding import dim_shards
+    from repro_torch.distributed.sharding import (all_reduce_sum, dim_shards,
+                                                  resolve_partial)
+    logits = resolve_partial(logits, -1, "vocab_parallel_nll")
     rows, index, group = dim_shards(logits, -1)
 
     def nll(lg, lb):
@@ -153,8 +157,8 @@ def _vocab_parallel_nll(logits, labels):
         gold = torch.gather(lg, -1, at.clamp(0, n - 1)[..., None])[..., 0]
         gold = torch.where(ok, gold, 0.0)
         if group is not None:
-            se = funcol.all_reduce(se, "sum", group)
-            gold = funcol.all_reduce(gold, "sum", group)
+            se = all_reduce_sum(se, group)
+            gold = all_reduce_sum(gold, group)
         return m[..., 0] + torch.log(se) - gold
     return local_map(nll, out_placements=list(rows),
                      in_placements=(tuple(logits.placements), rows),
@@ -166,11 +170,17 @@ def _vocab_parallel_embed(table, tokens):
     """Rows of DTensor ``table`` (V, d) for DTensor ``tokens`` on each
     rank's slice of the vocab: a row from another slice is 0 here, and one
     sum over the mesh dims that slice V completes every row. The output
-    is placed as ``tokens``."""
-    import torch.distributed._functional_collectives as funcol
+    is placed as ``tokens``; where ``tokens`` are sharded on a mesh dim
+    that slices V too (an SSM or hybrid train cell folds ``model`` into
+    the batch), the lookup gathers them there first, so every rank of the
+    sum looks up the same tokens, and keeps its own rows after."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    from repro_torch.distributed.sharding import dim_shards
+    from repro_torch.distributed.sharding import (all_reduce_sum, dim_shards,
+                                                  local_placements,
+                                                  resolve_partial)
+    table = resolve_partial(table, 0, "vocab_parallel_embed")
     _, index, group = dim_shards(table, 0)
 
     def look(tbl, tok):
@@ -180,10 +190,19 @@ def _vocab_parallel_embed(table, tokens):
         out = torch.where(ok[..., None], F.embedding(at.clamp(0, n - 1), tbl),
                           0.0)
         if group is not None:
-            out = funcol.all_reduce(out, "sum", group)
+            out = all_reduce_sum(out, group)
         return out
-    place = tuple(tokens.placements)
-    return local_map(look, out_placements=list(place),
-                     in_placements=(tuple(table.placements), place),
-                     device_mesh=table.device_mesh,
-                     redistribute_inputs=True)(table, tokens)
+    place = local_placements(tokens.placements, "vocab_parallel_embed")
+    look_place = tuple(Replicate() if t == Shard(0) else pl
+                       for pl, t in zip(place, table.placements))
+    # the table's gradient: Partial where its rows are whole but the
+    # tokens split (each rank adds its own tokens' rows)
+    grad = tuple(Partial() if t == Replicate() and pl != Replicate() else t
+                 for t, pl in zip(table.placements, look_place))
+    out = local_map(look, out_placements=list(look_place),
+                    in_placements=(tuple(table.placements), look_place),
+                    in_grad_placements=(grad, look_place),
+                    device_mesh=table.device_mesh,
+                    redistribute_inputs=True)(table, tokens)
+    return out if look_place == place else out.redistribute(
+        out.device_mesh, place)

@@ -58,6 +58,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.engines.desc import descriptor_for
+from repro_torch.distributed.sharding import (folded_weight, replicated,
+                                              settle_residual)
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import quantize_kv
 from repro_torch.models.layers import (cross_entropy_loss, embed,
@@ -184,7 +186,7 @@ class LM(nn.Module):
             if i:
                 h = torch.nn.functional.gelu(h, approximate="tanh")
             h = h @ w
-        return h
+        return settle_residual(h, embeds)
 
     def _run_encoder(self, src):
         """The encoder stack over frames ``src`` (B, T, d_model) at
@@ -195,7 +197,8 @@ class LM(nn.Module):
         for blk in self.enc_blocks:
             h = self._call(lambda x, blk=blk: B.apply_encoder_block(
                 blk, self.cfg, x, positions, chunk_size=self.chunk_size), h)
-        return rmsnorm(self.enc_ln, h, self.cfg.norm_eps)
+        # every decoder layer's cross K/V reads it: one settled gradient
+        return settle_residual(rmsnorm(self.enc_ln, h, self.cfg.norm_eps), h)
 
     def _call(self, fn, *args):
         """``fn(*args)``: one layer (or hybrid segment) of a stack. On the
@@ -206,10 +209,18 @@ class LM(nn.Module):
                               preserve_rng_state=False)
         return fn(*args)
 
-    def _logits(self, h):
+    def _logits(self, h, tokens):
+        """fp32 logits of the final hidden state ``h``, laid out (on a
+        mesh) as the batch's ``tokens``: batch-sharded, replicated on the
+        other mesh dims, so the vocab-sharded table gives vocab-sharded
+        logits (where the batch is folded over ``model``, the table is
+        gathered there: :func:`~repro_torch.distributed.sharding.
+        folded_weight`)."""
         cfg = self.cfg
-        h = rmsnorm(self.final_ln, h, cfg.norm_eps)
-        table = self.embed if cfg.tie_embeddings else self.head
+        h = rmsnorm(self.final_ln, settle_residual(h, tokens), cfg.norm_eps)
+        h = settle_residual(h, tokens)        # the head's gradient
+        table = folded_weight(self.embed if cfg.tie_embeddings
+                              else self.head, h)
         return lm_logits(table, h, cfg.logit_scale, cfg.logit_soft_cap,
                          vocab_size=cfg.vocab_size)
 
@@ -256,7 +267,10 @@ class LM(nn.Module):
             for blk in self.blocks:
                 h, a = self._call(lambda x, blk=blk: B.train_decoder_block(
                     blk, cfg, x, positions, chunk_size=cs), h)
-                aux = aux + a
+                # on a mesh the EP aux loss is the data shards' mean:
+                # summed here, once a layer (left Partial, torch 2.11 and
+                # 2.13 sum it at different ops)
+                aux = aux + replicated(a)
             h = h[:, n_img:]
         elif fam == "ssm":
             for blk in self.blocks:
@@ -278,7 +292,7 @@ class LM(nn.Module):
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=dev)
-        loss = cross_entropy_loss(self._logits(h), labels, mask)
+        loss = cross_entropy_loss(self._logits(h, tokens), labels, mask)
         if cfg.moe is not None:
             loss = loss + cfg.moe.router_aux_weight * aux
         return loss, {"loss": loss, "aux_loss": aux}
@@ -369,7 +383,7 @@ class LM(nn.Module):
                     acc.append(x)
             cache["k"], cache["v"] = (self._pad_stack(a, S, T) for a in kv)
             cache["ek"], cache["ev"] = (torch.stack(a) for a in cross)
-            return self._logits(h[:, -1:]), cache
+            return self._logits(h[:, -1:], tokens), cache
         if cfg.family == "ssm":
             states = [], []
             for blk in self.blocks:
@@ -377,7 +391,7 @@ class LM(nn.Module):
                 for acc, x in zip(states, st):
                     acc.append(x)
             cache["conv"], cache["ssm"] = (torch.stack(a) for a in states)
-            return self._logits(h[:, -1:]), cache
+            return self._logits(h[:, -1:], tokens), cache
         if cfg.family == "hybrid":
             h, cache_parts = self._run_hybrid_stack(h, positions)
             seg, kv, tail = cache_parts
@@ -390,7 +404,7 @@ class LM(nn.Module):
             if self.tail_len:
                 cache["tail_conv"], cache["tail_ssm"] = (
                     torch.stack(acc) for acc in tail)
-            return self._logits(h[:, -1:]), cache
+            return self._logits(h[:, -1:], tokens), cache
         parts = ([], [])
         for blk in self.blocks:
             h, kv = B.apply_decoder_block(blk, cfg, h, positions,
@@ -405,7 +419,7 @@ class LM(nn.Module):
             cache["v"], cache["v_scale"] = quantize_kv(padded[1])
         else:
             cache["k"], cache["v"] = padded
-        return self._logits(h[:, -1:]), cache
+        return self._logits(h[:, -1:], tokens), cache
 
     def _run_hybrid_stack(self, h, positions):
         """Zamba2's full-sequence stack: ``n_seg`` × (``seg_len`` Mamba-2
@@ -460,7 +474,7 @@ class LM(nn.Module):
                 h, _ = B.decode_decoder_block(
                     blk, cfg, h, tuple(cache[n][i] for n in names),
                     positions)
-        return self._logits(h), new_cache
+        return self._logits(h, tokens), new_cache
 
     def _decode_ssm_layers(self, blocks, h, conv, ssm):
         """Single-token SSM blocks over per-layer states ``conv[i]``/
@@ -520,7 +534,7 @@ class LM(nn.Module):
         new_cache["pos"] = (ctx_lens + q_lens).to(torch.int32)
         new_cache["conv_steps"] = torch.stack(conv_steps)
         new_cache["ssm_steps"] = torch.stack(ssm_steps)
-        return self._logits(h), new_cache
+        return self._logits(h, tokens), new_cache
 
     def _ragged_desc(self, what: str):
         desc = self.cache_descriptor()
@@ -556,7 +570,7 @@ class LM(nn.Module):
                 ctx_lens, q_lens)
         new_cache = dict(cache)
         new_cache["pos"] = (ctx_lens + q_lens).to(torch.int32)
-        return self._logits(h), new_cache
+        return self._logits(h, tokens), new_cache
 
     def _paged_layers(self, cache, h, step):
         """Run the layer stack over per-layer views of the cache's
@@ -582,7 +596,7 @@ class LM(nn.Module):
                 blk, cfg, hh, planes, table, positions))
         new_cache = {"pos": (positions + 1).to(torch.int32),
                      "block_table": table, **pools}
-        return self._logits(h), new_cache
+        return self._logits(h, tokens), new_cache
 
     @torch.no_grad()
     def step_paged_ragged(self, cache, tokens, ctx_lens, q_lens, keep=None):
@@ -606,7 +620,7 @@ class LM(nn.Module):
                 blk, cfg, hh, planes, table, ctx_lens, q_lens))
         new_cache = {"pos": (ctx_lens + q_lens).to(torch.int32),
                      "block_table": table, **pools}
-        return self._logits(h), new_cache
+        return self._logits(h, tokens), new_cache
 
 
 def _jax_layers(cfg) -> list:

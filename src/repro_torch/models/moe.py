@@ -35,7 +35,11 @@ the tokens over the data axes, runs its experts on its hidden slice and
 all-reduces over the data axes and ``model`` at once. Each is a
 ``local_map`` body (the ``shard_map`` counterpart) with functional
 collectives, so the same code runs on a ``fake`` world of fake tensors
-(the dry run) and on a real process group.
+(the dry run) and on a real process group. Their gradients are stated,
+not left to the collectives' registered backwards: the output sum's
+passes through (``sharding.all_reduce_sum``), the tokens' and the
+router's are each rank's share (``Partial``), and only the first
+``model`` rank passes the aux loss's on.
 """
 from __future__ import annotations
 
@@ -44,6 +48,7 @@ from types import SimpleNamespace
 
 import torch
 
+from repro_torch.distributed.sharding import settle_residual
 from repro_torch.models.layers import _act, apply_ffn, ffn_matrices
 
 
@@ -173,7 +178,8 @@ def apply_moe(p, cfg, x, ep_axes=()):
     for part in ("shared", "dense"):
         ffn = getattr(p, part, None)
         if ffn is not None:
-            y = y + apply_ffn(ffn, x_flat, cfg.ffn_activation)
+            y = y + settle_residual(apply_ffn(ffn, x_flat, cfg.ffn_activation),
+                                    x_flat)
     return y.reshape(B, S, d), aux
 
 
@@ -197,15 +203,32 @@ def _ep_layout(mesh, ep_axes):
 
 
 def _ep_call(body, p, x_flat, tok_place, places, mesh):
+    """``body`` as a ``local_map`` over the tokens, the router and the
+    experts. The gradients of the tokens (on each mesh dim they are
+    replicated on) and of the router (on every mesh dim) are each rank's
+    share, Partial: a rank's experts, hidden slice or tokens give only
+    their part of the sum."""
+    from torch.distributed.tensor import Partial, Replicate
     from torch.distributed.tensor.experimental import local_map
     e = p.experts
+    share = tuple(Partial() if pl == Replicate() else pl for pl in tok_place)
     fn = local_map(
         body, out_placements=(tok_place, places["aux"]),
         in_placements=(tok_place, places["router"], places["w_gate"],
                        places["w_up"], places["w_down"]),
+        in_grad_placements=(share, (Partial(),) * mesh.ndim,
+                            places["w_gate"], places["w_up"],
+                            places["w_down"]),
         device_mesh=mesh, redistribute_inputs=True)
     y, aux_arr = fn(x_flat, p.router, e.w_gate, e.w_up, e.w_down)
     return y, aux_arr.mean()
+
+
+def _aux_share(aux, model_rank):
+    """The aux loss as a body's output ``(1,)``: every ``model`` rank
+    holds the same value, and only the first passes its gradient to the
+    router (whose gradient sums the ranks' shares)."""
+    return (aux if model_rank == 0 else aux.detach())[None]
 
 
 def _moe_ep(p, cfg, x_flat, ep_axes, mesh):
@@ -214,9 +237,8 @@ def _moe_ep(p, cfg, x_flat, ep_axes, mesh):
     tokens, keeps only its ``E_loc`` experts' assignments, runs them and
     all-reduces the partial outputs over ``model``. The FSDP'd expert
     hidden dim is all-gathered over the data axes inside the region."""
-    import torch.distributed._functional_collectives as funcol
-
-    from repro_torch.distributed.sharding import (P, all_gather, axis_group,
+    from repro_torch.distributed.sharding import (P, all_gather,
+                                                  all_reduce_sum, axis_group,
                                                   to_placements)
     m = cfg.moe
     dp, dp_size, places = _ep_layout(mesh, ep_axes)
@@ -238,8 +260,8 @@ def _moe_ep(p, cfg, x_flat, ep_axes, mesh):
             SimpleNamespace(w_gate=w_gate, w_up=w_up, w_down=w_down), x_loc,
             top_ids, top_w, m.num_experts, capacity, cfg.ffn_activation,
             first=rank * E_loc, n_local=E_loc)
-        y = funcol.all_reduce(y, "sum", axis_group(mesh, ("model",)))
-        return y, aux[None]
+        y = all_reduce_sum(y, axis_group(mesh, ("model",)))
+        return y, _aux_share(aux, rank)
 
     tok_place = to_placements(P(dp if dp else None, None), mesh)
     return _ep_call(local, p, x_flat, tok_place, places, mesh)
@@ -252,9 +274,8 @@ def _moe_ep_tokengather(p, cfg, x_flat, ep_axes, mesh):
     the hidden dim is elementwise through the gate), and one all-reduce
     over the data axes and ``model`` completes both the expert and the
     hidden-slice sums; each rank keeps its own tokens' rows."""
-    import torch.distributed._functional_collectives as funcol
-
-    from repro_torch.distributed.sharding import (P, all_gather, axis_group,
+    from repro_torch.distributed.sharding import (P, all_gather,
+                                                  all_reduce_sum, axis_group,
                                                   to_placements)
     m = cfg.moe
     dp, dp_size, places = _ep_layout(mesh, ep_axes)
@@ -280,11 +301,14 @@ def _moe_ep_tokengather(p, cfg, x_flat, ep_axes, mesh):
             SimpleNamespace(w_gate=w_gate, w_up=w_up, w_down=w_down), x_all,
             top_ids, top_w, m.num_experts, capacity, cfg.ffn_activation,
             first=rank * E_loc, n_local=E_loc)
-        y_all = funcol.all_reduce(y_all, "sum",
-                                  axis_group(mesh, dp + ("model",)))
+        # each data rank keeps its own tokens' rows of the sum: their
+        # gradients gathered over the data axes are the sum's
+        y_all = all_reduce_sum(y_all, axis_group(mesh, dp + ("model",)),
+                               axis_group(mesh, dp) if tokens_sharded
+                               else None)
         if tokens_sharded:
             y_all = y_all[idx * T_loc:(idx + 1) * T_loc]
-        return y_all, aux[None]
+        return y_all, _aux_share(aux, rank)
 
     tok_place = to_placements(P(dp if tokens_sharded else None, None), mesh)
     return _ep_call(local, p, x_flat, tok_place, places, mesh)

@@ -85,11 +85,35 @@ def _gated_norm(p, y, z, eps):
     return (yf * torch.rsqrt(var + eps) * p.norm_scale.float()).to(y.dtype)
 
 
+def _pad_steps(x, n, front=False):
+    """``x`` (B, T, ...) with ``n`` zero steps before it (``front``) or
+    after it: a concatenation, where torch 2.11's DTensor cannot place
+    ``F.pad`` of a batch-sharded tensor."""
+    zeros = torch.zeros_like(x[:, :1]).expand(-1, n, *x.shape[2:])
+    return torch.cat([zeros, x] if front else [x, zeros], dim=1)
+
+
+def _cumsum(x, dim):
+    """``torch.cumsum``; on a DTensor that no mesh dim cuts along ``dim``
+    (batch-sharded here), each rank's own, through a ``local_map``:
+    torch 2.11's DTensor has no placement for the ``flip`` of cumsum's
+    backward."""
+    from repro_torch.distributed.sharding import is_dtensor
+    if not is_dtensor(x) or any(
+            getattr(pl, "dim", None) == dim % x.ndim for pl in x.placements):
+        return torch.cumsum(x, dim=dim)
+    from torch.distributed.tensor.experimental import local_map
+    place = tuple(x.placements)
+    return local_map(lambda t: torch.cumsum(t, dim=dim),
+                     out_placements=list(place), in_placements=(place,),
+                     device_mesh=x.device_mesh)(x)
+
+
 def _segsum(x):
     """Stable segment-sum: out[..., i, j] = sum_{k=j+1..i} x[..., k] (i>=j),
     -inf above the diagonal."""
     T = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
+    cs = _cumsum(x, -1)
     out = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
     return out.masked_fill(~mask, -math.inf)
@@ -123,7 +147,7 @@ def ssd_chunked(x, dt, A, B, C, chunk_size, initial_state=None):
         L = torch.exp(_segsum(dAj.transpose(1, 2)))            # (b,H,Q,Q)
         CB = torch.einsum("bin,bjn->bij", Cj, Bj)              # (b,Q,Q)
         y_diag = torch.einsum("bij,bhij,bjhp->bihp", CB, L, xj)
-        dA_cum = torch.cumsum(dAj, dim=1)                      # (b,Q,H)
+        dA_cum = _cumsum(dAj, 1)                               # (b,Q,H)
         decay_to_end = torch.exp(dA_cum[:, -1:, :] - dA_cum)
         state_c = torch.einsum("bjn,bjh,bjhp->bhpn", Bj, decay_to_end, xj)
         y_off = torch.einsum("bin,bih,bhpn->bihp", Cj, torch.exp(dA_cum), s)
@@ -143,7 +167,7 @@ def apply_ssm(p, cfg, x, initial_state=None):
     B_, T, _ = x.shape
     z, xbc, dt = _split_in_proj(cfg, x @ p.in_proj)
     # causal depthwise conv over xbc: the reference's window sum
-    xbc_pad = F.pad(xbc, (0, 0, s.d_conv - 1, 0))
+    xbc_pad = _pad_steps(xbc, s.d_conv - 1, front=True)
     win = torch.stack([xbc_pad[:, i:i + T] for i in range(s.d_conv)], 0)
     xbc = F.silu(torch.einsum("kbtc,kc->btc", win, p.conv_w) + p.conv_b)
     conv_state = xbc_pad[:, -(s.d_conv - 1):]
@@ -155,10 +179,8 @@ def apply_ssm(p, cfg, x, initial_state=None):
     Q = s.chunk_size
     T_pad = (-T) % Q
     if T_pad:
-        xh = F.pad(xh, (0, 0, 0, 0, 0, T_pad))
-        Bmat = F.pad(Bmat, (0, 0, 0, T_pad))
-        Cmat = F.pad(Cmat, (0, 0, 0, T_pad))
-        dt = F.pad(dt, (0, 0, 0, T_pad))
+        xh, Bmat, Cmat, dt = (_pad_steps(t, T_pad)
+                              for t in (xh, Bmat, Cmat, dt))
     y, final_state = ssd_chunked(xh, dt, A, Bmat, Cmat, Q, initial_state)
     if T_pad:
         y, xh = y[:, :T], xh[:, :T]

@@ -7,7 +7,9 @@ below DTensor (it declines every op on a DTensor, which DTensor then runs
 as ops on its local shards), so everything it counts is one rank's:
 
 * each functional collective (``torch.ops._c10d_functional``: the ones
-  DTensor's redistributions and the EP bodies call) as a
+  DTensor's redistributions and the EP bodies call; and
+  ``torch.ops._dtensor.shard_dim_alltoall``, DTensor's move of a shard
+  from one tensor dim to another, an all-to-all) as a
   :class:`CollectiveOp` — its kind, local operand and result bytes, and
   the size of its group;
 * operations, by the formulas ``torch.utils.flop_counter`` registers
@@ -95,6 +97,7 @@ _KINDS = {"all_gather_into_tensor": "all-gather",
           "all_reduce_coalesced": "all-reduce",
           "all_reduce_coalesced_": "all-reduce",
           "all_to_all_single": "all-to-all",
+          "shard_dim_alltoall": "all-to-all",
           "broadcast": "collective-permute",
           "broadcast_": "collective-permute"}
 
@@ -194,7 +197,8 @@ class CostMode(TorchDispatchMode):
         returns_alias = any(r.alias_info is not None for r in schema.returns)
         ins, outs = _tensors((args, kwargs)), _tensors(out)
         name = func._opname if hasattr(func, "_opname") else func.__name__
-        if func.namespace == "_c10d_functional" and name in _KINDS:
+        if func.namespace in ("_c10d_functional", "_dtensor") \
+                and name in _KINDS:
             self.collectives.append(CollectiveOp(
                 _KINDS[name], _nbytes(outs), _nbytes(ins), _group_size(args)))
         packet = func._overloadpacket

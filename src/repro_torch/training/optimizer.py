@@ -22,6 +22,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.distributed.sharding import placed_as, replicated
+
 
 @dataclass(frozen=True)
 class AdamWConfig:
@@ -80,12 +82,13 @@ def adamw_init(params: dict, moment_dtype=torch.float32) -> dict:
 
 
 def global_norm(tree: dict):
-    """sqrt of the sum of every leaf's fp32 sum of squares."""
+    """sqrt of the sum of every leaf's fp32 sum of squares (on a mesh,
+    the ranks' partial sums added in one all-reduce)."""
     total = None
     for g in tree.values():
         sq = torch.sum(torch.square(g.float()))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return torch.sqrt(replicated(total))
 
 
 @torch.no_grad()
@@ -118,7 +121,7 @@ def adamw_update(cfg: AdamWConfig, grads: dict, opt_state: dict,
         master.sub_(lr * (step + wd))
         mu.copy_(mu32)
         nu.copy_(nu32)
-        p.copy_(master)
+        p.copy_(placed_as(master, p))
     new_state = {"mu": opt_state["mu"], "nu": opt_state["nu"],
                  "master": opt_state["master"], "count": count}
     return params, new_state, {"grad_norm": gnorm, "lr": lr}

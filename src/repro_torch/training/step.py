@@ -21,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor, placed_as
 from repro_torch.models.model import jax_leaf_ndims
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
@@ -78,23 +79,29 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     decay = {n: d >= 2 for n, d in jax_leaf_ndims(model).items()}
 
     def grads_of(batch):
-        for p in model.parameters():
-            p.grad = None
+        # taken as the backward hands them over: a parameter's .grad would
+        # be laid out as the parameter on one torch release and not on
+        # another (on a mesh), and the train step places them itself
         loss, metrics = model.loss_fn(batch)
-        loss.backward()
-        return ({n: p.grad for n, p in model.named_parameters()},
-                loss.detach(), {k: v.detach() for k, v in metrics.items()})
+        named = dict(model.named_parameters())
+        live = [n for n, p in named.items() if p.requires_grad]
+        grads = dict.fromkeys(named)
+        grads.update(zip(live, torch.autograd.grad(
+            loss, [named[n] for n in live], allow_unused=True)))
+        return (grads, loss.detach(),
+                {k: v.detach() for k, v in metrics.items()})
 
-    def accumulate(batch):
-        # placed as the parameter (a DTensor's shards, on a mesh)
-        acc = {n: torch.zeros_like(p, dtype=accum_dtype)
-               for n, p in model.named_parameters()}
+    def accumulate(batch, mu):
+        # placed as the optimizer state (a DTensor's ZeRO-1 shards, on a
+        # mesh)
+        acc = {n: torch.zeros_like(mu[n], dtype=accum_dtype)
+               for n, _ in model.named_parameters()}
         losses, metricses = [], []
         for i in range(microbatches):
             grads, loss, metrics = grads_of({k: v[i] for k, v in
                                              batch.items()})
             for n, g in grads.items():
-                acc[n] += g.to(accum_dtype)
+                acc[n] += reduced(g, acc[n]).to(accum_dtype)
             losses.append(loss)
             metricses.append(metrics)
         grads = {n: a / microbatches for n, a in acc.items()}
@@ -102,18 +109,27 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                    for k in metricses[0]}
         return grads, torch.stack(losses).mean(), metrics
 
+    def reduced(g, like):
+        """A gradient on a mesh — Partial over the ranks that split the
+        batch — summed once into ``like``'s layout (the optimizer
+        state's: a reduce-scatter onto its ZeRO-1 shard), where each of
+        the optimizer's ops would reduce it anew; summed in its own dtype
+        (bf16 for a bf16 model, as the reference's GSPMD sums it), then
+        cast to ``accum_dtype``. A plain tensor as it is."""
+        return placed_as(g, like).to(accum_dtype) if is_dtensor(g) else g
+
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = bind_params(model, state.params)
+        mu = state.opt_state["mu"]
         if microbatches > 1:
-            grads, loss, metrics = accumulate(batch)
+            grads, loss, metrics = accumulate(batch, mu)
         else:
             grads, loss, metrics = grads_of(batch)
+            grads = {n: reduced(g, mu[n]) for n, g in grads.items()}
         if compress_grads is not None:
             grads = compress_grads(grads)
         params, opt_state, opt_metrics = adamw_update(
             opt_cfg, grads, state.opt_state, params, decay)
-        for p in model.parameters():
-            p.grad = None
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -66,14 +66,25 @@ def _tree_bytes(shapes, specs, sizes) -> int:
     return sum(_local_bytes(l, s, sizes) for l, s in zip(leaves, spec_leaves))
 
 
-def jax_argument_bytes(arch, shape_name, mesh_dims, mb) -> int:
+def jax_argument_bytes(arch, shape_name, mesh_dims, mb, layers=None) -> int:
     """The local bytes of the JAX cell's arguments on one device: the
-    train state and batch, or the params, cache, tokens and positions."""
+    train state and batch, the params and batch (prefill), or the params,
+    cache, tokens and positions (decode);
+    ``layers`` cuts the depth as the reference's ``--layers`` does."""
+    import dataclasses
+
     from jax.sharding import PartitionSpec as P
     axes = AXES[-len(mesh_dims):]
     mesh = JS.make_abstract_mesh(mesh_dims, axes)
     sizes = dict(zip(axes, mesh_dims))
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(
+            cfg, num_layers=layers,
+            num_encoder_layers=min(cfg.num_encoder_layers, layers))
+        if cfg.hybrid is not None:
+            cfg = dataclasses.replace(cfg, hybrid=dataclasses.replace(
+                cfg.hybrid, shared_block_period=max(layers // 2, 1)))
     shape = SHAPES_BY_NAME[shape_name]
     model = build_model(cfg, param_dtype=jnp.bfloat16,
                         compute_dtype=jnp.bfloat16)
@@ -98,6 +109,9 @@ def jax_argument_bytes(arch, shape_name, mesh_dims, mb) -> int:
         lambda a: jax.ShapeDtypeStruct(a.shape, jnp.bfloat16)
         if a.dtype == jnp.float32 else a, JSP.abstract_params(model))
     total = _tree_bytes(params, JS.param_specs(params, cfg, mesh), sizes)
+    if shape.kind == "prefill":
+        batch = JSP.input_specs(cfg, shape)
+        return total + _tree_bytes(batch, JS.batch_specs(batch, mesh), sizes)
     cache = JSP.abstract_cache(model, cfg, shape)
     total += _tree_bytes(cache, JS.cache_specs(cache, cfg, mesh), sizes)
     batch = JSP.input_specs(cfg, shape)

@@ -277,6 +277,44 @@ def test_dtensor_mla_model_computes_what_the_plain_model_computes(
                             tmp_path / "res.npz")
 
 
+def test_dtensor_model_with_a_folded_batch_computes_the_plain_model(
+        tmp_path):
+    """Zamba2's smoke config with the loss's batch on ``data`` ×
+    ``model``, as the dry run's SSM and hybrid train cells fold the idle
+    ``model`` axis into the batch: the vocab-parallel embedding gathers
+    the tokens that ``model`` splits before its sum, so the loss, its
+    gradients, the prefill and a decode step equal the plain model's."""
+    mc = _mesh_check()
+    name = "zamba2 batch on data x model"
+    assert dict((c[0], c[2]) for c in mc.MODEL_CASES)[name] == {
+        "batch_axes": ("data", "model")}
+    mc.run_cases("cpu", [("model", name)], tmp_path / "res.npz")
+
+
+def test_dtensor_train_step_computes_the_plain_train_step(tmp_path):
+    """One train step of InternLM2's smoke config on a 2 × 2 ``gloo``
+    mesh at 2 microbatches, its AdamW state ZeRO-1 on ``data``: each
+    gradient summed once onto its moments' shard (``placed_as``), the
+    norm's partial sums in one all-reduce. The loss, the gradient norm
+    and both moments equal the plain step's within fp32 tolerance, and
+    the parameters gathered from their ZeRO-1 masters are those
+    masters."""
+    mc = _mesh_check()
+    assert [c[0] for c in mc.TRAIN_CASES] == ["internlm2 train step"]
+    mc.run_cases("cpu", [("train", "internlm2 train step")],
+                 tmp_path / "res.npz")
+
+
+def test_placed_as_flattens_what_dtensor_plans_a_mesh_dim_at_a_time(
+        tmp_path):
+    """On eight ``gloo`` ranks, a (2, 2, 2) mesh: ``placed_as``'s one
+    collective over the data axes flattened (with ``model``) gives what
+    DTensor's redistribute gives, bit for bit — a ``Partial`` onto a
+    shard of both data axes, to ``Replicate`` everywhere, onto one dim
+    beside a cut of another, and a shard of both data axes gathered."""
+    assert _mesh_check().run_flat_steps(tmp_path / "flat.npy") == 0.0
+
+
 @pytest.mark.parametrize("path", ["_moe_ep", "_moe_ep_tokengather"])
 def test_apply_moe_on_a_mesh_computes_the_single_device_moe(path,
                                                              tmp_path):
