@@ -1,0 +1,6 @@
+"""Scheduler: device-idle gaps that began in repro_torch.tick.admit (the batch-1 whole-prompt prefills), in % of the traced span, moving ttft_p90_ms."""
+from perfbench import phases
+
+
+def read(ctx):
+    return phases.idle_share_in(ctx, "repro_torch.tick.admit")

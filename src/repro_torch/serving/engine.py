@@ -66,7 +66,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, telemetry
 from repro_torch.core.clock import SimClock
 from repro_torch.core.engines import EngineSpec, create_kv_engine
 from repro_torch.core.kvcache import KVSpec
@@ -167,13 +167,14 @@ class ServingEngine:
         self.mirror_d2h_bytes = 0      # device→host mirror traffic (exact)
         self.sched_stats: dict = {}    # last generate()'s scheduler counters
         self.fused = bool(cfg.fuse_ticks) and model.supports_ragged_step()
-        # step-shape ladder bookkeeping: every step buckets its (path,
-        # batch-width, Qmax) to powers of two (pad + mask); the counters
-        # count distinct shapes, as the JAX package counts jit compiles
-        self.jit_stats = {"prefill_calls": 0, "step_calls": 0,
-                          "fused_steps": 0, "step_compiles": 0,
-                          "step_cache_hits": 0}
-        self._step_shapes: set = set()
+        # step counters, one integer add a step each, no device sync:
+        # model calls, and of the ragged steps the padded slots
+        # (Σ Bb × Qb: width and Qmax bucket to powers of two), the real
+        # tokens (Σ q_len) and the bytes of the logits the head returned
+        # (with admission prefills')
+        self.step_stats = {"prefill_calls": 0, "step_calls": 0,
+                           "fused_steps": 0, "step_slots": 0,
+                           "step_tokens": 0, "logit_bytes": 0}
         self.max_pages = -(-cfg.max_len // cfg.page_tokens)
         budget = spec_cfg.kv_hbm_bytes
         if self.desc is None:
@@ -330,8 +331,9 @@ class ServingEngine:
         row). Returns (logits, cache row) for the scheduler."""
         src = req.prompt if tokens is None else tokens
         toks = src if n is None else src[:n]
-        self.jit_stats["prefill_calls"] += 1
+        self.step_stats["prefill_calls"] += 1
         logits, cache = self._prefill(toks)
+        self._count_logits(logits)
         if self.pooled:
             return logits, self._pool_admit(req.rid, cache, toks.shape[0])
         self._mirror_prefill(req.rid, cache, toks.shape[0])
@@ -375,17 +377,17 @@ class ServingEngine:
         self.tiered.commit_prefill_planes(pools, rid, n)
         return {"pos": cache["pos"]}
 
-    def _count_step(self, path: str, width: int, qmax: int) -> None:
-        """Track step-shape reuse: the power-of-two ladder makes ``(path,
-        width, qmax)`` a small fixed set, so ``step_compiles`` (distinct
-        shapes) stops growing after warmup."""
-        self.jit_stats["step_calls"] += 1
-        key = (path, width, qmax)
-        if key in self._step_shapes:
-            self.jit_stats["step_cache_hits"] += 1
-        else:
-            self._step_shapes.add(key)
-            self.jit_stats["step_compiles"] += 1
+    def _count_step(self, slots: int = 0, tokens: int = 0) -> None:
+        """One model step; a ragged one adds its padded slots and its real
+        tokens."""
+        st = self.step_stats
+        st["step_calls"] += 1
+        st["step_slots"] += slots
+        st["step_tokens"] += tokens
+
+    def _count_logits(self, logits) -> None:
+        self.step_stats["logit_bytes"] += logits.numel() * \
+            logits.element_size()
 
     def decode_batch(self, rids: list, caches: list, tokens: list,
                      mirrored: bool):
@@ -400,16 +402,21 @@ class ServingEngine:
                 rids, caches, [np.asarray([t], np.int32) for t in tokens],
                 mirrored, fused=False)
             return torch.cat(logit_rows, dim=0), rows
-        B = len(caches)
-        pad = batching.bucket_pow2(B) - B
-        batch = batching.concat_rows(caches + [caches[0]] * pad)
-        positions = batch["pos"]
-        tok_arr = torch.tensor(list(tokens) + [0] * pad,
-                               device=self.device)[:, None]
-        self._count_step("decode", B + pad, 1)
-        logits, batch = self.model.decode_step(batch, tok_arr, positions)
-        self.mirror_decode_batch(rids if mirrored else [], batch, positions)
-        return logits[:B], [batching.split_row(batch, i) for i in range(B)]
+        with telemetry.span(telemetry.PREPARE):
+            B = len(caches)
+            pad = batching.bucket_pow2(B) - B
+            batch = batching.concat_rows(caches + [caches[0]] * pad)
+            positions = batch["pos"]
+            tok_arr = torch.tensor(list(tokens) + [0] * pad,
+                                   device=self.device)[:, None]
+        with telemetry.span(telemetry.FORWARD):
+            self._count_step()
+            logits, batch = self.model.decode_step(batch, tok_arr, positions)
+        with telemetry.span(telemetry.COMMIT):
+            self.mirror_decode_batch(rids if mirrored else [], batch,
+                                     positions)
+            return logits[:B], [batching.split_row(batch, i)
+                                for i in range(B)]
 
     def publish_plan(self, rids: list, n_tokens: list) -> int:
         """Scheduler lookahead: next tick's planned batch, forwarded to the
@@ -485,56 +492,74 @@ class ServingEngine:
         spec = [0] * B if spec_lens is None else [int(s) for s in spec_lens]
         Bb = batching.bucket_pow2(B)
         Qb = batching.bucket_pow2(max(q_lens))
-        tokens = np.zeros((Bb, Qb), np.int64)
-        for i, t in enumerate(tok_rows):
-            tokens[i, :len(t)] = t
-        qarr = np.zeros(Bb, np.int32)
-        qarr[:B] = q_lens
         if fused:       # the unfused pooled decode reuses this entry at
-            self.jit_stats["fused_steps"] += 1   # q_len=1; don't count it
+            self.step_stats["fused_steps"] += 1  # q_len=1; don't count it
         if not self.pooled:
-            return self._mirror_step_batch(rids, caches, tok_rows, tokens,
-                                           qarr, q_lens, spec, mirrored)
+            return self._mirror_step_batch(rids, caches, tok_rows, Bb, Qb,
+                                           q_lens, spec, mirrored)
         if not self.desc.has_pages:
-            return self._step_state_batch(rids, caches, tok_rows, tokens,
-                                          qarr, q_lens, spec)
+            return self._step_state_batch(rids, caches, tok_rows, Bb, Qb,
+                                          q_lens, spec)
         names = [p.name for p in self.desc.paged_planes]
         # any exception between prepare_step and commit_step must rewind
         # the pages prepare_step allocated for this tick, or they leak
         try:
-            tbl, ctx = self.tiered.prepare_step(rids, q_lens, self.max_pages)
-            model_pos = torch.cat([c["pos"] for c in caches]).cpu().numpy()
-            if not np.array_equal(ctx, model_pos):
-                raise RuntimeError(
-                    f"pool/table drift: engine lengths {ctx.tolist()} "
-                    f"!= model positions {model_pos.tolist()}")
-            tbl_p = np.zeros((Bb, self.max_pages), np.int32)
-            tbl_p[:B] = tbl
-            ctx_p = np.zeros(Bb, np.int32)
-            ctx_p[:B] = ctx
-            cache = {"block_table": torch.from_numpy(tbl_p).to(self.device)}
-            for n, v in zip(names, self.tiered.pool_views()):
-                cache["pool_" + n] = v
-            self._count_step("pool", Bb, Qb)
-            logits, out = self.model.step_paged_ragged(
-                cache, torch.from_numpy(tokens).to(self.device),
-                torch.from_numpy(ctx_p).to(self.device),
-                torch.from_numpy(qarr).to(self.device))
-            committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
-            # the step scattered in place into the engine's own planes:
-            # handing them back stores the same tensors
-            self.tiered.commit_step_planes(
-                tuple(out["pool_" + n] for n in names), rids, committed,
-                prepared=q_lens)
+            with telemetry.span(telemetry.PREPARE):
+                tokens, qarr = self._padded(tok_rows, Bb, Qb)
+                tbl, ctx = self.tiered.prepare_step(rids, q_lens,
+                                                    self.max_pages)
+                model_pos = torch.cat([c["pos"] for c in caches]).cpu()
+                if not np.array_equal(ctx, model_pos.numpy()):
+                    raise RuntimeError(
+                        f"pool/table drift: engine lengths {ctx.tolist()} "
+                        f"!= model positions {model_pos.tolist()}")
+                tbl_p = np.zeros((Bb, self.max_pages), np.int32)
+                tbl_p[:B] = tbl
+                ctx_p = np.zeros(Bb, np.int32)
+                ctx_p[:B] = ctx
+                cache = {"block_table":
+                         torch.from_numpy(tbl_p).to(self.device)}
+                for n, v in zip(names, self.tiered.pool_views()):
+                    cache["pool_" + n] = v
+                tokens, ctx_p, qarr = (torch.from_numpy(a).to(self.device)
+                                       for a in (tokens, ctx_p, qarr))
+            with telemetry.span(telemetry.FORWARD):
+                self._count_step(Bb * Qb, sum(q_lens))
+                logits, out = self.model.step_paged_ragged(cache, tokens,
+                                                           ctx_p, qarr)
+            with telemetry.span(telemetry.COMMIT):
+                self._count_logits(logits)
+                committed = self._verify_drafts(logits, tok_rows, q_lens,
+                                                spec)
+                # the step scattered in place into the engine's own
+                # planes: handing them back stores the same tensors
+                self.tiered.commit_step_planes(
+                    tuple(out["pool_" + n] for n in names), rids, committed,
+                    prepared=q_lens)
+                # a row with rejected drafts rewinds its position on
+                # device
+                new_rows = [{"pos": out["pos"][i:i + 1]
+                             - (q_lens[i] - committed[i])}
+                            if committed[i] != q_lens[i]
+                            else {"pos": out["pos"][i:i + 1]}
+                            for i in range(B)]
+                logit_rows = [logits[i:i + 1, :committed[i]]
+                              for i in range(B)]
         except Exception:
             self.tiered.abort_step(rids)
             raise
-        # a row with rejected drafts rewinds its position on device
-        new_rows = [{"pos": out["pos"][i:i + 1] - (q_lens[i] - committed[i])}
-                    if committed[i] != q_lens[i]
-                    else {"pos": out["pos"][i:i + 1]} for i in range(B)]
-        logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
         return logit_rows, new_rows, committed
+
+    @staticmethod
+    def _padded(tok_rows, Bb: int, Qb: int):
+        """The step's ``(Bb, Qb)`` token array and ``(Bb,)`` q_lens, padding
+        rows and slots zero."""
+        tokens = np.zeros((Bb, Qb), np.int64)
+        qarr = np.zeros(Bb, np.int32)
+        for i, t in enumerate(tok_rows):
+            tokens[i, :len(t)] = t
+            qarr[i] = len(t)
+        return tokens, qarr
 
     @staticmethod
     def _keep_slots(q_lens, spec, Bb: int, Qb: int):
@@ -546,8 +571,8 @@ class ServingEngine:
         keep_from = [max(q - 1 - s, 0) for q, s in zip(q_lens, spec)]
         return keep_from + [Qb] * (Bb - len(q_lens)), 1 + max(spec)
 
-    def _step_state_batch(self, rids, caches, tok_rows, tokens, qarr,
-                          q_lens, spec):
+    def _step_state_batch(self, rids, caches, tok_rows, Bb, Qb, q_lens,
+                          spec):
         """:meth:`step_batch` for the state-row (SSM) family: the engine
         holds per-sequence state rows instead of pages, so the tick reads
         them back as a batch, runs the ragged state scan (keeping only the
@@ -556,40 +581,46 @@ class ServingEngine:
         padding row commits nothing. Zero device→host bytes, as on the
         paged pool."""
         B = len(rids)
-        Bb, Qb = tokens.shape
-        ctx = torch.cat([c["pos"] for c in caches]).cpu().numpy()
-        eng_len = [int(self.tiered.seq_len.get(r, 0)) for r in rids]
-        if eng_len != [int(c) for c in ctx]:
-            raise RuntimeError(
-                f"state-row drift: engine lengths {eng_len} != model "
-                f"positions {ctx.tolist()}")
-        ctx_p = np.zeros(Bb, np.int32)
-        ctx_p[:B] = ctx
-        # bucket-ladder padding rows replicate row 0's state: they carry
-        # q_len = 0, so their outputs are discarded and nothing commits
-        views = self.tiered.state_views(list(rids) + [rids[0]] * (Bb - B))
-        cache = {p.name: v for p, v in zip(self.desc.seq_planes, views)}
-        keep_from, n_keep = self._keep_slots(q_lens, spec, Bb, Qb)
-        self._count_step("pool", Bb, Qb)
-        logits, out = self.model.step_paged_ragged(
-            cache, torch.from_numpy(tokens).to(self.device),
-            torch.from_numpy(ctx_p).to(self.device),
-            torch.from_numpy(qarr).to(self.device), keep=(keep_from, n_keep))
-        committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
-        states = []
-        for j, p in enumerate(self.desc.seq_planes):
-            steps = out[p.name + "_steps"]       # (L, n_keep, Bb, ...)
-            states.append(torch.stack(
-                [steps[:, committed[i] - 1 - keep_from[i], i]
-                 if committed[i] > 0 else views[j][:, i] for i in range(B)],
-                dim=1))
-        self.tiered.commit_state(rids, committed, tuple(states))
-        new_rows = [{"pos": torch.tensor([int(ctx[i]) + committed[i]],
-                                         dtype=torch.int32,
-                                         device=self.device)}
-                    for i in range(B)]
-        logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
-        return logit_rows, new_rows, committed
+        with telemetry.span(telemetry.PREPARE):
+            tokens, qarr = self._padded(tok_rows, Bb, Qb)
+            ctx = torch.cat([c["pos"] for c in caches]).cpu().numpy()
+            eng_len = [int(self.tiered.seq_len.get(r, 0)) for r in rids]
+            if eng_len != [int(c) for c in ctx]:
+                raise RuntimeError(
+                    f"state-row drift: engine lengths {eng_len} != model "
+                    f"positions {ctx.tolist()}")
+            ctx_p = np.zeros(Bb, np.int32)
+            ctx_p[:B] = ctx
+            # bucket-ladder padding rows replicate row 0's state: they
+            # carry q_len = 0, so their outputs are discarded and nothing
+            # commits
+            views = self.tiered.state_views(list(rids)
+                                            + [rids[0]] * (Bb - B))
+            cache = {p.name: v for p, v in zip(self.desc.seq_planes, views)}
+            keep_from, n_keep = self._keep_slots(q_lens, spec, Bb, Qb)
+            tokens, ctx_p, qarr = (torch.from_numpy(a).to(self.device)
+                                   for a in (tokens, ctx_p, qarr))
+        with telemetry.span(telemetry.FORWARD):
+            self._count_step(Bb * Qb, sum(q_lens))
+            logits, out = self.model.step_paged_ragged(
+                cache, tokens, ctx_p, qarr, keep=(keep_from, n_keep))
+        with telemetry.span(telemetry.COMMIT):
+            self._count_logits(logits)
+            committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
+            states = []
+            for j, p in enumerate(self.desc.seq_planes):
+                steps = out[p.name + "_steps"]       # (L, n_keep, Bb, ...)
+                states.append(torch.stack(
+                    [steps[:, committed[i] - 1 - keep_from[i], i]
+                     if committed[i] > 0 else views[j][:, i]
+                     for i in range(B)], dim=1))
+            self.tiered.commit_state(rids, committed, tuple(states))
+            new_rows = [{"pos": torch.tensor([int(ctx[i]) + committed[i]],
+                                             dtype=torch.int32,
+                                             device=self.device)}
+                        for i in range(B)]
+            logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
+            return logit_rows, new_rows, committed
 
     @staticmethod
     def _select_state_slots(batch: dict, committed: list, B: int,
@@ -612,41 +643,47 @@ class ServingEngine:
                  for i in range(steps.shape[2])], dim=1)
         return out
 
-    def _mirror_step_batch(self, rids, caches, tok_rows, tokens, qarr,
-                           q_lens, spec, mirrored):
+    def _mirror_step_batch(self, rids, caches, tok_rows, Bb, Qb, q_lens,
+                           spec, mirrored):
         """:meth:`step_batch` on the dense mirror: the rows concatenate
         (padding rows are copies of row 0 that write nothing), one
         ``step_ragged`` runs over them, the new tokens are mirrored, an
         SSM row's committed slot state is selected, and the batch splits
         back into rows (views of the step's batch)."""
         B = len(rids)
-        Bb, Qb = tokens.shape
-        batch = batching.concat_rows(caches + [caches[0]] * (Bb - B))
-        ctx = batch["pos"]
-        keep = (self._keep_slots(q_lens, spec, Bb, Qb)
-                if self.desc.has_state else None)
-        self._count_step("mirror", Bb, Qb)
-        logits, nbatch = self.model.step_ragged(
-            batch, torch.from_numpy(tokens).to(self.device), ctx,
-            torch.from_numpy(qarr).to(self.device), keep=keep)
-        committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
-        if mirrored:
-            self._mirror_step_ragged(rids, nbatch, ctx, q_lens, Qb,
-                                     committed)
-        if keep is not None:
-            nbatch = self._select_state_slots(nbatch, committed, B, keep[0])
-        new_rows = [batching.split_row(nbatch, i) for i in range(B)]
-        rewind = [i for i in range(B) if committed[i] != q_lens[i]]
-        ctx_np = ctx.cpu().numpy() if rewind else None
-        for i in rewind:
-            # rewind past the rejected tail: its dense-cache KV is masked
-            # (kv_pos > pos) and overwritten in place by the row's next
-            # committed tokens
-            new_rows[i]["pos"] = torch.tensor(
-                [int(ctx_np[i]) + committed[i]], dtype=torch.int32,
-                device=self.device)
-        logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
-        return logit_rows, new_rows, committed
+        with telemetry.span(telemetry.PREPARE):
+            tokens, qarr = self._padded(tok_rows, Bb, Qb)
+            batch = batching.concat_rows(caches + [caches[0]] * (Bb - B))
+            ctx = batch["pos"]
+            keep = (self._keep_slots(q_lens, spec, Bb, Qb)
+                    if self.desc.has_state else None)
+            tokens, qarr = (torch.from_numpy(a).to(self.device)
+                            for a in (tokens, qarr))
+        with telemetry.span(telemetry.FORWARD):
+            self._count_step(Bb * Qb, sum(q_lens))
+            logits, nbatch = self.model.step_ragged(batch, tokens, ctx, qarr,
+                                                    keep=keep)
+        with telemetry.span(telemetry.COMMIT):
+            self._count_logits(logits)
+            committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
+            if mirrored:
+                self._mirror_step_ragged(rids, nbatch, ctx, q_lens, Qb,
+                                         committed)
+            if keep is not None:
+                nbatch = self._select_state_slots(nbatch, committed, B,
+                                                  keep[0])
+            new_rows = [batching.split_row(nbatch, i) for i in range(B)]
+            rewind = [i for i in range(B) if committed[i] != q_lens[i]]
+            ctx_np = ctx.cpu().numpy() if rewind else None
+            for i in rewind:
+                # rewind past the rejected tail: its dense-cache KV is
+                # masked (kv_pos > pos) and overwritten in place by the
+                # row's next committed tokens
+                new_rows[i]["pos"] = torch.tensor(
+                    [int(ctx_np[i]) + committed[i]], dtype=torch.int32,
+                    device=self.device)
+            logit_rows = [logits[i:i + 1, :committed[i]] for i in range(B)]
+            return logit_rows, new_rows, committed
 
     def extend_one(self, rid: int, cache, toks: np.ndarray, start: int,
                    mirrored: bool):
@@ -661,45 +698,54 @@ class ServingEngine:
             # state-row family: check the rows out of the engine, run the
             # chunk through the decode step at batch=1, commit the final
             # state
-            views = self.tiered.state_views([rid])
-            pc = {"pos": cache["pos"]}
-            for p, v in zip(self.desc.seq_planes, views):
-                pc[p.name] = v
-            for t in toks:
-                self._count_step("pool-chunk1", 1, 1)
-                logits, pc = self.model.decode_step(
-                    pc, torch.tensor([[int(t)]], device=self.device),
-                    pc["pos"])
-            self.tiered.commit_state(
-                [rid], [len(toks)],
-                tuple(pc[p.name] for p in self.desc.seq_planes))
-            return logits, {"pos": pc["pos"]}
+            with telemetry.span(telemetry.PREPARE):
+                views = self.tiered.state_views([rid])
+                pc = {"pos": cache["pos"]}
+                for p, v in zip(self.desc.seq_planes, views):
+                    pc[p.name] = v
+            with telemetry.span(telemetry.FORWARD):
+                for t in toks:
+                    self._count_step()
+                    logits, pc = self.model.decode_step(
+                        pc, torch.tensor([[int(t)]], device=self.device),
+                        pc["pos"])
+            with telemetry.span(telemetry.COMMIT):
+                self.tiered.commit_state(
+                    [rid], [len(toks)],
+                    tuple(pc[p.name] for p in self.desc.seq_planes))
+                return logits, {"pos": pc["pos"]}
         if not self.pooled:
-            for t in toks:
-                self._count_step("mirror-chunk1", 1, 1)
-                logits, cache = self.model.decode_step(
-                    cache, torch.tensor([[int(t)]], device=self.device),
-                    cache["pos"])
-            if mirrored and len(toks):
-                kv = batching.gather_kv_range(
-                    cache["k"], cache["v"], start, start + len(toks)).cpu()
-                self.mirror_d2h_bytes += kv.numel() * kv.element_size()
-                self.tiered.append(rid, kv)
-            return logits, cache
+            with telemetry.span(telemetry.FORWARD):
+                for t in toks:
+                    self._count_step()
+                    logits, cache = self.model.decode_step(
+                        cache, torch.tensor([[int(t)]], device=self.device),
+                        cache["pos"])
+            with telemetry.span(telemetry.COMMIT):
+                if mirrored and len(toks):
+                    kv = batching.gather_kv_range(
+                        cache["k"], cache["v"], start,
+                        start + len(toks)).cpu()
+                    self.mirror_d2h_bytes += kv.numel() * kv.element_size()
+                    self.tiered.append(rid, kv)
+                return logits, cache
         names = [p.name for p in self.desc.paged_planes]
         for t in toks:
-            tbl, _ = self.tiered.prepare_decode([rid], self.max_pages)
-            pc = {"pos": cache["pos"],
-                  "block_table": torch.from_numpy(tbl).to(self.device)}
-            for n, v in zip(names, self.tiered.pool_views()):
-                pc["pool_" + n] = v
-            self._count_step("pool-chunk1", 1, 1)
-            logits, out = self.model.decode_step_paged(
-                pc, torch.tensor([[int(t)]], device=self.device),
-                cache["pos"])
-            self.tiered.commit_step_planes(
-                tuple(out["pool_" + n] for n in names), [rid], [1])
-            cache = {"pos": out["pos"]}
+            with telemetry.span(telemetry.PREPARE):
+                tbl, _ = self.tiered.prepare_decode([rid], self.max_pages)
+                pc = {"pos": cache["pos"],
+                      "block_table": torch.from_numpy(tbl).to(self.device)}
+                for n, v in zip(names, self.tiered.pool_views()):
+                    pc["pool_" + n] = v
+            with telemetry.span(telemetry.FORWARD):
+                self._count_step()
+                logits, out = self.model.decode_step_paged(
+                    pc, torch.tensor([[int(t)]], device=self.device),
+                    cache["pos"])
+            with telemetry.span(telemetry.COMMIT):
+                self.tiered.commit_step_planes(
+                    tuple(out["pool_" + n] for n in names), [rid], [1])
+                cache = {"pos": out["pos"]}
         return logits, cache
 
     def degraded(self) -> bool:
@@ -772,5 +818,5 @@ class ServingEngine:
         journal = {} if self.journal is None else dict(self.journal.stats)
         return {"sim_time_s": self.clock.now,
                 "mirror_d2h_bytes": self.mirror_d2h_bytes,
-                **self.jit_stats, **self.spec_stats, **self.sched_stats,
+                **self.step_stats, **self.spec_stats, **self.sched_stats,
                 **journal, **self.tiered.stats}

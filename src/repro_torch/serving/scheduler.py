@@ -71,6 +71,7 @@ preemption schedule (``tests/test_scheduler.py`` locks this down).
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from dataclasses import dataclass
 from typing import TYPE_CHECKING, Optional
@@ -78,6 +79,7 @@ from typing import TYPE_CHECKING, Optional
 import numpy as np
 import torch
 
+from repro_torch import telemetry
 from repro_torch.serving import batching
 from repro_torch.serving.faults import CrashFault, LostPageError
 
@@ -292,11 +294,12 @@ class Scheduler:
         if not rows:
             return
         tokens = []
-        for r in rows:
-            nxt = int(torch.argmax(r.logits[:, -1], -1)[0])
-            r.req.generated.append(nxt)
-            tokens.append(nxt)
-            self.stats.decode_rows += 1
+        with telemetry.span(telemetry.PLAN):
+            for r in rows:
+                nxt = int(torch.argmax(r.logits[:, -1], -1)[0])
+                r.req.generated.append(nxt)
+                tokens.append(nxt)
+                self.stats.decode_rows += 1
         # one batch = one model family, so either every row mirrors or none
         try:
             logits, caches = self.engine.decode_batch(
@@ -309,10 +312,11 @@ class Scheduler:
             for r in rows:
                 r.req.generated.pop()
             raise
-        for i, r in enumerate(rows):
-            r.cache = caches[i]
-            r.logits = logits[i:i + 1]
-            r.length += 1
+        with telemetry.span(telemetry.COMMIT):
+            for i, r in enumerate(rows):
+                r.cache = caches[i]
+                r.logits = logits[i:i + 1]
+                r.length += 1
 
     def _plan_decode(self, r: _Running, k: int):
         """Plan a decode row's tick: argmax its pending logits (the one
@@ -347,47 +351,48 @@ class Scheduler:
         one-shot prefill would have left it; a speculative row comes out
         holding its last ACCEPTED slot's logits, exactly as sequential
         decode would after the same tokens."""
-        for r in self.running:
-            if r.pending is not None and not len(r.pending):
-                r.pending = None
-        # plan every decode row's tokens up front so the tight-pool guard
-        # below sheds against the true per-row slot counts (1 + drafts),
-        # not an assumed single token
-        k = self.engine.speculate_k
-        plan = {r.req.rid: self._plan_decode(r, k)
-                for r in self.running if r.pending is None}
-        # tight-pool guard: prepare_step pins every batch row while it
-        # allocates chunk pages, so a pool that cannot place this tick's
-        # chunks with the whole batch pinned must shed a row FIRST —
-        # graceful preemption instead of the pool-exhausted hard error.
-        # Placement beats the min_running floor here (an unplaceable step
-        # makes no progress at all); the liveness floor guarantees a lone
-        # row always places (the draft cap keeps even a speculative row
-        # inside one max_len page span), so shedding always terminates.
-        while len(self.running) > 1 and \
-                not self.engine.can_step_fused(
-                    [r.req.rid for r in self.running],
-                    [self._chunk_len(r.pending) if r.pending is not None
-                     else 1 + len(plan[r.req.rid][1])
-                     for r in self.running]):
-            self._preempt_one()
-        rows, toks, spec, appended = [], [], [], []
-        for r in self.running:
-            if r.pending is not None:
-                m = self._chunk_len(r.pending)
-                rows.append(r)
-                toks.append(np.asarray(r.pending[:m], np.int32))
-                spec.append(0)
-                appended.append(0)
-                self.stats.prefill_chunks += 1
-            else:
-                nxt, drafts = plan[r.req.rid]
-                r.req.generated.append(nxt)
-                rows.append(r)
-                toks.append(np.asarray([nxt] + drafts, np.int32))
-                spec.append(len(drafts))
-                appended.append(1)
-                self.stats.decode_rows += 1
+        with telemetry.span(telemetry.PLAN):
+            for r in self.running:
+                if r.pending is not None and not len(r.pending):
+                    r.pending = None
+            # plan every decode row's tokens up front so the tight-pool guard
+            # below sheds against the true per-row slot counts (1 + drafts),
+            # not an assumed single token
+            k = self.engine.speculate_k
+            plan = {r.req.rid: self._plan_decode(r, k)
+                    for r in self.running if r.pending is None}
+            # tight-pool guard: prepare_step pins every batch row while it
+            # allocates chunk pages, so a pool that cannot place this tick's
+            # chunks with the whole batch pinned must shed a row FIRST —
+            # graceful preemption instead of the pool-exhausted hard error.
+            # Placement beats the min_running floor here (an unplaceable step
+            # makes no progress at all); the liveness floor guarantees a lone
+            # row always places (the draft cap keeps even a speculative row
+            # inside one max_len page span), so shedding always terminates.
+            while len(self.running) > 1 and \
+                    not self.engine.can_step_fused(
+                        [r.req.rid for r in self.running],
+                        [self._chunk_len(r.pending) if r.pending is not None
+                         else 1 + len(plan[r.req.rid][1])
+                         for r in self.running]):
+                self._preempt_one()
+            rows, toks, spec, appended = [], [], [], []
+            for r in self.running:
+                if r.pending is not None:
+                    m = self._chunk_len(r.pending)
+                    rows.append(r)
+                    toks.append(np.asarray(r.pending[:m], np.int32))
+                    spec.append(0)
+                    appended.append(0)
+                    self.stats.prefill_chunks += 1
+                else:
+                    nxt, drafts = plan[r.req.rid]
+                    r.req.generated.append(nxt)
+                    rows.append(r)
+                    toks.append(np.asarray([nxt] + drafts, np.int32))
+                    spec.append(len(drafts))
+                    appended.append(1)
+                    self.stats.decode_rows += 1
         try:
             logits, caches, committed = self.engine.step_batch(
                 [r.req.rid for r in rows], [r.cache for r in rows], toks,
@@ -402,21 +407,22 @@ class Scheduler:
                 if a:
                     r.req.generated.pop()
             raise
-        self.stats.fused_ticks += 1
-        for i, r in enumerate(rows):
-            r.cache = caches[i]
-            r.logits = logits[i]
-            m = committed[i]
-            if spec[i]:
-                # the argmaxed token is already in generated; the accepted
-                # drafts (tokens 1..m-1 of the row) extend it — the exact
-                # sequential greedy run, rejected tail already rolled back
-                r.req.generated.extend(int(t) for t in toks[i][1:m])
-            r.length += m
-            if r.pending is not None:
-                r.pending = r.pending[m:] if m < len(r.pending) else None
-                if r.pending is None:
-                    self.engine.on_prompt_complete(r.req.rid, r.req.prompt)
+        with telemetry.span(telemetry.COMMIT):
+            self.stats.fused_ticks += 1
+            for i, r in enumerate(rows):
+                r.cache = caches[i]
+                r.logits = logits[i]
+                m = committed[i]
+                if spec[i]:
+                    # the argmaxed token is already in generated; the accepted
+                    # drafts (tokens 1..m-1 of the row) extend it — the exact
+                    # sequential greedy run, rejected tail already rolled back
+                    r.req.generated.extend(int(t) for t in toks[i][1:m])
+                r.length += m
+                if r.pending is not None:
+                    r.pending = r.pending[m:] if m < len(r.pending) else None
+                    if r.pending is None:
+                        self.engine.on_prompt_complete(r.req.rid, r.req.prompt)
 
     def _check_progress(self, lengths_before: dict) -> None:
         """Forward-progress guard (the chunk-row starvation pin): every row
@@ -536,9 +542,31 @@ class Scheduler:
         tick's committed tokens append to the journal BEFORE a scripted
         crash fires, so every durable tick is replayable — a crash placed
         before the append would simply lose that tick's tokens and
-        recovery would re-decode them identically."""
-        self._admit()
-        self._finish_done()    # max_new=0 rows retire without decoding
+        recovery would re-decode them identically.
+
+        While a profiler records, the tick and its phases are profiler
+        ranges (:mod:`repro_torch.telemetry`) and the tick leaves a
+        :class:`~repro_torch.telemetry.TickRecord`."""
+        if not telemetry.recording():
+            return self._tick()
+        with telemetry.span(telemetry.TICK):
+            start, before = time.time_ns(), self._counts()
+            try:
+                return self._tick()
+            finally:
+                telemetry.record_tick(start, time.time_ns(), before,
+                                      self._counts())
+
+    def _counts(self) -> tuple:
+        """The counters a tick record differences, in its order."""
+        st = self.engine.step_stats
+        return (st["step_slots"], st["step_tokens"], st["logit_bytes"],
+                self.stats.decode_rows, self.stats.prefill_chunks)
+
+    def _tick(self) -> bool:
+        with telemetry.span(telemetry.ADMIT):
+            self._admit()
+            self._finish_done()    # max_new=0 rows retire without decoding
         if not self.running:
             return bool(self.waiting or self.preempted)
         self.stats.ticks += 1
@@ -562,24 +590,26 @@ class Scheduler:
         except LostPageError as e:
             self._shed_seq(e.seq)
             shed = e
-        if self.engine.journal is not None:
-            commits = [(r.req.rid, gen_before[r.req.rid],
-                        r.req.generated[gen_before[r.req.rid]:])
-                       for r in self.running
-                       if r.req.rid in gen_before
-                       and len(r.req.generated) > gen_before[r.req.rid]]
-            if commits:
-                self.engine.journal.append_tick(self.stats.ticks, commits)
-        if self.engine.degraded():
-            self.stats.degraded_ticks += 1
-        self._finish_done()
-        self._preempt_under_pressure()
-        if shed is None:
-            # a shed tick made no progress by design (the injected loss
-            # aborted the whole step) — that is degradation, not the
-            # starvation class the progress guard hunts
-            self._check_progress(lengths_before)
-        self._publish_plan()
+        with telemetry.span(telemetry.COMMIT):
+            if self.engine.journal is not None:
+                commits = [(r.req.rid, gen_before[r.req.rid],
+                            r.req.generated[gen_before[r.req.rid]:])
+                           for r in self.running
+                           if r.req.rid in gen_before
+                           and len(r.req.generated) > gen_before[r.req.rid]]
+                if commits:
+                    self.engine.journal.append_tick(self.stats.ticks,
+                                                    commits)
+            if self.engine.degraded():
+                self.stats.degraded_ticks += 1
+            self._finish_done()
+            self._preempt_under_pressure()
+            if shed is None:
+                # a shed tick made no progress by design (the injected
+                # loss aborted the whole step) — that is degradation, not
+                # the starvation class the progress guard hunts
+                self._check_progress(lengths_before)
+            self._publish_plan()
         if inj is not None and inj.crash_now(self.stats.ticks):
             raise CrashFault(self.stats.ticks)
         return bool(self.waiting or self.running or self.preempted)

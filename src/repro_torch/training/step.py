@@ -21,6 +21,7 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.distributed.sharding import is_dtensor, placed_as
 from repro_torch.models.model import jax_leaf_ndims
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
@@ -75,19 +76,23 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     dict of arrays; with ``microbatches > 1`` its leaves are ``(mb, B/mb,
     ...)``. ``accum_dtype`` is the gradient accumulator's dtype (bf16
     halves it). ``compress_grads`` maps the gradients (name → tensor)
-    before the update."""
+    before the update. Under a profiler a step is a
+    ``repro_torch.train.step`` range holding its forward, backward and
+    optimizer ranges (:mod:`repro_torch.telemetry`)."""
     decay = {n: d >= 2 for n, d in jax_leaf_ndims(model).items()}
 
     def grads_of(batch):
         # taken as the backward hands them over: a parameter's .grad would
         # be laid out as the parameter on one torch release and not on
         # another (on a mesh), and the train step places them itself
-        loss, metrics = model.loss_fn(batch)
+        with telemetry.span(telemetry.TRAIN_FORWARD):
+            loss, metrics = model.loss_fn(batch)
         named = dict(model.named_parameters())
         live = [n for n, p in named.items() if p.requires_grad]
         grads = dict.fromkeys(named)
-        grads.update(zip(live, torch.autograd.grad(
-            loss, [named[n] for n in live], allow_unused=True)))
+        with telemetry.span(telemetry.TRAIN_BACKWARD):
+            grads.update(zip(live, torch.autograd.grad(
+                loss, [named[n] for n in live], allow_unused=True)))
         return (grads, loss.detach(),
                 {k: v.detach() for k, v in metrics.items()})
 
@@ -119,6 +124,10 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
         return placed_as(g, like).to(accum_dtype) if is_dtensor(g) else g
 
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        with telemetry.span(telemetry.TRAIN_STEP):
+            return step(state, batch)
+
+    def step(state, batch):
         params = bind_params(model, state.params)
         mu = state.opt_state["mu"]
         if microbatches > 1:
@@ -128,8 +137,9 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
             grads = {n: reduced(g, mu[n]) for n, g in grads.items()}
         if compress_grads is not None:
             grads = compress_grads(grads)
-        params, opt_state, opt_metrics = adamw_update(
-            opt_cfg, grads, state.opt_state, params, decay)
+        with telemetry.span(telemetry.TRAIN_OPTIMIZER):
+            params, opt_state, opt_metrics = adamw_update(
+                opt_cfg, grads, state.opt_state, params, decay)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

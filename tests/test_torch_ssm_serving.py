@@ -22,7 +22,7 @@ from repro.core.engines import EngineSpec as JaxEngineSpec
 from torch_serving_pairs import (EngineSpec, JaxRequest, JaxServeConfig,
                                  JaxServingEngine, Request, ServeConfig,
                                  ServingEngine, arch_models, hybrid_models,
-                                 tokens)
+                                 stats_mismatch, tokens)
 from torch_serving_pairs import one_cpu_thread  # noqa: F401 (autouse)
 
 SSM_ARCH = "mamba2-1.3b-smoke"
@@ -77,8 +77,7 @@ def _sequential(key, models_, seed, max_new):
 def _assert_pair(got, want):
     (tt, ts, _), (jt, js, _) = got, want
     assert tt == jt
-    bad = {k: (ts.get(k), js.get(k)) for k in set(ts) | set(js)
-           if ts.get(k) != js.get(k)}
+    bad = stats_mismatch(ts, js)
     assert not bad, f"port != JAX (port, jax): {bad}"
 
 
