@@ -54,7 +54,15 @@ each raises on failure, and any failure ends the run with a traceback:
                 one InternLM2-1.8B layer), N=256 records with colliding
                 targets, skipped records and out-of-range indices, bit for
                 bit the plain version, with the copy route it took (vector
-                or scalar). Each entry that no serving path
+                or scalar);
+                the paged K/V write (no pallas_call: it replaces the JAX
+                package's XLA scatter, ``SCATTERS``): a chat tick, 64 rows
+                at Qmax 128 (61 decode rows, 3 chunks) into one layer's
+                planes of a 16384-page pool, bf16 K/V (8 x 128), int8
+                codes and bf16 scales, DeepSeek-V2's latent and rope key,
+                two table entries of -1 and P; bit for bit the
+                boolean-index write over the whole pool, timed against it
+                and ``index_put_``. Each entry that no serving path
                 calls (the multi-layer entries and log patch, as in the
                 JAX package) is then called once more through
                 ``repro_torch.kernels`` with the launch counts set to 0
@@ -271,9 +279,11 @@ each raises on failure, and any failure ends the run with a traceback:
                 recover) are the gate.
 
 Each serving path is driven with the launch counts set to 0 just before
-it and read just after; a row's ``serving_launches`` is the sum of its
-entry's counts over those runs (0 for an entry only its public-entry run
-calls). The last lines are the card's name and power
+it and read just after (every entry of ``repro_torch.kernels.COUNTED``,
+the K/V write too, which must launch once a paged attention launch: each
+layer of a paged step writes, then attends); a row's ``serving_launches``
+is the sum of its entry's counts over those runs (0 for an entry only its
+public-entry run calls). The last lines are the card's name and power
 limit, a ``{"kernels": ...}`` JSON line, and ``{"ok": true, ...}``.
 """
 from __future__ import annotations
@@ -329,6 +339,19 @@ KERNELS = {
     "log_patch": ("src/repro/kernels/log_patch/kernel.py:70",
                   "src/repro_torch/kernels/log_patch/csrc/log_patch.cu"),
 }
+# row name → (the JAX package's XLA scatter it replaces, CUDA source): the
+# port's kernels with no pallas_call behind them
+SCATTERS = {
+    "kv_page_write": ("src/repro/models/attention.py:403",
+                      CSRC + "kv_page_write.cu"),
+}
+ROWS = {**KERNELS, **SCATTERS}
+# the K/V write's launches; each layer of a paged step writes once, then
+# launches one of these single-layer entries
+WRITE = "kv_page_write"
+STEP_ENTRIES = ("paged_attention_ragged", "paged_attention",
+                "paged_attention_ragged_q8", "paged_attention_q8",
+                "mla_paged_attention_ragged", "mla_paged_attention")
 GEOM = dict(B=8, H=16, K=8, D=128, T=16, MP=64)
 # the (H, K, D) the configs of phases 18-19 give the dense paged entries
 # (GQA groups 7, 12 and 1; head_dim 256 and 64), at GEOM's B, T and MP
@@ -370,6 +393,17 @@ FLASH_CHECKS = [(2, 128, 128, 8, 2, 64, True), (1, 100, 260, 4, 4, 32, True),
 # K and V of one token in one InternLM2-1.8B layer, the bf16 page count
 # of a 1 GiB pool, one drain batch
 LOG_GEOM = dict(P=682, T=16, C=2048, N=256)
+# the K/V write at a chat tick (64 rows at Qmax 128: 61 decode rows, 3
+# chunks) into one layer's planes of a B x MP = 16384-page pool
+# (InternLM2-1.8B's layer share of a 25 GiB pool); each family's planes as
+# (trailing shape, dtype): K and V of 8 heads of 128; int8 codes and their
+# bf16 scales; DeepSeek-V2's latent (512) and rope key (64)
+WRITE_GEOM = dict(B=64, Q=128, T=16, MP=256, chunk_rows=3)
+WRITE_PLANES = {
+    "bfloat16": [((8, 128), "bfloat16")] * 2,
+    "int8": [((8, 128), "int8")] * 2 + [((8,), "bfloat16")] * 2,
+    "mla": [((512,), "bfloat16"), ((64,), "bfloat16")],
+}
 # phase 32: the training CLI's run, and #9 at its shape (one layer of the
 # 4 x 2048-token batch)
 TRAIN_ARCH = "internlm2-1.8b"
@@ -428,7 +462,8 @@ MAIN_PATH_KERNELS = (
     r"|flash_attention_tf32x3_kernelILi\d+ELi\d+EE"
     r"|log_patch_kernelI\w+?Lb[01]EE"
     r"|mla_paged_attention_part_kernelI13__nv_bfloat16Li512EE"
-    r"|mla_paged_attention_combine_kernelILi512EE")
+    r"|mla_paged_attention_combine_kernelILi512EE"
+    r"|kv_page_write_kernel")
 
 
 def log(*a):
@@ -1027,6 +1062,83 @@ def log_patch_case(torch, dev, dtype, seed):
     return c
 
 
+def kv_write_case(torch, dev, family, seed):
+    """The K/V write at a chat tick (``WRITE_GEOM``, the rows of
+    ``tests/kv_write_cases.py``'s ``chat_step``) into one layer's
+    ``WRITE_PLANES[family]``, two decode rows' table entries set to -1 and
+    to P (dropped). The kernel writes one copy of the planes, the
+    boolean-index write (its plain version) another, ``index_put_`` over
+    the precomputed targets a third; each copy's planes are views of one
+    byte buffer, which the call returns, so the whole pool is compared bit
+    for bit. The write is idempotent: timing loops rewrite the same
+    bytes."""
+    import math
+    import repro_torch.kernels as K
+    from repro_torch.kernels.paged_attention.ref import kv_page_write_ref
+    sys.path.insert(0, str(ROOT / "tests"))
+    from kv_write_cases import chat_step, written_slots
+    B, Q, T, MP, chunks = (WRITE_GEOM[k] for k in
+                           "B Q T MP chunk_rows".split())
+    P = B * MP
+    table, positions, valid = chat_step(dev, B, Q, T, MP, chunks, seed)
+    for b, page in ((chunks + 2, -1), (chunks + 3, P)):
+        table[b, int(positions[b, 0]) // T] = page
+    g = torch.Generator(dev).manual_seed(seed + 1)
+    planes = [(shape, getattr(torch, dt)) for shape, dt in
+              WRITE_PLANES[family]]
+    sizes = [P * T * math.prod(shape) * dt.itemsize for shape, dt in planes]
+    start = torch.randint(0, 256, (sum(sizes),), generator=g, device=dev,
+                          dtype=torch.uint8)
+    values = [torch.randint(-127, 128, (B, Q) + shape, generator=g,
+                            device=dev, dtype=dt) if dt == torch.int8
+              else torch.randn((B, Q) + shape, generator=g,
+                               device=dev).to(dt) for shape, dt in planes]
+
+    def carve(buf):
+        out, at = [], 0
+        for (shape, dt), n in zip(planes, sizes):
+            out.append(buf[at:at + n].view(dt).view((P, T) + shape))
+            at += n
+        return out
+    bufs = [start.clone() for _ in range(3)]
+    kern_pools, plain_pools, lib_pools = (carve(b) for b in bufs)
+    logical = (positions // T).clamp(0, MP - 1)
+    phys = torch.gather(table, 1, logical).long()
+    ok = valid & (phys >= 0) & (phys < P)
+    target = (phys[ok], (positions % T)[ok])
+    rows = [v[ok] for v in values]
+    n_written = int(ok.sum())
+
+    c = Case()
+    c.exact, c.args = True, ()
+    c.kern = lambda: (K.kv_page_write(kern_pools, values, table, positions,
+                                      valid), bufs[0])[1]
+    c.plain = lambda: (kv_page_write_ref(plain_pools, values, table,
+                                         positions, valid), bufs[1])[1]
+    c.library = lambda: [p.index_put_(target, r)
+                         for p, r in zip(lib_pools, rows)]
+
+    def pins(out):
+        c.library()
+        if not torch.equal(bufs[2], out):
+            raise AssertionError(f"{c.label}: index_put_ over the targets "
+                                 f"differs")
+        got = written_slots(carve(start), kern_pools)
+        if n_written != int(valid.sum()) - 2 or got != n_written:
+            raise AssertionError(f"{c.label}: {got} slots written, "
+                                 f"{n_written} to write of "
+                                 f"{int(valid.sum())} valid")
+    c.pins = pins
+    c.rate_dtype = "bfloat16"
+    # each written slot reads and writes its rows once and reads a table
+    # entry; every slot reads its flag and its int64 position
+    row_bytes = sum(math.prod(shape) * dt.itemsize for shape, dt in planes)
+    c.work = (n_written * (2 * row_bytes + 4) + B * Q * (1 + 8), 0)
+    c.iters = (100, 20, 20)
+    c.extra = {"written_slots": n_written, "planes": len(planes)}
+    return c
+
+
 def measure(torch, name, c, what):
     """Hold a case against its plain version and pins; time it; for an
     entry no serving path calls, its public-entry run. Returns the row
@@ -1099,7 +1211,7 @@ def measure(torch, name, c, what):
         again = c.kern(*c.args)
         torch.cuda.synchronize()
         launches = c.entry.launches
-        others = {e.__name__: e.launches for e in K.ENTRIES
+        others = {e.__name__: e.launches for e in K.COUNTED
                   if e is not c.entry and e.launches}
         if launches != 1 or others or not torch.equal(again, out):
             raise AssertionError(f"{name} {what}: public-entry run launched "
@@ -1182,11 +1294,16 @@ def phase_kernels(torch, dev, seed):
             (f"{d} P={LOG_GEOM['P']} N={LOG_GEOM['N']}",
              lambda d=d: log_patch_case(torch, dev, d, seed))
             for d in (bf16, f32)],
+        "kv_page_write": [
+            (f"{fam} B={WRITE_GEOM['B']} Qmax={WRITE_GEOM['Q']} "
+             f"P={WRITE_GEOM['B'] * WRITE_GEOM['MP']}",
+             lambda fam=fam: kv_write_case(torch, dev, fam, seed))
+            for fam in WRITE_PLANES],
     })
     rows = {}
     for name, cases in plan.items():
-        row = {"name": name, "route": "cuda", "source": KERNELS[name][1],
-               "replaces": KERNELS[name][0], "cases": {}}
+        row = {"name": name, "route": "cuda", "source": ROWS[name][1],
+               "replaces": ROWS[name][0], "cases": {}}
         for i, (what, build) in enumerate(cases):
             what = what.replace("torch.", "")
             fields = measure(torch, name, build(), what)
@@ -1242,8 +1359,22 @@ def engine(model, dev, *, hbm, fuse=True, max_len=560, chunk=CHUNK,
 
 
 def launch_counts(ops):
-    """Every entry's launches since the counts were last set to 0."""
-    return {e.__name__: e.launches for e in ops.ENTRIES}
+    """Every counted entry's launches since the counts were last set to 0
+    (``ops.COUNTED``: the K/V write too), checked at one K/V write a
+    launch of a single-layer paged entry."""
+    counts = {e.__name__: e.launches for e in ops.COUNTED}
+    attends = sum(counts.get(k, 0) for k in STEP_ENTRIES)
+    if counts.get(WRITE, 0) != attends:
+        raise AssertionError(f"{counts.get(WRITE, 0)} {WRITE} launches for "
+                             f"{attends} paged attention launches")
+    return counts
+
+
+def launched_besides(counts, *names):
+    """The entries other than ``names`` and the K/V write (which
+    ``launch_counts`` checks) that launched."""
+    return {k: n for k, n in counts.items()
+            if n and k not in names and k != WRITE}
 
 
 def free(torch):
@@ -1269,7 +1400,7 @@ def serve(torch, dev, seed, what, model, entry):
     wall = time.perf_counter() - t0
     counts = launch_counts(ops)
     launches = counts[entry.__name__]
-    others = {k: n for k, n in counts.items() if k != entry.__name__ and n}
+    others = launched_besides(counts, entry.__name__)
     s = eng.stats()
     new = sum(len(r.generated) for r in reqs)
     if not all(r.done and len(r.generated) == 32 for r in reqs):
@@ -1281,16 +1412,17 @@ def serve(torch, dev, seed, what, model, entry):
     if s["step_calls"] != s["sched_ticks"]:
         raise AssertionError(f"{what}: step_calls != ticks")
     if launches <= 0 or launches != cfg.num_layers * s["step_calls"] \
-            or others:
+            or counts[WRITE] != launches or others:
         raise AssertionError(f"{what}: {launches} {entry.__name__} launches "
-                             f"for {s['step_calls']} steps; others {others}")
+                             f"and {counts[WRITE]} {WRITE} launches for "
+                             f"{s['step_calls']} steps; others {others}")
     pages = eng.tiered.pool_pages
     log(f"[{what}] {cfg.name} {cfg.num_layers} layers, {model.dtype}, "
         f"{eng.desc.family} pool: {len(reqs)} requests, prompts "
         f"{[len(r.prompt) for r in reqs]}, {new} new tokens in {wall:.3f} s "
         f"= {new / wall:.2f} tok/s (incl. prefill); ticks {s['sched_ticks']}, "
         f"step_calls {s['step_calls']}, {entry.__name__} launches "
-        f"{launches}, mirror_d2h_bytes {s['mirror_d2h_bytes']}, peak memory "
+        f"{launches}, {WRITE} launches {counts[WRITE]}, mirror_d2h_bytes {s['mirror_d2h_bytes']}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, pool pages "
         f"{pages} of {eng.desc.page_group_bytes} B")
     return launches, pages, counts
@@ -1389,8 +1521,7 @@ def serve_long(torch, dev, seed, model, what="serve-long",
     counts = launch_counts(K)
     s = eng.stats()
     flash, paged = counts["flash_attention"], counts[entry]
-    others = {k: n for k, n in counts.items() if n and k not in (
-        "flash_attention", entry)}
+    others = launched_besides(counts, "flash_attention", entry)
     n_long = sum(n > model.chunk_size for n in LONG_PROMPTS)
     if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
             0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
@@ -1448,8 +1579,7 @@ def parity_long(torch, dev, seed, cfg, what="parity-long",
     torch.cuda.synchronize()
     counts = launch_counts(K)
     flash = counts["flash_attention"]
-    others = {k: n for k, n in counts.items() if n and k not in (
-        "flash_attention", entry)}
+    others = launched_besides(counts, "flash_attention", entry)
     if flash != cfg.num_layers * len(lens) or others:
         raise AssertionError(f"{what}: {flash} flash launches; others "
                              f"{others}")
@@ -1572,8 +1702,7 @@ def unfused(torch, dev, seed, what, model4, ref4, entry, ragged,
     torch.cuda.synchronize()
     counts = launch_counts(ops)
     launches = counts[entry.__name__]
-    others = {k: n for k, n in counts.items()
-              if n and k not in (entry.__name__, ragged.__name__)}
+    others = launched_besides(counts, entry.__name__, ragged.__name__)
     if launches <= 0 or others:
         raise AssertionError(f"{what}: {launches} {entry.__name__} launches;"
                              f" others {others}")
@@ -1627,7 +1756,7 @@ def serve_spec(torch, dev, seed, model):
     counts = launch_counts(ops)
     entry = ops.paged_attention_ragged
     q8 = qmax_launches(entry, 8)
-    others = {k: n for k, n in counts.items() if k != entry.__name__ and n}
+    others = launched_besides(counts, entry.__name__)
     s = eng.stats()
     if not all(r.done and len(r.generated) == 32 for r in reqs) or not all(
             0 <= t < cfg.vocab_size for r in reqs for t in r.generated):
@@ -1676,7 +1805,7 @@ def parity_spec(torch, dev, seed, what, cfg, entry, *,
     torch.cuda.synchronize()
     counts = launch_counts(ops)
     q8 = qmax_launches(entry, 8)
-    others = {k: n for k, n in counts.items() if n and k != entry.__name__}
+    others = launched_besides(counts, entry.__name__)
     s = eng.stats()
     if not 0 < s["spec_accepted"] < s["spec_proposed"] or q8 <= 0 \
             or entry.launches != 4 * s["step_calls"] or others:
@@ -1735,8 +1864,7 @@ def serve_prefix(torch, dev, seed, model):
         served.update(counts)
         s = eng.stats()
         launches = counts["paged_attention_ragged"]
-        others = {k: n for k, n in counts.items()
-                  if n and k != "paged_attention_ragged"}
+        others = launched_besides(counts, "paged_attention_ragged")
         hits = 7 if cache else 0
         if s["prefix_hits"] != hits \
                 or s["prefix_tokens_reused"] != hits * PREFIX_TOKENS \
@@ -2189,8 +2317,7 @@ def parity_families(torch, dev, seed):
         eng.generate(got)
         torch.cuda.synchronize()
         counts = launch_counts(ops)
-        others = {k: n for k, n in counts.items()
-                  if n and k != entry.__name__}
+        others = launched_besides(counts, entry.__name__)
         s = eng.stats()
         if counts[entry.__name__] != cfg.num_layers * s["step_calls"] \
                 or others:
@@ -2869,8 +2996,8 @@ def greedy_two(torch, dev, seed, model, what):
     counts = launch_counts(ops)
     s = eng.stats()
     n = counts["paged_attention_ragged"]
-    if n <= 0 or n != cfg.num_layers * s["step_calls"] or any(
-            v for k, v in counts.items() if k != "paged_attention_ragged"):
+    if n <= 0 or n != cfg.num_layers * s["step_calls"] \
+            or launched_besides(counts, "paged_attention_ragged"):
         raise AssertionError(f"{what}: launches {counts} for "
                              f"{s['step_calls']} steps")
     if not all(r.done and len(r.generated) == CKPT_NEW for r in reqs):
@@ -3501,6 +3628,7 @@ def main(argv=None) -> int:
     model = make_model(torch, dense, torch.bfloat16, dev, args.seed)
     rows["paged_attention_ragged"]["launches"], bf16_pages, counts = serve(
         torch, dev, args.seed, "serve", model, ops.paged_attention_ragged)
+    rows[WRITE].update(launches=counts[WRITE], path="serve")
     served.update(counts)
     del model
     free(torch)

@@ -28,19 +28,28 @@ take every layer's queries and ``(L, P, T, ...)`` pool planes at once, with
 one block table, ``lengths`` and ``q_lens`` for all layers, and launch the
 same kernels once with a layer axis in the grid; a single-layer entry is
 that launch at ``L = 1``.
+
+``kv_page_write`` is the paged steps' write of their new K/V into the pool
+(``csrc/kv_page_write.cu``): one launch a call on the current stream, with
+no host sync. It has no counterpart among the JAX package's kernels (XLA
+scatters there), so it is not in ``ENTRIES``, the JAX package's entries;
+``COUNTED`` holds every entry that counts its launches, the write too, and
+:func:`reset_launch_counts` sets each of them to 0.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from pathlib import Path
 
 import torch
 
 from repro_torch.kernels.build import c_entry, check_launch, require_cuda
 from repro_torch.kernels.paged_attention.ref import (
-    mla_paged_attention_layers_ragged_ref, mla_paged_attention_ragged_ref,
-    mla_paged_attention_ref, paged_attention_layers_ragged_q8_ref,
+    kv_page_write_ref, mla_paged_attention_layers_ragged_ref,
+    mla_paged_attention_ragged_ref, mla_paged_attention_ref,
+    paged_attention_layers_ragged_q8_ref,
     paged_attention_layers_ragged_ref, paged_attention_layers_ref,
     paged_attention_q8_ref, paged_attention_ragged_q8_ref,
     paged_attention_ragged_ref, paged_attention_ref)
@@ -48,6 +57,7 @@ from repro_torch.kernels.paged_attention.ref import (
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "paged_attention.cu"
 MLA_SOURCE = CSRC / "mla_paged_attention.cu"
+WRITE_SOURCE = CSRC / "kv_page_write.cu"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128, 256)
 _LATENT_DIMS = (32, 64, 128, 256, 512)
@@ -385,11 +395,63 @@ def mla_paged_attention_layers_ragged(q_c, q_r, pool_c, pool_kr, block_table,
     return out
 
 
+# ------------------------------------------------------------- the write
+def kv_page_write(pools, values, block_table, positions, valid):
+    """Write a step's new cache entries into the page pool IN PLACE:
+    ``values[j][b, i]``, cast to plane ``pools[j]``'s dtype, at the page
+    slot of ``positions[b, i]``, for the ``valid`` slots whose table entry
+    (the logical page ``positions // T`` clamped to the table's last
+    column) is a real page; every other slot touches nothing (JAX's
+    ``mode="drop"``). pools: 1 to 4 planes (P, T, ...) of one (P, T);
+    values (B, Q, ...) in each plane's trailing shape; block_table (B,
+    MP); positions, valid (B, Q). Two written slots aimed at one target
+    (only positions clamped past the table can be) leave one of them,
+    which one unspecified. On the card one launch, with no host sync."""
+    if pools[0].device.type == "cpu":
+        return kv_page_write_ref(pools, values, block_table, positions,
+                                 valid)
+    require_cuda("KV page write", pools[0])
+    if not 1 <= len(pools) == len(values) <= 4:
+        raise ValueError(f"the write takes 1 to 4 planes and one value "
+                         f"tensor each; got {len(pools)} and {len(values)}")
+    dev = pools[0].device
+    P, T = pools[0].shape[:2]
+    B, Q = positions.shape
+    _same_device(dev, *pools, *values, block_table, positions, valid)
+    if any(p.shape[:2] != (P, T) or v.shape != (B, Q) + p.shape[2:]
+           for p, v in zip(pools, values)) or valid.shape != (B, Q) \
+            or block_table.ndim != 2 or block_table.shape[0] != B \
+            or block_table.shape[1] == 0:
+        raise ValueError(
+            f"shape mismatch: pools {[tuple(p.shape) for p in pools]}, "
+            f"values {[tuple(v.shape) for v in values]}, block_table "
+            f"{tuple(block_table.shape)}, positions {(B, Q)}, valid "
+            f"{tuple(valid.shape)}")
+    _contiguous(*pools)
+    values = tuple(v.to(p.dtype).contiguous() for p, v in zip(pools, values))
+    table = block_table.to(torch.int32).contiguous()
+    pos = positions.to(torch.int64).contiguous()
+    ok = valid.to(torch.bool).contiguous()
+    n = len(pools)
+    rc = c_entry(WRITE_SOURCE, "kv_page_write_launch",
+                 [_C] * 11 + [ctypes.c_longlong] * 4 + [ctypes.c_int] * 6
+                 + [_C])(
+        table.data_ptr(), pos.data_ptr(), ok.data_ptr(),
+        *[p.data_ptr() for p in pools], *[None] * (4 - n),
+        *[v.data_ptr() for v in values], *[None] * (4 - n),
+        *[math.prod(p.shape[2:]) * p.element_size() for p in pools],
+        *[0] * (4 - n), n, B, Q, block_table.shape[1], P, T,
+        torch.cuda.current_stream(dev).cuda_stream)
+    check_launch(rc, "kv_page_write")
+    kv_page_write.launches += 1
+
+
 ENTRIES = (paged_attention_ragged, paged_attention, paged_attention_ragged_q8,
            paged_attention_q8, mla_paged_attention_ragged,
            mla_paged_attention, paged_attention_layers,
            paged_attention_layers_ragged, paged_attention_layers_ragged_q8,
            mla_paged_attention_layers_ragged)
+COUNTED = ENTRIES + (kv_page_write,)
 
 
 def _count(entry, qmax: int) -> None:
@@ -399,8 +461,9 @@ def _count(entry, qmax: int) -> None:
 
 
 def reset_launch_counts() -> None:
-    for entry in ENTRIES:
+    for entry in COUNTED:
         entry.launches = 0
+    for entry in ENTRIES:
         entry.launches_by_qmax = {}
 
 

@@ -6,9 +6,10 @@ The counterparts of the JAX package's ``paged_attention_ragged_ref``,
 block table, mask, softmax in fp32, and zero the rows the kernel contract
 zeroes. The multi-layer versions (``*_layers_*``) apply the single-layer
 ones layer by layer, with one block table, ``lengths`` and ``q_lens``
-shared by every layer, as the JAX oracles ``vmap`` them. The CPU path of :mod:`~repro_torch.kernels.paged_attention.ops`
-runs these, and the card's parity checks hold the CUDA kernels against
-them.
+shared by every layer, as the JAX oracles ``vmap`` them. ``kv_page_write_ref``
+is the paged steps' K/V write into the pool (boolean-mask indexing). The CPU
+path of :mod:`~repro_torch.kernels.paged_attention.ops` runs these, and the
+card's parity checks hold the CUDA kernels against them.
 """
 from __future__ import annotations
 
@@ -191,3 +192,19 @@ def mla_paged_attention_layers_ragged_ref(q_c, q_r, pool_c, pool_kr,
     dr); pool_c (L, P, T, dc); pool_kr (L, P, T, dr)."""
     return _layers(mla_paged_attention_ragged_ref, (q_c, q_r, pool_c, pool_kr),
                    block_table, lengths, q_lens, scale=scale)
+
+
+def kv_page_write_ref(pools, values, block_table, positions, valid):
+    """Write ``values[j][b, i]`` into plane ``pools[j]`` (P, T, ...) at the
+    page slot of ``positions[b, i]``, IN PLACE, for the ``valid`` slots
+    whose table entry (the logical page ``positions // T`` clamped to the
+    table's last column) is a real page; the others touch nothing (JAX's
+    ``mode="drop"``). positions/valid: (B, Q); values (B, Q, ...) in each
+    plane's trailing shape, cast to its dtype."""
+    P, T = pools[0].shape[0], pools[0].shape[1]
+    logical = (positions // T).clamp(0, block_table.shape[1] - 1)
+    phys = torch.gather(block_table, 1, logical).long()        # (B, Q)
+    ok = valid & (phys >= 0) & (phys < P)
+    phys, slot = phys[ok], (positions % T)[ok]
+    for pool, val in zip(pools, values):
+        pool[phys, slot] = val[ok].to(pool.dtype)

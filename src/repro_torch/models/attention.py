@@ -18,14 +18,16 @@ kernels — ``w_uk`` absorption, ``w_uv``, ``wo``, the quantize-on-write
 arithmetic — stay ``torch`` matmuls, as they are XLA code there.
 
 The paged steps scatter new cache entries IN PLACE into the layer's pool
-views: the pool tensors belong to the KV engine, which receives the same
-tensors back in ``commit_step_planes``. The ragged steps over the dense
-cache (``*_decode_ragged``, the dense-mirror path's fused tick) are plain
-torch, as they are XLA code there, and write the dense cache in place.
-Where the JAX scatter drops out-of-range writes (padding slots aimed at
-page ``P`` or cache slot ``T``, ``mode="drop"``), torch would raise — so
-padding slots are masked out before the scatter and touch nothing, and
-block-table lookups are clamped where JAX clamps.
+views (on the card through the hand-written write kernel, which reads
+nothing back to the host): the pool tensors belong to the KV engine, which
+receives the same tensors back in ``commit_step_planes``. The ragged steps
+over the dense cache (``*_decode_ragged``, the dense-mirror path's fused
+tick) are plain torch, as they are XLA code there, and write the dense
+cache in place. Where the JAX scatter drops out-of-range writes (padding
+slots aimed at page ``P`` or cache slot ``T``, ``mode="drop"``), torch
+would raise — so padding slots are masked out before the scatter (or
+dropped by the write kernel) and touch nothing, and block-table lookups
+are clamped where JAX clamps.
 
 On DTensors (the dry run, a mesh of real ranks) the same functions run
 under ``implicit_replication``; one step differs from GSPMD: a projection
@@ -47,8 +49,9 @@ from repro_torch.distributed.sharding import (hold_layout, is_dtensor,
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.kernels.paged_attention.ops import (
-    mla_paged_attention, mla_paged_attention_ragged, paged_attention,
-    paged_attention_q8, paged_attention_ragged, paged_attention_ragged_q8)
+    kv_page_write, mla_paged_attention, mla_paged_attention_ragged,
+    paged_attention, paged_attention_q8, paged_attention_ragged,
+    paged_attention_ragged_q8)
 from repro_torch.models.layers import apply_rope, rmsnorm
 
 NEG_INF = -1e30
@@ -320,14 +323,10 @@ def _scatter_pool(pools, values, block_table, positions, valid):
     """Write ``values[j][b, i]`` into plane ``pools[j]`` at the page slot
     of position ``positions[b, i]``, IN PLACE, for the ``valid`` slots
     whose table entry is a real page; the others touch nothing (JAX's
-    ``mode="drop"``). positions/valid: (B, Q)."""
-    P, T = pools[0].shape[0], pools[0].shape[1]
-    logical = (positions // T).clamp(0, block_table.shape[1] - 1)
-    phys = torch.gather(block_table, 1, logical).long()        # (B, Q)
-    ok = valid & (phys >= 0) & (phys < P)
-    phys, slot = phys[ok], (positions % T)[ok]
-    for pool, val in zip(pools, values):
-        pool[phys, slot] = val[ok].to(pool.dtype)
+    ``mode="drop"``). positions/valid: (B, Q). On the card one launch of
+    the write kernel, which reads nothing back to the host
+    (:func:`~repro_torch.kernels.paged_attention.ops.kv_page_write`)."""
+    kv_page_write(pools, values, block_table, positions, valid)
 
 
 def _ragged_positions(x, ctx_lens, q_lens):

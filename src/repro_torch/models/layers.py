@@ -45,12 +45,34 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return torch.from_numpy(1.0 / (theta ** exponents)).to(device)
 
 
+# rope_frequencies on each device, by (head_dim, theta, device)
+_ROPE_TABLES: dict = {}
+
+
+def _rope_table(head_dim: int, theta: float, x: torch.Tensor):
+    """:func:`rope_frequencies` on ``x``'s device, built once per
+    ``(head_dim, theta, device)`` and kept: a step then copies nothing from
+    the host, and a copy from pageable memory would wait for the card. A
+    fake ``x`` (the dry run) gets a table of its own, which no later call
+    outside that fake mode may see."""
+    if type(x) is not torch.Tensor:        # only a subclass can be fake
+        from torch._subclasses.fake_tensor import is_fake
+        if is_fake(x):
+            return rope_frequencies(head_dim, theta, x.device)
+    key = (head_dim, float(theta), x.device)
+    table = _ROPE_TABLES.get(key)
+    if table is None:
+        table = _ROPE_TABLES[key] = rope_frequencies(head_dim, theta,
+                                                     x.device)
+    return table
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """Half-split RoPE in fp32. x: (..., seq, heads, head_dim); positions
     broadcastable to (..., seq)."""
     head_dim = x.shape[-1]
-    freqs = rope_frequencies(head_dim, theta, x.device)        # (hd/2,)
+    freqs = _rope_table(head_dim, theta, x)                     # (hd/2,)
     angles = positions[..., None].float() * freqs               # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]                       # (..., seq, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]

@@ -103,6 +103,71 @@ def test_kernel_rows_cover_every_pallas_call_once():
     assert set(rows) == sites
 
 
+@pytest.mark.parametrize("name", sorted(chip_smoke.SCATTERS))
+def test_scatter_rows_name_the_xla_scatter_and_source(name):
+    """A kernel of the port with no pallas_call behind it names the JAX
+    package's dropping scatter it replaces, and its CUDA source."""
+    replaces, source = chip_smoke.SCATTERS[name]
+    path, line = replaces.rsplit(":", 1)
+    text = (ROOT / path).read_text().splitlines()[int(line) - 1]
+    assert ".at[" in text and 'mode="drop"' in text, replaces
+    assert (ROOT / source).is_file(), source
+    assert name in {e.__name__ for e in __import__(
+        "repro_torch.kernels", fromlist=["COUNTED"]).COUNTED}
+
+
+def test_launch_counts_hold_one_write_a_paged_attention_launch():
+    """``launch_counts`` reads every counted entry and refuses a run whose
+    K/V writes are not one a single-layer paged attention launch;
+    ``launched_besides`` leaves the write out."""
+    from types import SimpleNamespace
+
+    def entry(name, n):
+        return SimpleNamespace(__name__=name, launches=n)
+    ops = SimpleNamespace(COUNTED=(
+        entry("paged_attention_ragged", 48), entry("paged_attention_q8", 24),
+        entry("paged_attention_layers", 1), entry("kv_page_write", 72)))
+    counts = chip_smoke.launch_counts(ops)
+    assert counts["kv_page_write"] == 72
+    assert chip_smoke.launched_besides(counts, "paged_attention_ragged") \
+        == {"paged_attention_q8": 24, "paged_attention_layers": 1}
+    ops.COUNTED[-1].launches = 71
+    with pytest.raises(AssertionError, match="71 kv_page_write"):
+        chip_smoke.launch_counts(ops)
+
+
+@pytest.mark.parametrize("family", sorted(chip_smoke.WRITE_PLANES))
+def test_kv_write_row_rehearses_on_the_cpu(monkeypatch, family):
+    """Phase 2's K/V write row on the CPU at narrow planes (the entry runs
+    its plain version there): the whole pool bit for bit, the two dead
+    table entries dropped, ``index_put_`` agreeing, and the row's fields."""
+    class Event:
+        def __init__(self, **_):
+            self.t = 0.0
+
+        def record(self):
+            self.t = time.perf_counter()
+
+        def elapsed_time(self, other):
+            return (other.t - self.t) * 1e3
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    monkeypatch.setattr(chip_smoke, "WRITE_GEOM", dict(
+        B=6, Q=8, T=16, MP=200, chunk_rows=2))
+    narrow = {"bfloat16": [((2, 8), "bfloat16")] * 2,
+              "int8": [((2, 8), "int8")] * 2 + [((2,), "bfloat16")] * 2,
+              "mla": [((16,), "bfloat16"), ((8,), "bfloat16")]}
+    monkeypatch.setattr(chip_smoke, "WRITE_PLANES", narrow)
+    c = chip_smoke.kv_write_case(torch, torch.device("cpu"), family, 3)
+    c.iters = (2, 2, 2)
+    fields = chip_smoke.measure(torch, "kv_page_write", c, family)
+    assert fields["max_abs_err"] == 0.0
+    assert fields["written_slots"] == 4 * 1 + 2 * 8 - 2
+    assert fields["planes"] == len(narrow[family])
+    assert fields["bound_by"] == "bytes" and fields["bound_ms"] > 0
+
+
 def test_script_runs_the_training_phases_last():
     """``main`` runs train, parity-train and train-crash, in that order,
     after the checkpoint phases; train drives the CLI at InternLM2-1.8B's
@@ -141,9 +206,10 @@ def test_training_phases_rehearse_on_the_cpu(monkeypatch, capsys):
     counted.__name__, counted.launches = "flash_attention", 0
     monkeypatch.setattr(flash_ops, "flash_attention", counted)
     monkeypatch.setattr(attention, "flash_attention", counted)
-    monkeypatch.setattr(ops, "ENTRIES", tuple(
-        counted if e.__name__ == "flash_attention" else e
-        for e in ops.ENTRIES))
+    for name in ("ENTRIES", "COUNTED"):
+        monkeypatch.setattr(ops, name, tuple(
+            counted if e.__name__ == "flash_attention" else e
+            for e in getattr(ops, name)))
     monkeypatch.setattr(flash_ops, "reset_launch_counts",
                         lambda: setattr(counted, "launches", 0))
 

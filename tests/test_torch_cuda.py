@@ -1,12 +1,13 @@
 """The port on the card: the hand-written CUDA kernels (dense, int8 and MLA
-paged attention, one layer or all layers; flash attention; log patch)
-against their plain PyTorch versions, and the pooled serving path through
-them, long prompts included.
+paged attention, one layer or all layers; flash attention; log patch; the
+paged K/V write) against their plain PyTorch versions, and the pooled
+serving path through them, long prompts included.
 
 Every test here is marked ``cuda`` and skips when torch sees no GPU (the
 decision is taken inside the ``cuda_device`` fixture, never at import).
-The file imports only torch, numpy, the port and ``chip_smoke.py``, so it
-runs on a machine without JAX: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
+The file imports only torch, numpy, the port, ``chip_smoke.py`` and
+``tests/kv_write_cases.py``, so it runs on a machine without JAX:
+``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 import sys
 from pathlib import Path
@@ -22,15 +23,17 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.log_patch.ref import log_patch_ref
 from repro_torch.kernels.paged_attention import ops
 from repro_torch.kernels.paged_attention.ref import (
-    mla_paged_attention_layers_ragged_ref, mla_paged_attention_ragged_ref,
-    paged_attention_layers_ragged_q8_ref, paged_attention_layers_ragged_ref,
-    paged_attention_ragged_q8_ref, paged_attention_ragged_ref)
+    kv_page_write_ref, mla_paged_attention_layers_ragged_ref,
+    mla_paged_attention_ragged_ref, paged_attention_layers_ragged_q8_ref,
+    paged_attention_layers_ragged_ref, paged_attention_ragged_q8_ref,
+    paged_attention_ragged_ref)
 from repro_torch.models import LM
 from repro_torch.models.moe import apply_moe
 from repro_torch.serving import Request, ServeConfig, ServingEngine
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
+import kv_write_cases  # noqa: E402
 
 # tests/test_kernels.py: atol 5·_RTOL, rtol 2·_RTOL
 _TOL = {torch.float32: (1e-4, 4e-5), torch.bfloat16: (1e-1, 4e-2)}
@@ -1164,7 +1167,7 @@ def test_mirror_serving_on_card_matches_pooled(cuda_device, engine, fuse):
     got = eng.generate(reqs())
     torch.cuda.synchronize()
     assert not eng.pooled
-    assert sum(e.launches for e in kernels.ENTRIES) == 0
+    assert sum(e.launches for e in kernels.COUNTED) == 0
     assert [r.generated for r in got] == [r.generated for r in want] \
         == [r.generated for r in ref]
     assert eng.stats()["mirror_d2h_bytes"] > 0
@@ -1254,7 +1257,7 @@ def test_ssm_steps_on_card_match_cpu(cuda_device, arch):
         for key in ("conv_steps", "ssm_steps"):
             torch.testing.assert_close(gc[key].cpu(), wc[key], atol=atol,
                                        rtol=rtol)
-    assert sum(e.launches for e in kernels.ENTRIES) == 0
+    assert sum(e.launches for e in kernels.COUNTED) == 0
 
 
 @pytest.mark.cuda
@@ -1457,3 +1460,116 @@ def test_serving_a_trainable_model_launches_as_before(cuda_device):
     assert not applied
     assert trained == frozen
     assert frozen[1]["flash_attention"] == 2 * cfg.num_layers
+
+
+def _to_card(dev, tensors):
+    return [t.to(dev) for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family,edge", kv_write_cases.CASES)
+def test_kv_page_write_kernel_is_plain_version(cuda_device, family, edge):
+    """The write kernel on the tests' cases (dense, int8 and MLA planes;
+    padding rows, q_len 0, table entries of -1 and past the pool, positions
+    clamped past the table): byte for byte its plain version (the
+    boolean-index write) on the card and the slot-by-slot loop on the CPU,
+    in one launch."""
+    pools, values, table, positions, valid = kv_write_cases.case(family,
+                                                                 edge)
+    want = [p.clone() for p in pools]
+    kv_write_cases.loop_write(want, values, table, positions, valid)
+    args = _to_card(cuda_device, (table, positions, valid))
+    card_values = _to_card(cuda_device, values)
+    ref = _to_card(cuda_device, pools)
+    kv_page_write_ref(ref, card_values, *args)
+    got = _to_card(cuda_device, pools)
+    ops.reset_launch_counts()
+    ops.kv_page_write(got, card_values, *args)
+    torch.cuda.synchronize()
+    assert ops.kv_page_write.launches == 1
+    for g, r, w in zip(got, ref, want):
+        assert kv_write_cases.same_bytes(g.cpu(), r.cpu())
+        assert kv_write_cases.same_bytes(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("kv_cache_dtype", ["native", "int8"])
+def test_kv_page_write_at_the_chat_shape(cuda_device, kv_cache_dtype,
+                                         offset):
+    """InternLM2-1.8B's planes at a chat tick (64 rows, Qmax 128, 8 KV
+    heads of 128, pages of 16) into layer 1 of a two-layer pool, values at
+    an element ``offset`` from an aligned address (the kernel's narrower
+    copies): byte for byte its plain version (the boolean-index write) on
+    the card."""
+    dev, B, Qm, K, D, T, MP = cuda_device, 64, 128, 8, 128, 16, 256
+    table, positions, valid = kv_write_cases.chat_step(dev, B, Qm, T,
+                                                        MP)
+    g = torch.Generator(dev).manual_seed(1)
+    shapes = [(K, D), (K, D)]
+    dtypes = [torch.bfloat16] * 2
+    if kv_cache_dtype == "int8":
+        shapes += [(K,), (K,)]
+        dtypes = [torch.int8] * 2 + [torch.bfloat16] * 2
+    pools, values = [], []
+    for shape, dt in zip(shapes, dtypes):
+        planes = torch.randn((2, B * MP, T) + shape, generator=g,
+                             device=dev).to(dt)
+        pools.append(planes[1])
+        n = B * Qm * int(np.prod(shape))
+        flat = torch.randn(n + offset, generator=g, device=dev).to(dt)
+        values.append(flat[offset:].view((B, Qm) + shape))
+    ref = [p.clone() for p in pools]
+    kv_page_write_ref(ref, values, table, positions, valid)
+    before = [p.clone() for p in pools]
+    ops.reset_launch_counts()
+    ops.kv_page_write(pools, values, table, positions, valid)
+    torch.cuda.synchronize()
+    assert ops.kv_page_write.launches == 1
+    assert kv_write_cases.written_slots(before, pools) \
+        == int(valid.sum())
+    for p, r in zip(pools, ref):
+        assert kv_write_cases.same_bytes(p, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,kv_cache_dtype", [
+    ("internlm2-1.8b-smoke", "native"), ("internlm2-1.8b-smoke", "int8"),
+    ("deepseek-v2-236b-noexperts-smoke", "native")])
+def test_paged_steps_make_no_host_sync(cuda_device, arch, kv_cache_dtype):
+    """The fused step (``step_paged_ragged``: a padding row, a decode row,
+    a chunk) and the pooled decode step (``decode_step_paged``) of a small
+    bf16 model, once warm, under ``torch.cuda.set_sync_debug_mode("error")``:
+    no op in them waits for the card. The write launches once a layer a
+    step."""
+    cfg = get_config(arch)
+    dev = cuda_device
+    model = LM(cfg, dtype=torch.bfloat16, device=dev,
+               kv_cache_dtype=kv_cache_dtype).init(
+        torch.Generator(dev).manual_seed(0))
+    L, P, T, MP = cfg.num_layers, 32, 8, 4
+    g = torch.Generator(dev).manual_seed(1)
+    cache = {"block_table": torch.randperm(P, generator=g, device=dev)[
+        :3 * MP].view(3, MP).int()}
+    for p in model.cache_descriptor(T).paged_planes:
+        cache["pool_" + p.name] = torch.zeros(
+            (L, P, T) + tuple(p.shape), dtype=p.torch_dtype, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (3, 8), generator=g,
+                           device=dev)
+    ctx = torch.tensor([0, 5, 9], dtype=torch.int32, device=dev)
+    q_lens = torch.tensor([0, 1, 8], dtype=torch.int32, device=dev)
+
+    def steps():
+        model.step_paged_ragged(cache, tokens, ctx, q_lens)
+        return model.decode_step_paged(cache, tokens[:, :1], ctx + q_lens)
+    steps()                    # the kernel libraries and RoPE's table
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = steps()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert ops.kv_page_write.launches == 2 * L
+    assert torch.isfinite(logits).all()

@@ -173,7 +173,7 @@ _SCRIPT = textwrap.dedent("""
             r(2, 2, 2, 4, 32), r(2, 2, 2, 4, 16), r(2, 4, 4, 32),
             r(2, 4, 4, 16), tbl, lens, qls, scale=0.2)]
     assert all(bool(torch.isfinite(o).all()) for o in outs)
-    assert sum(e.launches for e in K.ENTRIES) == 0
+    assert sum(e.launches for e in K.COUNTED) == 0
     bad = sorted(m for m in sys.modules
                  if m == "jax" or m.startswith(("jax.", "jaxlib"))
                  or m == "repro" or m.startswith("repro."))
