@@ -6,12 +6,15 @@ Usage::
     cfg = get_config("starcoder2-15b")          # full published config
     cfg = get_config("starcoder2-15b-smoke")    # reduced smoke sibling
     cfg = get_config("deepseek-v2-236b-noexperts")   # MLA, dense FFN
+    cfg = get_config("deepseek-v2-236b-published")   # routing, YaRN as
+                                                     # published
     cfg = get_config("mamba2-1.3b")             # SSM: state rows, no KV
     cfg = get_config("seamless-m4t-large-v2")   # encoder-decoder (model only)
     cfg = get_config("llava-next-mistral-7b")   # VLM (model only)
 
 ``ARCH_IDS`` are the ten published configs the dry run sweeps (the
-reference's list: the ``-noexperts`` stand-in is not one of them).
+reference's list: neither the ``-noexperts`` stand-in nor the port's
+``deepseek-v2-236b-published`` is one of them).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ from repro_torch.configs.base import (ALL_SHAPES, DECODE_32K, LONG_500K,
                                       PREFILL_32K, SHAPES_BY_NAME, TRAIN_4K,
                                       FrontendConfig, HybridConfig,
                                       InputShape, MLAConfig, ModelConfig,
-                                      MoEConfig, SSMConfig,
+                                      MoEConfig, SSMConfig, YarnConfig,
                                       applicable_shapes, skipped_shapes)
 
 REGISTRY: dict[str, ModelConfig] = {}
@@ -35,6 +38,10 @@ for _cfg in (starcoder2_15b.CONFIG, internlm2_1p8b.CONFIG, minicpm_2b.CONFIG,
              llava_next_mistral_7b.CONFIG):
     REGISTRY[_cfg.name] = _cfg
     REGISTRY[_cfg.name + "-smoke"] = _cfg.reduced()
+# the port's own: DeepSeek-V2 as published (not one of the JAX package's)
+REGISTRY[deepseek_v2_236b.PUBLISHED.name] = deepseek_v2_236b.PUBLISHED
+REGISTRY[deepseek_v2_236b.PUBLISHED_SMOKE.name] = \
+    deepseek_v2_236b.PUBLISHED_SMOKE
 
 ARCH_IDS = [c.name for c in (
     starcoder2_15b.CONFIG, internlm2_1p8b.CONFIG, minicpm_2b.CONFIG,
@@ -55,5 +62,6 @@ def get_config(name: str) -> ModelConfig:
 __all__ = ["ALL_SHAPES", "ARCH_IDS", "DECODE_32K", "FrontendConfig",
            "HybridConfig", "InputShape", "LONG_500K", "MLAConfig",
            "MoEConfig", "ModelConfig", "PREFILL_32K", "REGISTRY",
-           "SHAPES_BY_NAME", "SSMConfig", "TRAIN_4K", "applicable_shapes",
+           "SHAPES_BY_NAME", "SSMConfig", "TRAIN_4K", "YarnConfig",
+           "applicable_shapes",
            "get_config", "skipped_shapes"]

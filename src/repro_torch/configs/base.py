@@ -13,6 +13,13 @@ training CLI's banner and the roofline), ``reduced()`` for the
 smoke-sized sibling, and the dry run's input shapes (``InputShape``: the
 four cells ``TRAIN_4K`` … ``LONG_500K``, ``applicable_shapes`` and
 ``skipped_shapes``).
+
+Beyond the JAX package's fields, and at defaults that keep its behaviour:
+``MoEConfig``'s routing method (DeepSeek-V2's group-limited greedy top-k,
+its weights unnormalised and scaled), the slice of experts a layer holds
+(one chip's share of an expert-parallel layer) and its drop-free mode;
+``ModelConfig.rope_scaling`` (``YarnConfig``, YaRN's RoPE frequencies and
+MLA's softmax scale).
 """
 from __future__ import annotations
 
@@ -32,6 +39,44 @@ class MoEConfig:
     first_k_dense: int = 0         # leading layers with a dense FFN, not MoE
     capacity_factor: float = 1.25
     router_aux_weight: float = 1e-2
+    # routing: "greedy" (top-k of all experts) or DeepSeek-V2's
+    # "group_limited_greedy" (top-k within the top ``topk_group`` of
+    # ``n_group`` expert groups, a group scored by its best expert); the
+    # top-k weights renormalised to sum 1 (``norm_topk_prob``), then
+    # scaled by ``routed_scaling_factor``
+    topk_method: str = "greedy"
+    n_group: int = 1
+    topk_group: int = 1
+    norm_topk_prob: bool = True
+    routed_scaling_factor: float = 1.0
+    # the experts this layer holds, ``first_held ..
+    # first_held + num_held - 1`` of the router's ``num_experts`` (0: all):
+    # one chip's share of an expert-parallel layer
+    first_held: int = 0
+    num_held: int = 0
+    # no capacity: every (token, held expert) pair is computed
+    # (``capacity_factor`` unread), and a serving step routes only its
+    # real tokens, never a padding slot
+    drop_free: bool = False
+
+    @property
+    def held(self) -> int:
+        """How many experts the layer holds."""
+        return self.num_held or self.num_experts
+
+
+@dataclass(frozen=True)
+class YarnConfig:
+    """YaRN's RoPE scaling (arXiv:2309.00071) as DeepSeek-V2 configures
+    it: ``factor`` over ``original_max_position_embeddings``, the ramp
+    between the dims that turn ``beta_fast`` and ``beta_slow`` times over
+    the original context, and the attention's mscale terms."""
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
 
 
 @dataclass(frozen=True)
@@ -93,6 +138,7 @@ class ModelConfig:
     # FFN activation: "swiglu" | "geglu" | "gelu"
     ffn_activation: str = "swiglu"
     rope_theta: float = 10_000.0
+    rope_scaling: Optional[YarnConfig] = None
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     residual_scale: float = 1.0

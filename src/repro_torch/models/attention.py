@@ -52,7 +52,7 @@ from repro_torch.kernels.paged_attention.ops import (
     kv_page_write, mla_paged_attention, mla_paged_attention_ragged,
     paged_attention, paged_attention_q8, paged_attention_ragged,
     paged_attention_ragged_q8)
-from repro_torch.models.layers import apply_rope, rmsnorm
+from repro_torch.models.layers import apply_rope, rmsnorm, yarn_mscale
 
 NEG_INF = -1e30
 
@@ -100,8 +100,8 @@ def _project_qkv(p, cfg, x, positions):
     q = _whole_head_groups(x @ p.wq, K).reshape(B, S, H, D)
     k = _whole_head_groups(x @ p.wk, K).reshape(B, S, K, D)
     v = _whole_head_groups(x @ p.wv, K).reshape(B, S, K, D)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rope_scaling)
+    k = apply_rope(k, positions, cfg.rope_theta, cfg.rope_scaling)
     return q.reshape(B, S, K, H // K, D), k, v
 
 
@@ -505,20 +505,38 @@ def _mla_queries(p, cfg, x, positions):
         q = (x @ p.w_q).reshape(B, S, cfg.num_heads, qk_head)
     q_nope = q[..., :m.qk_nope_head_dim]
     q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
-                        cfg.rope_theta)
+                        cfg.rope_theta, cfg.rope_scaling)
     return q_nope, q_rope
 
 
 def _mla_latent(p, cfg, x, positions):
     c_kv = rmsnorm(p.kv_norm, x @ p.w_dkv, cfg.norm_eps)
     k_rope = apply_rope((x @ p.w_kr)[:, :, None, :], positions,
-                        cfg.rope_theta)[:, :, 0, :]
+                        cfg.rope_theta, cfg.rope_scaling)[:, :, 0, :]
     return c_kv, k_rope
+
+
+def _yarn_scale(cfg) -> float:
+    """YaRN's factor on MLA's softmax scale, ``mscale(factor,
+    mscale_all_dim)`` squared (1 without YaRN)."""
+    y = cfg.rope_scaling
+    if y is None or not y.mscale_all_dim:
+        return 1.0
+    return yarn_mscale(y.factor, y.mscale_all_dim) ** 2
 
 
 def _mla_scale(cfg):
     m = cfg.mla
-    return 1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return (1.0 / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+            * _yarn_scale(cfg))
+
+
+def _mla_scaled(s, cfg):
+    """Scores ``s`` over the dense latent cache, scaled as
+    :func:`_mla_scale` scales them."""
+    m = cfg.mla
+    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    return s if cfg.rope_scaling is None else s * _yarn_scale(cfg)
 
 
 def _absorb(p, q_nope):
@@ -591,8 +609,7 @@ def mla_decode(p, cfg, x, cache_c, cache_kr, positions):
         return _mla_out(p, cfg, o_c, x.dtype), cache_c, cache_kr
     s = (torch.einsum("bshc,btc->bhst", q_c, cache_c.float())
          + torch.einsum("bshr,btr->bhst", q_rope.float(), cache_kr.float()))
-    m = cfg.mla
-    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = _mla_scaled(s, cfg)
     kv_pos = torch.arange(cache_c.shape[1], device=x.device)
     valid = kv_pos[None, :] <= positions[:, None]                  # (B, T)
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
@@ -614,8 +631,7 @@ def mla_decode_ragged(p, cfg, x, cache_c, cache_kr, ctx_lens, q_lens):
     q_c = _absorb(p, q_nope)
     s = (torch.einsum("bshc,btc->bhst", q_c, cache_c.float())
          + torch.einsum("bshr,btr->bhst", q_rope.float(), cache_kr.float()))
-    m = cfg.mla
-    s = s / math.sqrt(m.qk_nope_head_dim + m.qk_rope_head_dim)
+    s = _mla_scaled(s, cfg)
     kv_pos = torch.arange(cache_c.shape[1], device=x.device)
     allow = kv_pos[None, None, :] <= positions[:, :, None]        # (B, Q, T)
     s = torch.where(allow[:, None], s, NEG_INF)

@@ -155,19 +155,21 @@ def _branch_in(scale, cfg, h):
     return settle_residual(rmsnorm(scale, h, cfg.norm_eps), h)
 
 
-def _ffn_aux(p, cfg, h):
+def _ffn_aux(p, cfg, h, route=None):
     """The block's FFN half: ``(h, aux)``, ``aux`` the MoE load-balancing
-    loss (fp32 scalar), None for a dense FFN."""
+    loss (fp32 scalar), None for a dense FFN (and a drop-free MoE layer in
+    serving). ``route``: a serving forward's
+    :class:`~repro_torch.models.moe.Route` (drop-free MoE only)."""
     x = _branch_in(p.ln_ffn, cfg, h)
     if p.ffn_kind == "moe":
-        f, aux = apply_moe(p, cfg, x, getattr(p, "ep_axes", ()))
+        f, aux = apply_moe(p, cfg, x, getattr(p, "ep_axes", ()), route)
     else:
         f, aux = apply_ffn(p, x, cfg.ffn_activation), None
     return h + cfg.residual_scale * settle_residual(f, h), aux
 
 
-def _ffn(p, cfg, h):
-    return _ffn_aux(p, cfg, h)[0]
+def _ffn(p, cfg, h, route=None):
+    return _ffn_aux(p, cfg, h, route)[0]
 
 
 def _attn_half(p, cfg, h, positions, chunk_size):
@@ -177,11 +179,12 @@ def _attn_half(p, cfg, h, positions, chunk_size):
     return h + cfg.residual_scale * settle_residual(a, h), kv
 
 
-def apply_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
+def apply_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512,
+                        route=None):
     """Full-sequence block (prefill). Returns ``(h, cache pair)``:
     ``(k, v)`` for GQA, ``(c_kv, k_rope)`` for MLA."""
     h, kv = _attn_half(p, cfg, h, positions, chunk_size)
-    return _ffn(p, cfg, h), kv
+    return _ffn(p, cfg, h, route), kv
 
 
 def train_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
@@ -195,10 +198,10 @@ def train_decoder_block(p, cfg, h, positions, *, chunk_size: int = 512):
     return h, aux
 
 
-def decode_decoder_block(p, cfg, h, cache, positions):
+def decode_decoder_block(p, cfg, h, cache, positions, route=None):
     """Single-token block over one layer's dense cache planes, written in
     place: ``(c, kr)`` MLA, ``(k, v, k_scale, v_scale)`` int8, ``(k, v)``
-    dense."""
+    dense; ``route`` as :func:`_ffn_aux`."""
     x = _branch_in(p.ln_attn, cfg, h)
     if cfg.mla is not None:
         step = attn_mod.mla_decode
@@ -207,14 +210,14 @@ def decode_decoder_block(p, cfg, h, cache, positions):
     else:
         step = attn_mod.attn_decode
     a, *cache = step(p, cfg, x, *cache, positions)
-    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
-            tuple(cache))
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h),
+                 route), tuple(cache))
 
 
-def step_ragged_block(p, cfg, h, cache, ctx_lens, q_lens):
+def step_ragged_block(p, cfg, h, cache, ctx_lens, q_lens, route=None):
     """Ragged multi-token block over one layer's dense cache planes,
     written in place (the dense-mirror path's fused tick), dispatched as
-    :func:`decode_decoder_block`."""
+    :func:`decode_decoder_block`; ``route`` as :func:`_ffn_aux`."""
     x = _branch_in(p.ln_attn, cfg, h)
     if cfg.mla is not None:
         step = attn_mod.mla_decode_ragged
@@ -223,11 +226,12 @@ def step_ragged_block(p, cfg, h, cache, ctx_lens, q_lens):
     else:
         step = attn_mod.attn_decode_ragged
     a, *cache = step(p, cfg, x, *cache, ctx_lens, q_lens)
-    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
-            tuple(cache))
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h),
+                 route), tuple(cache))
 
 
-def decode_paged_block(p, cfg, h, planes, block_table, positions):
+def decode_paged_block(p, cfg, h, planes, block_table, positions,
+                       route=None):
     """Single-token block over one layer's pool planes (descriptor
     order), dispatched as :func:`decode_decoder_block`."""
     x = _branch_in(p.ln_attn, cfg, h)
@@ -238,14 +242,15 @@ def decode_paged_block(p, cfg, h, planes, block_table, positions):
     else:
         step = attn_mod.attn_decode_paged
     a, *planes = step(p, cfg, x, *planes, block_table, positions)
-    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
-            tuple(planes))
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h),
+                 route), tuple(planes))
 
 
 def step_paged_ragged_block(p, cfg, h, planes, block_table, ctx_lens,
-                            q_lens):
+                            q_lens, route=None):
     """Ragged multi-token block over one layer's pool planes (the fused
-    mixed-batch tick), dispatched as :func:`decode_decoder_block`."""
+    mixed-batch tick), dispatched as :func:`decode_decoder_block`;
+    ``route`` as :func:`_ffn_aux`."""
     x = _branch_in(p.ln_attn, cfg, h)
     if cfg.mla is not None:
         step = attn_mod.mla_step_paged_ragged
@@ -254,8 +259,8 @@ def step_paged_ragged_block(p, cfg, h, planes, block_table, ctx_lens,
     else:
         step = attn_mod.attn_step_paged_ragged
     a, *planes = step(p, cfg, x, *planes, block_table, ctx_lens, q_lens)
-    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h)),
-            tuple(planes))
+    return (_ffn(p, cfg, h + cfg.residual_scale * settle_residual(a, h),
+                 route), tuple(planes))
 
 
 def apply_encoder_block(p, cfg, h, positions, *, chunk_size: int = 512):

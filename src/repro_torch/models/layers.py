@@ -8,6 +8,8 @@ statistics run in fp32.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -45,37 +47,81 @@ def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return torch.from_numpy(1.0 / (theta ** exponents)).to(device)
 
 
-# rope_frequencies on each device, by (head_dim, theta, device)
+def yarn_mscale(scale: float, m: float) -> float:
+    """YaRN's attention term ``0.1 m ln(scale) + 1`` (1 where ``scale``
+    is at most 1)."""
+    return 1.0 if scale <= 1 else 0.1 * m * math.log(scale) + 1.0
+
+
+def yarn_frequencies(head_dim: int, theta: float, yarn,
+                     device=None) -> torch.Tensor:
+    """``(head_dim / 2,)`` fp32 inverse frequencies under YaRN (``yarn`` a
+    :class:`~repro_torch.configs.base.YarnConfig`), as DeepSeek-V2 sets
+    them: with ``dim(r) = head_dim ln(orig / (2 pi r)) / (2 ln theta)``,
+    the dims below ``low = floor(dim(beta_fast))`` keep their frequency,
+    those above ``high = ceil(dim(beta_slow))`` take it over ``factor``,
+    and a linear ramp joins them."""
+    def dim_of(rotations):
+        return (head_dim * math.log(yarn.original_max_position_embeddings
+                                    / (rotations * 2 * math.pi))
+                / (2 * math.log(theta)))
+    low = max(math.floor(dim_of(yarn.beta_fast)), 0)
+    high = min(math.ceil(dim_of(yarn.beta_slow)), head_dim - 1)
+    if low == high:
+        high += 0.001
+    i = np.arange(head_dim // 2, dtype=np.float64)
+    keep = 1.0 - np.clip((i - low) / (high - low), 0.0, 1.0)
+    inv = theta ** (-2.0 * i / head_dim) * (keep + (1.0 - keep) / yarn.factor)
+    return torch.from_numpy(inv.astype(np.float32)).to(device)
+
+
+def _frequencies(head_dim: int, theta: float, yarn, device):
+    if yarn is None:
+        return rope_frequencies(head_dim, theta, device)
+    return yarn_frequencies(head_dim, theta, yarn, device)
+
+
+# the inverse frequencies on each device, by (head_dim, theta, device),
+# and YaRN's behind them
 _ROPE_TABLES: dict = {}
 
 
-def _rope_table(head_dim: int, theta: float, x: torch.Tensor):
-    """:func:`rope_frequencies` on ``x``'s device, built once per
-    ``(head_dim, theta, device)`` and kept: a step then copies nothing from
-    the host, and a copy from pageable memory would wait for the card. A
-    fake ``x`` (the dry run) gets a table of its own, which no later call
-    outside that fake mode may see."""
+def _rope_table(head_dim: int, theta: float, x: torch.Tensor, yarn=None):
+    """:func:`rope_frequencies` (:func:`yarn_frequencies` with ``yarn``)
+    on ``x``'s device, built once per ``(head_dim, theta, device[, yarn])``
+    and kept: a step then copies nothing from the host, and a copy from
+    pageable memory would wait for the card. A fake ``x`` (the dry run)
+    gets a table of its own, which no later call outside that fake mode
+    may see."""
     if type(x) is not torch.Tensor:        # only a subclass can be fake
         from torch._subclasses.fake_tensor import is_fake
         if is_fake(x):
-            return rope_frequencies(head_dim, theta, x.device)
-    key = (head_dim, float(theta), x.device)
+            return _frequencies(head_dim, theta, yarn, x.device)
+    key = (head_dim, float(theta), x.device) + (() if yarn is None
+                                                 else (yarn,))
     table = _ROPE_TABLES.get(key)
     if table is None:
-        table = _ROPE_TABLES[key] = rope_frequencies(head_dim, theta,
-                                                     x.device)
+        table = _ROPE_TABLES[key] = _frequencies(head_dim, theta, yarn,
+                                                 x.device)
     return table
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
+               theta: float, yarn=None) -> torch.Tensor:
     """Half-split RoPE in fp32. x: (..., seq, heads, head_dim); positions
-    broadcastable to (..., seq)."""
+    broadcastable to (..., seq). ``yarn`` (a ``YarnConfig``) takes YaRN's
+    frequencies and scales cos and sin by ``mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim)``."""
     head_dim = x.shape[-1]
-    freqs = _rope_table(head_dim, theta, x)                     # (hd/2,)
+    freqs = _rope_table(head_dim, theta, x, yarn)               # (hd/2,)
     angles = positions[..., None].float() * freqs               # (..., seq, hd/2)
     cos = torch.cos(angles)[..., None, :]                       # (..., seq, 1, hd/2)
     sin = torch.sin(angles)[..., None, :]
+    if yarn is not None:
+        m = (yarn_mscale(yarn.factor, yarn.mscale)
+             / yarn_mscale(yarn.factor, yarn.mscale_all_dim))
+        if m != 1.0:
+            cos, sin = cos * m, sin * m
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -42,6 +42,14 @@ stack is layer ``i`` of every cache plane.
   cache descriptor (``pool_<plane>`` in the cache dict). The SSM family
   has no pages: its ragged step runs over the engine's state rows.
 
+A drop-free MoE config (``cfg.moe.drop_free``: DeepSeek-V2 as published,
+its layers holding a share of the experts) runs its MoE layers on the
+forward's :class:`~repro_torch.models.moe.Route`: the ragged steps hand
+them the slots below each row's ``q_len`` (``n_valid``, their count on
+the host), the decode steps their real rows, so no padding slot is
+routed; each serving forward leaves its MoE work in ``moe_tally`` for the
+engine's counters.
+
 Parameters are stored once in the compute dtype (the JAX package casts
 every weight on every call, which is free inside ``jit`` but would copy
 all weights every tick in eager torch). The layer stack is a Python loop
@@ -61,6 +69,7 @@ from repro_torch.core.engines.desc import descriptor_for
 from repro_torch.distributed.sharding import (folded_weight, replicated,
                                               settle_residual)
 from repro_torch.models import blocks as B
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import quantize_kv
 from repro_torch.models.layers import (cross_entropy_loss, embed,
                                        lm_logits, rmsnorm, truncated_normal_)
@@ -146,6 +155,10 @@ class LM(nn.Module):
         self.plane_names = (() if desc is None
                             else tuple(p.name for p in desc.paged_planes))
         self.cache_family = None if desc is None else desc.family
+        # a drop-free MoE config's work in the last serving forward:
+        # (expert_rows, experts_run, routed_slots), int64 on the device
+        # (models/moe.py's Route); the serving engine takes it
+        self.moe_tally = None
 
     # ------------------------------------------------------------------ init
     def init(self, generator: torch.Generator) -> "LM":
@@ -235,6 +248,25 @@ class LM(nn.Module):
 
     def supports_ragged_step(self) -> bool:
         return self.cache_descriptor() is not None
+
+    def _route(self, n_valid, valid=lambda: None):
+        """A serving forward's :class:`~repro_torch.models.moe.Route`, or
+        None for a config without drop-free MoE layers: ``valid()`` the
+        (B, S) mask of the real slots (None: every slot), made only for a
+        drop-free config; ``n_valid`` their count, known on the host."""
+        m = self.cfg.moe
+        if m is None or not m.drop_free:
+            return None
+        if n_valid is None:
+            raise ValueError("a drop-free MoE step needs n_valid, the count "
+                             "of its real slots")
+        return moe_mod.Route(valid(), int(n_valid), [])
+
+    def _ragged_route(self, n_valid, tokens, q_lens):
+        """:meth:`_route` of a ragged step: the slots below each row's
+        ``q_len``."""
+        return self._route(n_valid, lambda: torch.arange(
+            tokens.shape[1], device=self.device)[None, :] < q_lens[:, None])
 
     # ---------------------------------------------------------------- train
     def loss_fn(self, batch):
@@ -406,11 +438,14 @@ class LM(nn.Module):
                     torch.stack(acc) for acc in tail)
             return self._logits(h[:, -1:], tokens), cache
         parts = ([], [])
+        route = self._route(Bz * S)
         for blk in self.blocks:
             h, kv = B.apply_decoder_block(blk, cfg, h, positions,
-                                          chunk_size=self.chunk_size)
+                                          chunk_size=self.chunk_size,
+                                          route=route)
             for acc, x in zip(parts, kv):
                 acc.append(x)
+        self.moe_tally = moe_mod.tally(route)
         padded = [self._pad_stack(acc, S, T) for acc in parts]
         if cfg.mla is not None:
             cache["c"], cache["kr"] = padded
@@ -448,11 +483,13 @@ class LM(nn.Module):
 
     # --------------------------------------------------------- decode steps
     @torch.no_grad()
-    def decode_step(self, cache, tokens, positions):
+    def decode_step(self, cache, tokens, positions, n_valid=None):
         """One token per row over the dense cache (KV written in place; the
         SSM states of the ``ssm`` and ``hybrid`` families come back as new
         tensors; the encoder-decoder reads its cross K/V ``ek``/``ev``).
-        tokens: (B, 1); positions: (B,) write/query index."""
+        tokens: (B, 1); positions: (B,) write/query index. A drop-free MoE
+        config routes the first ``n_valid`` rows (None: every row), the
+        rest being padding whose outputs the caller drops."""
         cfg = self.cfg
         h = self._embed_tokens(tokens)
         positions = positions.to(self.device, torch.long)
@@ -469,11 +506,16 @@ class LM(nn.Module):
                     blk, cfg, h, tuple(cache[n][i] for n in
                                        ("k", "v", "ek", "ev")), positions)
         else:
+            Bz = tokens.shape[0]
+            route = (self._route(Bz) if n_valid is None else self._route(
+                n_valid, lambda: torch.arange(Bz, device=self.device)[:, None]
+                < n_valid))
             names = self.plane_names
             for i, blk in enumerate(self.blocks):
                 h, _ = B.decode_decoder_block(
                     blk, cfg, h, tuple(cache[n][i] for n in names),
-                    positions)
+                    positions, route)
+            self.moe_tally = moe_mod.tally(route)
         return self._logits(h, tokens), new_cache
 
     def _decode_ssm_layers(self, blocks, h, conv, ssm):
@@ -546,7 +588,8 @@ class LM(nn.Module):
         return desc
 
     @torch.no_grad()
-    def step_ragged(self, cache, tokens, ctx_lens, q_lens, keep=None):
+    def step_ragged(self, cache, tokens, ctx_lens, q_lens, keep=None,
+                    n_valid=None):
         """One fused mixed-batch step over the dense padded cache planes
         (``(L, B, T, *shape)`` in descriptor order, written in place).
         tokens: (B, Qmax) — row ``b``'s ``q_lens[b]`` new tokens at
@@ -555,7 +598,9 @@ class LM(nn.Module):
         ``pos = ctx_lens + q_lens``. With every ``q_len == 1`` this is
         :meth:`decode_step` op for op. The SSM family runs the per-slot
         state scan over ``cache["conv"]``/``cache["ssm"]`` (``keep``:
-        see :meth:`_step_ragged_ssm`)."""
+        see :meth:`_step_ragged_ssm`). A drop-free MoE config routes only
+        the slots below each row's ``q_len`` and needs ``n_valid``, Σ
+        q_len known on the host, to gather just those."""
         desc = self._ragged_desc("ragged step")
         ctx_lens = ctx_lens.to(self.device, torch.long)
         q_lens = q_lens.to(self.device, torch.long)
@@ -564,10 +609,12 @@ class LM(nn.Module):
                                          keep)
         h = self._embed_tokens(tokens)
         names = self.plane_names
+        route = self._ragged_route(n_valid, tokens, q_lens)
         for i, blk in enumerate(self.blocks):
             h, _ = B.step_ragged_block(
                 blk, self.cfg, h, tuple(cache[n][i] for n in names),
-                ctx_lens, q_lens)
+                ctx_lens, q_lens, route)
+        self.moe_tally = moe_mod.tally(route)
         new_cache = dict(cache)
         new_cache["pos"] = (ctx_lens + q_lens).to(torch.int32)
         return self._logits(h, tokens), new_cache
@@ -587,26 +634,31 @@ class LM(nn.Module):
         one ``pool_<plane>`` (L, P, T, *shape) per descriptor plane and
         ``block_table`` (B, MP) int32. Returns logits (B, 1, V) and the
         cache with ``pos + 1`` and the same (updated in place) pool
-        tensors."""
+        tensors. A drop-free MoE config routes every row."""
         cfg, table = self.cfg, cache["block_table"]
         positions = positions.to(self.device, torch.long)
+        route = self._route(tokens.shape[0])
         h, pools = self._paged_layers(
             cache, self._embed_tokens(tokens),
             lambda blk, hh, planes: B.decode_paged_block(
-                blk, cfg, hh, planes, table, positions))
+                blk, cfg, hh, planes, table, positions, route))
+        self.moe_tally = moe_mod.tally(route)
         new_cache = {"pos": (positions + 1).to(torch.int32),
                      "block_table": table, **pools}
         return self._logits(h, tokens), new_cache
 
     @torch.no_grad()
-    def step_paged_ragged(self, cache, tokens, ctx_lens, q_lens, keep=None):
+    def step_paged_ragged(self, cache, tokens, ctx_lens, q_lens, keep=None,
+                          n_valid=None):
         """One fused mixed-batch step over the device page pool. tokens:
         (B, Qmax) — row ``b``'s ``q_lens[b]`` new tokens (0 marks padding
         rows); ctx_lens: (B,) tokens already pooled. Returns logits for
         every slot (B, Qmax, V) — callers read slot ``q_lens[b] - 1`` —
         and the cache with ``pos = ctx_lens + q_lens``. The SSM family has
         no pages: its cache is the engine's ``conv``/``ssm`` state rows
-        (``(L, B, ...)``) and the step is :meth:`_step_ragged_ssm`."""
+        (``(L, B, ...)``) and the step is :meth:`_step_ragged_ssm`. A
+        drop-free MoE config routes only the real slots, as
+        :meth:`step_ragged`."""
         desc = self._ragged_desc("ragged paged step")
         ctx_lens = ctx_lens.to(self.device, torch.long)
         q_lens = q_lens.to(self.device, torch.long)
@@ -614,10 +666,12 @@ class LM(nn.Module):
             return self._step_ragged_ssm(cache, tokens, ctx_lens, q_lens,
                                          keep)
         cfg, table = self.cfg, cache["block_table"]
+        route = self._ragged_route(n_valid, tokens, q_lens)
         h, pools = self._paged_layers(
             cache, self._embed_tokens(tokens),
             lambda blk, hh, planes: B.step_paged_ragged_block(
-                blk, cfg, hh, planes, table, ctx_lens, q_lens))
+                blk, cfg, hh, planes, table, ctx_lens, q_lens, route))
+        self.moe_tally = moe_mod.tally(route)
         new_cache = {"pos": (ctx_lens + q_lens).to(torch.int32),
                      "block_table": table, **pools}
         return self._logits(h, tokens), new_cache

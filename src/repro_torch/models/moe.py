@@ -40,28 +40,51 @@ not left to the collectives' registered backwards: the output sum's
 passes through (``sharding.all_reduce_sum``), the tokens' and the
 router's are each rank's share (``Partial``), and only the first
 ``model`` rank passes the aux loss's on.
+
+A drop-free config (``MoEConfig.drop_free``, DeepSeek-V2 as published)
+takes :func:`_moe_drop_free` instead, on one device: the router's
+``topk_method`` over all of its experts (:func:`_select`; DeepSeek-V2's
+group-limited greedy top-k, weights not renormalised and scaled), then
+the experts the layer holds (``first_held .. first_held + held - 1``,
+one chip's share of an expert-parallel layer; an absent expert adds
+nothing and nothing stands in for it), with no capacity: every (token,
+held expert) pair is computed. A serving step hands the layer its valid
+slots (:class:`Route`): only those are routed, so a token's output does
+not depend on its batch and no padding slot takes an expert's work. The
+pairs are sorted by held expert and each expert's rows multiplied as one
+group (``torch._grouped_mm`` on an sm90 card in bf16, a ``bmm`` over a
+per-expert buffer elsewhere), with no host read; each token's ``k``
+contributions are added in a fixed order. While a profiler records, the
+layer's parts are the ranges ``repro_torch.moe.route``, ``.experts`` and
+``.shared``; each call adds its work to the route's tally, which the
+serving engine counts (``expert_rows``, ``routed_slots``,
+``experts_run``).
 """
 from __future__ import annotations
 
+import functools
 import math
 from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import telemetry
 from repro_torch.distributed.sharding import settle_residual
 from repro_torch.models.layers import _act, apply_ffn, ffn_matrices
 
 
 def moe_matrices(cfg) -> dict:
     """MoE FFN matrix name → (shape, JAX pytree path below the block's
-    ``ffn``): the router, the stacked ``experts.*`` (always gated, one
+    ``ffn``): the router (over all ``num_experts``), the stacked
+    ``experts.*`` of the experts the layer holds (always gated, one
     ``(d_in, d_out)`` matrix per expert), and the ``shared``/``dense``
     FFNs (gated for a GLU activation)."""
     m, d = cfg.moe, cfg.d_model
     out = {"router": ((d, m.num_experts), ("router",))}
-    for n, shape in (("w_gate", (m.num_experts, d, m.d_expert)),
-                     ("w_up", (m.num_experts, d, m.d_expert)),
-                     ("w_down", (m.num_experts, m.d_expert, d))):
+    for n, shape in (("w_gate", (m.held, d, m.d_expert)),
+                     ("w_up", (m.held, d, m.d_expert)),
+                     ("w_down", (m.held, m.d_expert, d))):
         out["experts." + n] = (shape, ("experts", n))
     ffns = []
     if m.num_shared_experts:
@@ -148,10 +171,174 @@ def moe_dispatch_combine(experts, x_flat, top_ids, top_w, num_experts: int,
     return y
 
 
-def apply_moe(p, cfg, x, ep_axes=()):
+# ---------------------------------------------------------------------------
+# Drop-free routing over a held share of the experts
+# ---------------------------------------------------------------------------
+class Route(NamedTuple):
+    """What one serving forward tells its drop-free MoE layers. ``valid``
+    (B, S) bool marks the slots that hold a real token (None: every slot);
+    ``n_valid`` is their count, known on the host: the layer gathers
+    exactly those tokens and routes them. Each layer appends its work to
+    ``tally``, int64 on the device: ``(expert_rows, experts_run,
+    routed_slots)``, the (token, held expert) pairs computed, the held
+    experts given at least one row, and the slots routed."""
+    valid: Optional[torch.Tensor]
+    n_valid: int
+    tally: list
+
+
+def tally(route) -> Optional[torch.Tensor]:
+    """The (3,) sum of a forward's layer tallies, or None (no drop-free
+    layer ran)."""
+    if route is None or not route.tally:
+        return None
+    return torch.stack(route.tally).sum(0)
+
+
+def _select(probs, m):
+    """The experts and weights of each token under ``m.topk_method``:
+    ``(ids (T, k), weights (T, k) fp32)``. ``probs`` (T, E) are the
+    softmax scores. ``"group_limited_greedy"`` (DeepSeek-V2) scores each
+    of the ``n_group`` groups of consecutive experts by its best, keeps
+    the top ``topk_group`` groups and zeroes the other scores, then takes
+    the top-k of what is left; ``"greedy"`` the top-k of all. Ties go to
+    the lower id (a stable sort, as ``lax.top_k``). The weights are the
+    kept scores, renormalised to sum 1 only with ``norm_topk_prob``, times
+    ``routed_scaling_factor``."""
+    scores = probs
+    if m.topk_method == "group_limited_greedy":
+        T, E = probs.shape
+        per = E // m.n_group
+        best = probs.view(T, m.n_group, per).amax(-1)           # (T, G)
+        top = torch.sort(best, dim=-1, descending=True,
+                         stable=True).indices[:, :m.topk_group]
+        kept = torch.zeros_like(best, dtype=torch.bool).scatter_(1, top, True)
+        scores = probs.masked_fill(~kept.repeat_interleave(per, dim=1), 0.0)
+    elif m.topk_method != "greedy":
+        raise ValueError(f"unknown topk_method {m.topk_method!r}")
+    w, ids = torch.sort(scores, dim=-1, descending=True, stable=True)
+    w, ids = w[:, :m.top_k], ids[:, :m.top_k]
+    if m.norm_topk_prob:
+        w = w / w.sum(-1, keepdim=True).clamp_min(1e-9)
+    return ids, w * m.routed_scaling_factor
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90(device) -> bool:
+    return torch.cuda.get_device_capability(device) >= (9, 0)
+
+
+def _grouped(rows, experts) -> bool:
+    """Take ``torch._grouped_mm`` (CUTLASS's grouped GEMM, sm90, bf16)?"""
+    return (rows.is_cuda and rows.dtype == torch.bfloat16
+            and experts.w_gate.dtype == torch.bfloat16
+            and hasattr(torch, "_grouped_mm") and _sm90(rows.device))
+
+
+def _expert_products(experts, rows, key, counts, ends, cap: int,
+                     activation: str):
+    """Each held expert's GLU FFN over its rows. ``rows`` (N, d) are
+    sorted by ``key`` (N,), the held expert of each (``E``: none), so
+    expert ``e``'s rows are ``ends[e] - counts[e] .. ends[e] - 1``;
+    ``cap`` bounds any expert's rows. Returns (N, d): a row past
+    ``ends[-1]`` holds anything."""
+    if _grouped(rows, experts):
+        offs = ends.to(torch.int32)
+        h = _act(activation, torch._grouped_mm(rows, experts.w_gate,
+                                               offs=offs))
+        h.mul_(torch._grouped_mm(rows, experts.w_up, offs=offs))
+        return torch._grouped_mm(h, experts.w_down, offs=offs)
+    # elsewhere: one (E, cap, d) buffer and bmm; rows of no held expert go
+    # to a spare slot that no product reads
+    E = counts.shape[0]
+    e = key.clamp_max(E - 1)
+    slot = torch.where(key < E, torch.arange(key.shape[0], device=key.device)
+                       - (ends - counts)[e], cap)
+    buf = rows.new_zeros((E, cap + 1, rows.shape[1]))
+    buf[e, slot] = rows
+    buf = buf[:, :cap]
+    h = _act(activation, torch.bmm(buf, experts.w_gate))
+    h.mul_(torch.bmm(buf, experts.w_up))
+    return torch.bmm(h, experts.w_down)[e, slot.clamp_max(cap - 1)]
+
+
+def held_experts(experts, x, ids, w, m, activation: str):
+    """The routed part of a drop-free layer over the tokens ``x`` (n, d):
+    Σ over each token's ``k`` experts that the layer holds of weight ×
+    expert(x), with no capacity. The (token, expert) pairs are sorted by
+    held expert
+    (a stable sort: token order within an expert) and each expert's rows
+    multiplied as one group; each token's ``k`` contributions are added
+    in fp32 (or wider) in the order of its ``ids``, a fixed order.
+    Returns ``(y (n, d), expert_rows, experts_run)``, the two counts 0-d
+    int64 on the device: no host read."""
+    n, k = ids.shape
+    E = m.held
+    e = ids - m.first_held
+    held = (e >= 0) & (e < E)
+    key = torch.where(held, e, E).reshape(-1)                 # (n k,)
+    order = torch.argsort(key, stable=True)
+    counts = _counts(key, E + 1, torch.long)[:E]
+    ends = torch.cumsum(counts, 0)
+    out = _expert_products(experts, x[order // k], key[order], counts, ends,
+                           n, activation)
+    back = torch.empty_like(order)
+    back[order] = torch.arange(n * k, device=order.device)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    parts = torch.where(held[..., None], out[back].view(n, k, -1).to(acc),
+                        0.0) * w[..., None].to(acc)
+    y = parts[:, 0]
+    for j in range(1, k):
+        y = y + parts[:, j]
+    return y.to(x.dtype), ends[-1], (counts > 0).sum()
+
+
+def _moe_drop_free(p, cfg, x_flat, route):
+    """The drop-free layer over ``x_flat`` (T, d): route the valid slots,
+    run the held experts and the shared ones; a slot not routed gets 0.
+    Returns ``(y (T, d), aux)``. A serving forward passes its ``route``
+    and gets no ``aux``; the loss path (``route`` None) routes every slot
+    and asks for ``aux``, the GShard load-balancing loss (not DeepSeek-V2's
+    balance losses)."""
+    m = cfg.moe
+    T = x_flat.shape[0]
+    idx = None
+    with telemetry.span(telemetry.MOE_ROUTE):
+        if route is not None and route.valid is not None:
+            if route.n_valid is None:
+                raise ValueError("a Route that marks valid slots needs "
+                                 "their count, n_valid")
+            # the valid slots, in slot order, by a sort of fixed size
+            idx = torch.argsort((~route.valid.reshape(T)).to(torch.uint8),
+                                stable=True)[:route.n_valid]
+        x = x_flat if idx is None else x_flat[idx]
+        probs = torch.softmax(x.float() @ p.router.float(), dim=-1)
+        ids, w = _select(probs, m)
+    with telemetry.span(telemetry.MOE_EXPERTS):
+        y, rows, run = held_experts(p.experts, x, ids, w, m,
+                                    cfg.ffn_activation)
+    with telemetry.span(telemetry.MOE_SHARED):
+        for part in ("shared", "dense"):
+            ffn = getattr(p, part, None)
+            if ffn is not None:
+                y = y + apply_ffn(ffn, x, cfg.ffn_activation)
+    if idx is not None:
+        y = x_flat.new_zeros(x_flat.shape).index_copy_(0, idx, y)
+    if route is None:
+        ce = _counts(ids.reshape(-1), m.num_experts, torch.float32) \
+            / (x.shape[0] * m.top_k)
+        return y, m.num_experts * torch.sum(probs.mean(dim=0) * ce)
+    routed = torch.full((), x.shape[0], dtype=torch.long, device=x.device)
+    route.tally.append(torch.stack([rows, run, routed]))
+    return y, None
+
+
+def apply_moe(p, cfg, x, ep_axes=(), route=None):
     """x: (B, S, d). Returns (y, aux_loss). ``p`` carries ``router``, the
     stacked ``experts`` and, where the config has them, the ``shared`` and
-    ``dense`` FFNs. With ``ep_axes`` (the data axes) and ``x`` a DTensor
+    ``dense`` FFNs. A drop-free config takes :func:`_moe_drop_free`
+    (``route``: a serving step's valid slots and tally; None on the loss
+    path, which routes every token and gets the aux loss). With ``ep_axes`` (the data axes) and ``x`` a DTensor
     whose mesh has a ``model`` axis, dispatch goes through an EP path;
     otherwise the single-device path."""
     m = cfg.moe
@@ -160,6 +347,13 @@ def apply_moe(p, cfg, x, ep_axes=()):
     mesh = getattr(x, "device_mesh", None)
     use_ep = bool(ep_axes) and mesh is not None \
         and "model" in (mesh.mesh_dim_names or ())
+    if m.drop_free:
+        if mesh is not None:
+            raise NotImplementedError(
+                "a drop-free MoE layer runs on one device (its held experts "
+                "are its share of an expert-parallel layer)")
+        y, aux = _moe_drop_free(p, cfg, x_flat, route)
+        return y.reshape(B, S, d), aux
     if use_ep and B * S <= 4096:
         # decode-scale token counts: move the (few) tokens, not the FSDP'd
         # expert weights

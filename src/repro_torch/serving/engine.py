@@ -171,10 +171,15 @@ class ServingEngine:
         # model calls, and of the ragged steps the padded slots
         # (Σ Bb × Qb: width and Qmax bucket to powers of two), the real
         # tokens (Σ q_len) and the bytes of the logits the head returned
-        # (with admission prefills')
+        # (with admission prefills'). A drop-free MoE model's work adds on
+        # the device (0-d int64; ``stats()`` reads them): Σ over its
+        # layers of the (token, held expert) pairs computed, the slots
+        # routed (never a padding slot) and the held experts given rows
         self.step_stats = {"prefill_calls": 0, "step_calls": 0,
                            "fused_steps": 0, "step_slots": 0,
-                           "step_tokens": 0, "logit_bytes": 0}
+                           "step_tokens": 0, "logit_bytes": 0,
+                           "expert_rows": 0, "routed_slots": 0,
+                           "experts_run": 0}
         self.max_pages = -(-cfg.max_len // cfg.page_tokens)
         budget = spec_cfg.kv_hbm_bytes
         if self.desc is None:
@@ -334,6 +339,7 @@ class ServingEngine:
         self.step_stats["prefill_calls"] += 1
         logits, cache = self._prefill(toks)
         self._count_logits(logits)
+        self._count_moe()
         if self.pooled:
             return logits, self._pool_admit(req.rid, cache, toks.shape[0])
         self._mirror_prefill(req.rid, cache, toks.shape[0])
@@ -389,6 +395,19 @@ class ServingEngine:
         self.step_stats["logit_bytes"] += logits.numel() * \
             logits.element_size()
 
+    def _count_moe(self) -> None:
+        """Add the last forward's drop-free MoE work (the model's
+        ``moe_tally``, on the device) to the step counters: three adds on
+        the device, no host read."""
+        t = getattr(self.model, "moe_tally", None)
+        if t is None:
+            return
+        self.model.moe_tally = None
+        st = self.step_stats
+        for i, key in enumerate(("expert_rows", "experts_run",
+                                 "routed_slots")):
+            st[key] = st[key] + t[i]
+
     def decode_batch(self, rids: list, caches: list, tokens: list,
                      mirrored: bool):
         """One batched single-token decode step (the unfused baseline's
@@ -411,7 +430,9 @@ class ServingEngine:
                                    device=self.device)[:, None]
         with telemetry.span(telemetry.FORWARD):
             self._count_step()
-            logits, batch = self.model.decode_step(batch, tok_arr, positions)
+            logits, batch = self.model.decode_step(batch, tok_arr, positions,
+                                                   n_valid=B)
+            self._count_moe()
         with telemetry.span(telemetry.COMMIT):
             self.mirror_decode_batch(rids if mirrored else [], batch,
                                      positions)
@@ -525,8 +546,9 @@ class ServingEngine:
                                        for a in (tokens, ctx_p, qarr))
             with telemetry.span(telemetry.FORWARD):
                 self._count_step(Bb * Qb, sum(q_lens))
-                logits, out = self.model.step_paged_ragged(cache, tokens,
-                                                           ctx_p, qarr)
+                logits, out = self.model.step_paged_ragged(
+                    cache, tokens, ctx_p, qarr, n_valid=sum(q_lens))
+                self._count_moe()
             with telemetry.span(telemetry.COMMIT):
                 self._count_logits(logits)
                 committed = self._verify_drafts(logits, tok_rows, q_lens,
@@ -662,7 +684,9 @@ class ServingEngine:
         with telemetry.span(telemetry.FORWARD):
             self._count_step(Bb * Qb, sum(q_lens))
             logits, nbatch = self.model.step_ragged(batch, tokens, ctx, qarr,
-                                                    keep=keep)
+                                                    keep=keep,
+                                                    n_valid=sum(q_lens))
+            self._count_moe()
         with telemetry.span(telemetry.COMMIT):
             self._count_logits(logits)
             committed = self._verify_drafts(logits, tok_rows, q_lens, spec)
@@ -709,6 +733,7 @@ class ServingEngine:
                     logits, pc = self.model.decode_step(
                         pc, torch.tensor([[int(t)]], device=self.device),
                         pc["pos"])
+                    self._count_moe()
             with telemetry.span(telemetry.COMMIT):
                 self.tiered.commit_state(
                     [rid], [len(toks)],
@@ -721,6 +746,7 @@ class ServingEngine:
                     logits, cache = self.model.decode_step(
                         cache, torch.tensor([[int(t)]], device=self.device),
                         cache["pos"])
+                    self._count_moe()
             with telemetry.span(telemetry.COMMIT):
                 if mirrored and len(toks):
                     kv = batching.gather_kv_range(
@@ -742,6 +768,7 @@ class ServingEngine:
                 logits, out = self.model.decode_step_paged(
                     pc, torch.tensor([[int(t)]], device=self.device),
                     cache["pos"])
+                self._count_moe()
             with telemetry.span(telemetry.COMMIT):
                 self.tiered.commit_step_planes(
                     tuple(out["pool_" + n] for n in names), [rid], [1])
@@ -816,7 +843,9 @@ class ServingEngine:
 
     def stats(self) -> dict:
         journal = {} if self.journal is None else dict(self.journal.stats)
+        steps = {k: int(v) if isinstance(v, torch.Tensor) else v
+                 for k, v in self.step_stats.items()}
         return {"sim_time_s": self.clock.now,
                 "mirror_d2h_bytes": self.mirror_d2h_bytes,
-                **self.step_stats, **self.spec_stats, **self.sched_stats,
+                **steps, **self.spec_stats, **self.sched_stats,
                 **journal, **self.tiered.stats}

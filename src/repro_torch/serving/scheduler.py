@@ -561,7 +561,8 @@ class Scheduler:
         """The counters a tick record differences, in its order."""
         st = self.engine.step_stats
         return (st["step_slots"], st["step_tokens"], st["logit_bytes"],
-                self.stats.decode_rows, self.stats.prefill_chunks)
+                self.stats.decode_rows, self.stats.prefill_chunks,
+                st["expert_rows"], st["routed_slots"], st["experts_run"])
 
     def _tick(self) -> bool:
         with telemetry.span(telemetry.ADMIT):

@@ -17,13 +17,19 @@ device's kernels and on the same clock:
 * ``repro_torch.tick.commit``: draft verification, the pool commit, the
   rows' bookkeeping, and the scheduler's work after the step;
 * ``repro_torch.train.forward``, ``.backward`` (the recompute of a
-  rematerialised layer included) and ``.optimizer`` (AdamW).
+  rematerialised layer included) and ``.optimizer`` (AdamW);
+* inside a forward, each drop-free MoE layer's ``repro_torch.moe.route``
+  (the router and the top-k), ``repro_torch.moe.experts`` (the dispatch,
+  the held experts' grouped products, the combine) and
+  ``repro_torch.moe.shared`` (the shared experts).
 
 While a profiler records, each tick also leaves a :class:`TickRecord` in
 :func:`records`: its start and end in ``time.time_ns()`` (the profiler's
 timeline) and what the engine's step counters and the scheduler's row
 counters moved by in it. The counters count always; a record only takes
-their difference at the tick's boundaries.
+their difference at the tick's boundaries. The MoE counters live on the
+device (a record's are 0-d tensors, read when the record is): keeping
+them reads nothing back.
 
 Recording is the only switch. With no profiler recording, :func:`span`
 returns one shared no-op context and no record is kept. The store is one
@@ -48,6 +54,9 @@ TRAIN_STEP = "repro_torch.train.step"
 TRAIN_FORWARD = "repro_torch.train.forward"
 TRAIN_BACKWARD = "repro_torch.train.backward"
 TRAIN_OPTIMIZER = "repro_torch.train.optimizer"
+MOE_ROUTE = "repro_torch.moe.route"
+MOE_EXPERTS = "repro_torch.moe.experts"
+MOE_SHARED = "repro_torch.moe.shared"
 
 MAX_RECORDS = 1 << 16
 
@@ -66,6 +75,12 @@ class TickRecord(NamedTuple):
     logit_bytes: int         # bytes of every logits tensor the head returned
     decode_rows: int
     prefill_chunks: int
+    # a drop-free MoE model's step counters, 0-d int64 on the device (0
+    # for any other model): Σ over its layers of the (token, held expert)
+    # pairs computed, the slots routed, the held experts given rows
+    expert_rows: object = 0
+    routed_slots: object = 0
+    experts_run: object = 0
 
 
 def span(name: str):

@@ -5,7 +5,9 @@ against the JAX package's.
   carries every field since training brought back the schedule hint;
   ``deepseek-v2-236b-noexperts`` is JAX's DeepSeek-V2 without its
   experts), and so is its ``-smoke`` sibling, with the same
-  ``param_count()``;
+  ``param_count()``; the fields the port adds (routing, held experts,
+  drop-free, YaRN) hold their defaults there, and
+  ``deepseek-v2-236b-published`` is the mirror with DeepSeek-V2's own;
 * ``LM.prefill``, ``decode_step``, ``decode_step_paged``,
   ``step_paged_ragged`` and ``step_ragged`` on ``deepseek-v2-236b-smoke``
   and ``arctic-480b-smoke`` (MoE), ``gemma-7b-smoke`` (GeGLU, tied
@@ -37,7 +39,28 @@ SMOKE = tuple(a + "-smoke" for a in NEW_ARCHS)
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("name", sorted(REGISTRY))
+def _port_fields(cfg, jcfg, f):
+    """A field of the port's own (absent from the JAX package's config)
+    must hold its default: it changes nothing of the JAX behaviour."""
+    if not hasattr(jcfg, f.name):
+        assert getattr(cfg, f.name) == f.default, f.name
+        return True
+    return False
+
+
+def _same_group(mine, ref, what):
+    """One nested config group field for field: the JAX package's fields
+    equal, the port's own at their defaults."""
+    ref_d = dataclasses.asdict(ref)
+    for g in dataclasses.fields(mine):
+        if g.name in ref_d:
+            assert getattr(mine, g.name) == ref_d[g.name], (what, g.name)
+        else:
+            assert getattr(mine, g.name) == g.default, (what, g.name)
+
+
+@pytest.mark.parametrize("name", sorted(n for n in REGISTRY
+                                        if "published" not in n))
 def test_config_is_jax_config(name):
     cfg = get_config(name)
     if "noexperts" in name:
@@ -47,10 +70,12 @@ def test_config_is_jax_config(name):
     else:
         jcfg = jax_get_config(name)
     for f in dataclasses.fields(cfg):
+        if _port_fields(cfg, jcfg, f):
+            continue
         mine, ref = getattr(cfg, f.name), getattr(jcfg, f.name)
         if f.name in ("moe", "mla", "ssm", "hybrid", "frontend") \
                 and mine is not None:
-            assert dataclasses.asdict(mine) == dataclasses.asdict(ref), f.name
+            _same_group(mine, ref, f.name)
         else:
             assert mine == ref, f.name
     # the port leaves out no field: the training schedule hint came back
@@ -59,6 +84,36 @@ def test_config_is_jax_config(name):
         f.name for f in dataclasses.fields(cfg)}
     assert left == set()
     assert cfg.param_count() == jcfg.param_count()
+
+
+@pytest.mark.parametrize("suffix", ["", "-smoke"])
+def test_published_deepseek_is_the_mirror_with_its_routing_and_yarn(suffix):
+    """``deepseek-v2-236b-published`` is the JAX mirror with the routing,
+    drop-free mode and YaRN of DeepSeek-V2's ``config.json``; its smoke
+    sibling keeps those at small widths (16 experts in 4 groups, a q
+    LoRA)."""
+    cfg = get_config("deepseek-v2-236b-published" + suffix)
+    m, y = cfg.moe, cfg.rope_scaling
+    assert (m.topk_method, m.n_group, m.topk_group, m.norm_topk_prob,
+            m.routed_scaling_factor, m.drop_free, m.num_held) == \
+        ("group_limited_greedy", 8 if not suffix else 4,
+         3 if not suffix else 2, False, 16.0, True, 0)
+    assert (y.factor, y.original_max_position_embeddings, y.beta_fast,
+            y.beta_slow, y.mscale, y.mscale_all_dim) == \
+        (40.0, 4096, 32.0, 1.0, 0.707, 0.707)
+    if suffix:
+        assert (m.num_experts, m.top_k, cfg.mla.q_lora_rank) == (16, 3, 48)
+        return
+    mirror = get_config("deepseek-v2-236b")
+    for f in dataclasses.fields(cfg):
+        if f.name not in ("name", "moe", "rope_scaling"):
+            assert getattr(cfg, f.name) == getattr(mirror, f.name), f.name
+    for f in dataclasses.fields(m):
+        if f.name not in ("topk_method", "n_group", "topk_group",
+                          "norm_topk_prob", "routed_scaling_factor",
+                          "drop_free"):
+            assert getattr(m, f.name) == getattr(mirror.moe, f.name), f.name
+    assert cfg.param_count() == mirror.param_count()
 
 
 # ---------------------------------------------------------------- model steps

@@ -1535,13 +1535,15 @@ def test_kv_page_write_at_the_chat_shape(cuda_device, kv_cache_dtype,
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch,kv_cache_dtype", [
     ("internlm2-1.8b-smoke", "native"), ("internlm2-1.8b-smoke", "int8"),
-    ("deepseek-v2-236b-noexperts-smoke", "native")])
+    ("deepseek-v2-236b-noexperts-smoke", "native"),
+    ("deepseek-v2-236b-published-smoke", "native")])
 def test_paged_steps_make_no_host_sync(cuda_device, arch, kv_cache_dtype):
     """The fused step (``step_paged_ragged``: a padding row, a decode row,
     a chunk) and the pooled decode step (``decode_step_paged``) of a small
     bf16 model, once warm, under ``torch.cuda.set_sync_debug_mode("error")``:
     no op in them waits for the card. The write launches once a layer a
-    step."""
+    step. The published DeepSeek-V2 routes the 9 real slots (the host's
+    count, as the engine passes it) through its grouped experts."""
     cfg = get_config(arch)
     dev = cuda_device
     model = LM(cfg, dtype=torch.bfloat16, device=dev,
@@ -1560,7 +1562,7 @@ def test_paged_steps_make_no_host_sync(cuda_device, arch, kv_cache_dtype):
     q_lens = torch.tensor([0, 1, 8], dtype=torch.int32, device=dev)
 
     def steps():
-        model.step_paged_ragged(cache, tokens, ctx, q_lens)
+        model.step_paged_ragged(cache, tokens, ctx, q_lens, n_valid=9)
         return model.decode_step_paged(cache, tokens[:, :1], ctx + q_lens)
     steps()                    # the kernel libraries and RoPE's table
     torch.cuda.synchronize()

@@ -122,6 +122,9 @@ def test_mla_config_is_jax_deepseek_without_experts(suffix):
     for f in dataclasses.fields(cfg):
         if f.name == "name":
             continue
+        if not hasattr(jcfg, f.name):         # the port's own field (YaRN)
+            assert getattr(cfg, f.name) == f.default, f.name
+            continue
         mine, ref = getattr(cfg, f.name), getattr(jcfg, f.name)
         if f.name in ("mla", "frontend"):     # the port's own dataclasses
             assert dataclasses.asdict(mine) == dataclasses.asdict(ref)

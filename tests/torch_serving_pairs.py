@@ -60,10 +60,11 @@ COUNTERS = (
 ) + tuple(f"pool_{d}_bytes_{p}" for d in ("d2h", "h2d")
           for p in PLANE_STAT_NAMES)
 # step counters one engine has and the other has no twin of: the port's
-# padded slots, real tokens and logit bytes of its steps, and the JAX
-# engine's count of distinct step shapes (its jit compiles; PyTorch
-# compiles nothing)
-PORT_ONLY = ("step_slots", "step_tokens", "logit_bytes")
+# padded slots, real tokens and logit bytes of its steps and its drop-free
+# MoE work (no JAX config is drop-free), and the JAX engine's count of
+# distinct step shapes (its jit compiles; PyTorch compiles nothing)
+PORT_ONLY = ("step_slots", "step_tokens", "logit_bytes", "expert_rows",
+             "routed_slots", "experts_run")
 JAX_ONLY = ("step_compiles", "step_cache_hits")
 
 _MODELS: dict = {}
